@@ -1,0 +1,389 @@
+"""Whisper encoder/decoder as torch modules (port of thewhisper_tpu's
+``models/whisper.py``).
+
+The module tree holds the weights in PyTorch's layout (``nn.Linear`` keeps
+(out, in)); the functions below mirror the JAX package's entry points:
+
+- :func:`encoder_forward`: conv stem, 32 pre-LN layers whose attention is
+  the K2 kernel (``ops.attention.encoder_attention``) on CUDA tensors, and
+  the final LayerNorm. S = 1500 runs unpadded: the kernel masks the ragged
+  tile, so the TPU's pad-to-512 and segment ids have no counterpart.
+- :func:`compute_cross_kv`, :func:`decoder_prefill`, :func:`decoder_step`:
+  the decoder over a (L, B, H, S, dh) cache written in place (the GPU's
+  layout; the TPU's feature-major (L, B, H, dh, S) and its where-iota
+  writes do not carry over). Both decoder passes return cross-attention
+  probabilities reduced to the checkpoint's alignment heads, the DTW input.
+
+Numerics follow JAX: LayerNorm in f32, attention scores and softmax in f32
+with probabilities cast to the value type, f32 logits from the tied
+embedding (a bf16 matmul would round them before argmax), GELU exact in
+f32 and tanh-approximate in bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.ops.attention import encoder_attention
+
+AttentionFn = Callable[..., torch.Tensor]
+
+
+class DecodeCache(NamedTuple):
+    """Self K/V (L, B, H, S_max, dh), updated in place slot by slot, and
+    cross K/V (L, B, H, T_enc, dh), computed once per audio window."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in f32 and cast back to the input type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU in f32, tanh approximation in lower precision (the
+    JAX package's rule, ``models/whisper.py::_gelu``)."""
+    return F.gelu(x, approximate="none" if x.dtype == torch.float32 else "tanh")
+
+
+class Attention(nn.Module):
+    """Whisper attention projections; k has no bias."""
+
+    def __init__(self, d: int, n_heads: int, **kw):
+        super().__init__()
+        self.n_heads = n_heads
+        self.q = nn.Linear(d, d, **kw)
+        self.k = nn.Linear(d, d, bias=False, **kw)
+        self.v = nn.Linear(d, d, **kw)
+        self.out = nn.Linear(d, d, **kw)
+
+    def heads(self, proj: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, d) -> (B, S, H, dh) view of a projection."""
+        b, s, d = x.shape
+        return proj(x).view(b, s, self.n_heads, d // self.n_heads)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d: int, n_heads: int, d_ff: int, **kw):
+        super().__init__()
+        self.ln1 = LayerNorm(d, **kw)
+        self.attn = Attention(d, n_heads, **kw)
+        self.ln2 = LayerNorm(d, **kw)
+        self.fc1 = nn.Linear(d, d_ff, **kw)
+        self.fc2 = nn.Linear(d_ff, d, **kw)
+
+    def forward(self, x: torch.Tensor, attention: AttentionFn) -> torch.Tensor:
+        a_in = self.ln1(x)
+        at = self.attn
+        a = attention(at.heads(at.q, a_in), at.heads(at.k, a_in),
+                      at.heads(at.v, a_in))
+        x = x + at.out(a.reshape(x.shape))
+        return x + self.fc2(_gelu(self.fc1(self.ln2(x))))
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, arch: WhisperArch, n_source_positions: int, **kw):
+        super().__init__()
+        d = arch.d_model
+        self.conv1 = nn.Conv1d(arch.n_mels, d, 3, padding=1, **kw)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **kw)
+        self.pos_emb = nn.Parameter(torch.empty(n_source_positions, d, **kw))
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, arch.encoder_heads, arch.d_ff, **kw)
+            for _ in range(arch.encoder_layers))
+        self.ln_post = LayerNorm(d, **kw)
+
+    def forward(self, mel: torch.Tensor,
+                attention: AttentionFn = encoder_attention) -> torch.Tensor:
+        x = mel.to(self.conv1.weight.dtype)
+        x = _gelu(self.conv1(x))
+        x = _gelu(self.conv2(x)).transpose(1, 2)              # (B, T, d)
+        t, n_pos = x.shape[1], self.pos_emb.shape[0]
+        if t > n_pos:
+            raise ValueError(
+                f"mel input produces {t} encoder positions but the loaded "
+                f"position table has {n_pos}")
+        x = x + self.pos_emb[:t]
+        for layer in self.layers:
+            x = layer(x, attention)
+        return self.ln_post(x)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d: int, n_heads: int, d_ff: int, **kw):
+        super().__init__()
+        self.ln1 = LayerNorm(d, **kw)
+        self.self_attn = Attention(d, n_heads, **kw)
+        self.ln_cross = LayerNorm(d, **kw)
+        self.cross_attn = Attention(d, n_heads, **kw)
+        self.ln2 = LayerNorm(d, **kw)
+        self.fc1 = nn.Linear(d, d_ff, **kw)
+        self.fc2 = nn.Linear(d_ff, d, **kw)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, arch: WhisperArch, **kw):
+        super().__init__()
+        d = arch.d_model
+        self.token_emb = nn.Parameter(torch.empty(arch.vocab_size, d, **kw))
+        self.pos_emb = nn.Parameter(
+            torch.empty(arch.max_target_positions, d, **kw))
+        self.layers = nn.ModuleList(
+            DecoderLayer(d, arch.decoder_heads, arch.d_ff, **kw)
+            for _ in range(arch.decoder_layers))
+        self.ln_post = LayerNorm(d, **kw)
+
+
+class Whisper(nn.Module):
+    """The model: ``encoder`` and ``decoder`` sub-modules plus its arch.
+
+    ``n_source_positions`` is the encoder position table's length (shorter
+    than ``arch.max_source_positions`` for flexible chunks)."""
+
+    def __init__(self, arch: WhisperArch,
+                 n_source_positions: Optional[int] = None,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.arch = arch
+        self.encoder = AudioEncoder(
+            arch, n_source_positions or arch.max_source_positions, **kw)
+        self.decoder = TextDecoder(arch, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.token_emb.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.token_emb.device
+
+
+def model_from_state(state: Mapping[str, object], arch: WhisperArch,
+                     dtype: torch.dtype = torch.float32,
+                     device=None) -> Whisper:
+    """Build a :class:`Whisper` on ``device`` from a state dict in the
+    port's naming (values: tensors or numpy arrays of any float type)."""
+    tensors = {k: (v if isinstance(v, torch.Tensor)
+                   else torch.from_numpy(np.array(v, np.float32)))
+               .to(device=device, dtype=dtype)
+               for k, v in state.items()}
+    n_src = tensors["encoder.pos_emb"].shape[0]
+    with torch.device("meta"):
+        model = Whisper(arch, n_source_positions=n_src, dtype=dtype)
+    model.load_state_dict(tensors, assign=True)
+    return model.requires_grad_(False).eval()
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def encoder_forward(model: Whisper, mel: torch.Tensor,
+                    attention: AttentionFn = encoder_attention) -> torch.Tensor:
+    """(B, n_mels, T_mel) features -> (B, T_mel // 2, d) encoder states.
+
+    ``attention`` is the encoder's attention function: the kernel wrapper by
+    default; ``ops.attention.encoder_attention_plain`` gives the plain
+    version on any device (to hold the kernel path against it)."""
+    return model.encoder(mel, attention)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def _alignment_selector(arch: WhisperArch) -> np.ndarray:
+    """(L, H, A) one-hot selecting each alignment head's (layer, head)."""
+    heads = arch.alignment_heads
+    sel = np.zeros((arch.decoder_layers, arch.decoder_heads, max(1, len(heads))),
+                   dtype=np.float32)
+    for i, (layer, head) in enumerate(heads):
+        sel[layer, head, i] = 1.0
+    return sel
+
+
+def compute_cross_kv(model: Whisper, enc_out: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of every decoder layer: (L, B, H, T, dh) each."""
+    ks, vs = [], []
+    for layer in model.decoder.layers:
+        ca = layer.cross_attn
+        ks.append(ca.heads(ca.k, enc_out).transpose(1, 2))
+        vs.append(ca.heads(ca.v, enc_out).transpose(1, 2))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def make_cache(arch: WhisperArch, batch: int, max_len: int,
+               cross_k: torch.Tensor, cross_v: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> DecodeCache:
+    shape = (arch.decoder_layers, batch, arch.decoder_heads, max_len,
+             arch.head_dim)
+    kw = {"device": cross_k.device, "dtype": dtype or cross_k.dtype}
+    return DecodeCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw),
+                       cross_k, cross_v)
+
+
+def _attend(q, k, v, mask=None, extra_logit=None, extra_v=None):
+    """q (B, H, Sq, dh) against k/v (B, H, Skv, dh): f32 scores and softmax,
+    probabilities cast to v's type for the value product. ``extra_logit``
+    (B, H, Sq, 1) / ``extra_v`` (B, H, Sq, dh) append one key that is not in
+    the cache (the token being decoded). Returns (out, f32 probs)."""
+    dh = q.shape[-1]
+    logits = torch.matmul((q * dh ** -0.5).float(),
+                          k.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e9)
+    if extra_logit is None:
+        probs = torch.softmax(logits, dim=-1)
+        return torch.matmul(probs.to(v.dtype), v), probs
+    probs = torch.softmax(torch.cat([logits, extra_logit], dim=-1), dim=-1)
+    out = (torch.matmul(probs[..., :-1].to(v.dtype), v)
+           + probs[..., -1:].to(v.dtype) * extra_v)
+    return out, probs
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, dh) -> (B, S, H * dh)."""
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _self_qkv(layer: DecoderLayer, x: torch.Tensor):
+    """LN1 then self-attention q, k, v as (B, H, S, dh)."""
+    sa = layer.self_attn
+    q_in = layer.ln1(x)
+    return tuple(sa.heads(p, q_in).transpose(1, 2) for p in (sa.q, sa.k, sa.v))
+
+
+def _cross_and_mlp(x, layer: DecoderLayer, cross_k, cross_v, sel):
+    """Cross-attention (capturing the alignment heads through the (H, A)
+    one-hot ``sel``) and the MLP: returns (x, align (B, Sq, A, T))."""
+    ca = layer.cross_attn
+    cq = ca.heads(ca.q, layer.ln_cross(x)).transpose(1, 2)
+    c, probs = _attend(cq, cross_k.to(cq.dtype), cross_v.to(cq.dtype))
+    align = torch.einsum("bhqk,ha->bqak", probs, sel)
+    x = x + ca.out(_merge_heads(c))
+    x = x + layer.fc2(_gelu(layer.fc1(layer.ln2(x))))
+    return x, align
+
+
+def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logits in f32 (exact products of the working type)."""
+    return torch.matmul(x.float(), model.decoder.token_emb.float().t())
+
+
+def _selector(model: Whisper) -> torch.Tensor:
+    """:func:`_alignment_selector` on the model's device, made once: a
+    host-to-device copy per decode step would synchronize the stream."""
+    sel = getattr(model, "_align_sel", None)
+    if sel is None or sel.device != model.device:
+        sel = torch.from_numpy(_alignment_selector(model.arch)).to(model.device)
+        model._align_sel = sel
+    return sel
+
+
+def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
+                    ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """Run the forced prompt (B, P) in one pass, filling cache slots [0, P).
+
+    Returns (logits (B, P, V) f32, cache, align (B, P, A, T_enc))."""
+    dec = model.decoder
+    p = tokens.shape[1]
+    x = dec.token_emb[tokens] + dec.pos_emb[:p]
+    causal = torch.ones(p, p, dtype=torch.bool, device=x.device).tril()
+    sel = _selector(model)
+    align = 0.0
+    for l, layer in enumerate(dec.layers):
+        q, k, v = _self_qkv(layer, x)
+        cache.self_k[l, :, :, :p] = k
+        cache.self_v[l, :, :, :p] = v
+        a, _ = _attend(q, cache.self_k[l, :, :, :p].to(q.dtype),
+                       cache.self_v[l, :, :, :p].to(q.dtype), causal)
+        x = x + layer.self_attn.out(_merge_heads(a))
+        x, al = _cross_and_mlp(x, layer, cache.cross_k[l], cache.cross_v[l],
+                               sel[l])
+        align = align + al
+    x = dec.ln_post(x)
+    return _logits(model, x), cache, align
+
+
+def decoder_step(model: Whisper, token: torch.Tensor, position: int,
+                 cache: DecodeCache
+                 ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """One decode step for ``token`` (B, 1) at cache slot ``position``.
+
+    Attends the cache slots below ``position`` plus the token's own fresh
+    k/v as one extra logit, then writes that k/v into slot ``position``.
+    Returns (logits (B, V) f32, cache, align (B, A, T_enc))."""
+    dec = model.decoder
+    x = dec.token_emb[token] + dec.pos_emb[position:position + 1]
+    sel = _selector(model)
+    align = 0.0
+    for l, layer in enumerate(dec.layers):
+        q, k, v = _self_qkv(layer, x)                         # (B, H, 1, dh)
+        dh = q.shape[-1]
+        self_logit = ((q * dh ** -0.5).float() * k.float()).sum(-1, keepdim=True)
+        a, _ = _attend(q, cache.self_k[l, :, :, :position].to(q.dtype),
+                       cache.self_v[l, :, :, :position].to(q.dtype),
+                       extra_logit=self_logit, extra_v=v)
+        cache.self_k[l, :, :, position] = k[:, :, 0]
+        cache.self_v[l, :, :, position] = v[:, :, 0]
+        x = x + layer.self_attn.out(_merge_heads(a))
+        x, al = _cross_and_mlp(x, layer, cache.cross_k[l], cache.cross_v[l],
+                               sel[l])
+        align = align + al
+    x = dec.ln_post(x)
+    return _logits(model, x)[:, 0], cache, align[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Random init (tests, benchmarks; real weights come from models/load.py)
+# ---------------------------------------------------------------------------
+
+
+def _sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed sinusoidal encoder positions."""
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def init_params(arch: WhisperArch, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device=None) -> Whisper:
+    """Random model with thewhisper_tpu's ``init_params`` distributions:
+    N(0, 0.02) weights, embeddings and conv kernels, zero biases, unit
+    LayerNorm scales, sinusoidal encoder positions. Draws on ``device``
+    from ``generator`` (which must live there)."""
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in Whisper(arch).state_dict().items()}
+    state: Dict[str, torch.Tensor] = {}
+    for name, shape in shapes.items():
+        if name == "encoder.pos_emb":
+            state[name] = torch.from_numpy(
+                _sinusoids(arch.max_source_positions, arch.d_model))
+        elif name.endswith("bias"):
+            state[name] = torch.zeros(shape, device=device)
+        elif ".ln" in name:                       # LayerNorm scales
+            state[name] = torch.ones(shape, device=device)
+        else:
+            state[name] = 0.02 * torch.randn(
+                shape, generator=generator, device=device)
+    return model_from_state(state, arch, dtype=dtype, device=device)

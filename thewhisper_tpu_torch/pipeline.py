@@ -1,0 +1,453 @@
+"""Offline ASR pipeline: long-form windowing, batched decode, word merge
+(port of thewhisper_tpu's ``pipeline.py``).
+
+Same surface and output as the JAX ``ASRPipeline``:
+``pipeline(audio, return_timestamps="word", generate_kwargs=..., chunk_length_s=...)``
+returns ``{"text": str, "chunks": [{"text", "timestamp": (start, end)}]}``.
+Windows of the call's ``chunk_length_s`` overlap by a sixth on each side,
+are padded to the model chunk, decoded ``batch_size`` at a time, and merged
+by the timestamp-aware LCS of ``thewhisper_tpu.text``; word timestamps come
+from the DTW of ``thewhisper_tpu.align``.
+
+The JAX pipeline's device-side machinery (the offset-window programs, the
+pipelined dispatch, the device file cache, latency buckets and the
+first-window fast path) has no counterpart yet; its docstrings state that
+the output is the same either way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from thewhisper_tpu.align import token_timestamps_from_alignment
+from thewhisper_tpu.config import GenerationOptions, SAMPLE_RATE
+from thewhisper_tpu.text import combine_tokens_into_words, find_longest_common_sequence
+from thewhisper_tpu_torch.audio.features import LogMelFeaturizer
+from thewhisper_tpu_torch.audio.io import load_audio
+from thewhisper_tpu_torch.engine import WhisperEngine
+
+
+class ASRPipeline:
+    """Offline transcription on the torch engine.
+
+    ``model`` is an HF checkpoint directory path or a ready
+    :class:`WhisperEngine`. ``tokenizer`` is anything with
+    ``decode(ids, skip_special_tokens=True) -> str``.
+    """
+
+    def __init__(
+        self,
+        model: Union[str, WhisperEngine],
+        tokenizer: Any = None,
+        model_size: Optional[str] = None,   # None/"XL" bf16, "XL32" f32
+        chunk_length_s: int = 30,
+        language: str = "en",
+        compute_dtype: Optional[torch.dtype] = None,
+        position_mode: Optional[str] = None,
+        batch_size: int = 8,
+        device="cuda",
+    ):
+        if isinstance(model, WhisperEngine):
+            self.engine = model
+        else:
+            if model_size not in (None, "XL", "XL32"):
+                raise NotImplementedError(
+                    f"model_size={model_size!r}: quantized modes are not "
+                    "ported yet")
+            dtype = compute_dtype or (torch.float32 if model_size == "XL32"
+                                      else torch.bfloat16)
+            self.engine = WhisperEngine.from_checkpoint(
+                model, chunk_length_s=chunk_length_s, compute_dtype=dtype,
+                position_mode=position_mode, device=device)
+            if tokenizer is None:
+                tokenizer = _try_load_hf_tokenizer(model)
+        self.tokenizer = tokenizer
+        self.model_chunk_length_s = float(chunk_length_s)
+        self.language = language
+        self.batch_size = batch_size
+        self.featurizer = LogMelFeaturizer(
+            n_mels=self.engine.arch.n_mels,
+            chunk_length_s=self.model_chunk_length_s, device=self.engine.device)
+
+    # -- token decode helper -------------------------------------------------
+
+    def _decode(self, ids: Sequence[int]) -> str:
+        if self.tokenizer is None:
+            # Debug fallback: space-joined ids.
+            return "".join(f" <{i}>" for i in ids)
+        return self.tokenizer.decode(list(ids), skip_special_tokens=True)
+
+    # -- windowing -----------------------------------------------------------
+
+    @staticmethod
+    def _window_offsets(n_samples: int, win: int, step: int) -> List[int]:
+        if n_samples <= win:
+            return [0]
+        offsets = list(range(0, n_samples - win + step, step))
+        # Drop a trailing window that would contain no new audio.
+        return [o for o in offsets if o < n_samples]
+
+    # -- main entry ----------------------------------------------------------
+
+    def __call__(
+        self,
+        audio: Union[str, np.ndarray],
+        return_timestamps: Union[bool, str] = False,
+        generate_kwargs: Optional[Dict[str, Any]] = None,
+        chunk_length_s: Optional[float] = None,
+        batch_size: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        if isinstance(audio, str):
+            audio = load_audio(audio, sr=SAMPLE_RATE)
+        audio = np.asarray(audio, dtype=np.float32).reshape(-1)
+
+        gk = dict(generate_kwargs or {})
+        _MISSING = object()
+        lang_kw = gk.pop("language", _MISSING)
+        # {"language": None} requests auto-detection (HF convention).
+        language = self.language if lang_kw is _MISSING else lang_kw
+        max_new_tokens = int(gk.pop("max_new_tokens", 224))
+        task = gk.pop("task", "transcribe")
+        num_beams = int(gk.pop("num_beams", 1))
+        fallback = _fallback_ladder(gk.pop("fallback_temperatures", None))
+        ts_mode = _timestamp_mode(return_timestamps)
+        want_words = ts_mode is not None
+
+        win_s = min(float(chunk_length_s or self.model_chunk_length_s),
+                    self.model_chunk_length_s)
+        win = int(win_s * SAMPLE_RATE)
+        stride = int(win_s / 6 * SAMPLE_RATE)
+        step = max(1, win - 2 * stride)
+        offsets = self._window_offsets(len(audio), win, step)
+        opts = GenerationOptions(
+            max_new_tokens=max_new_tokens, language=language, task=task,
+            return_timestamps=want_words, num_beams=num_beams,
+        )
+        windows = [audio[o: o + win] for o in offsets]
+        seqs, ts_seqs, _, langs = self._decode_windows(
+            windows, offsets, opts, batch_size or self.batch_size, want_words,
+            fallback=fallback)
+
+        if len(seqs) == 1:
+            tokens, token_ts_list = seqs[0], (ts_seqs[0] if want_words else None)
+        elif want_words:
+            tokens, token_ts_list = find_longest_common_sequence(seqs, ts_seqs)
+        else:
+            tokens = find_longest_common_sequence(seqs)
+            token_ts_list = None
+
+        # Word segmentation follows the (possibly detected) language: one
+        # file takes the majority vote over its windows.
+        out_language = language
+        if out_language is None and langs:
+            out_language = max(set(langs), key=langs.count)
+        return self._format_output(tokens, token_ts_list, out_language,
+                                   ts_mode)
+
+    def transcribe_batch(
+        self,
+        audios: Sequence[np.ndarray],
+        return_timestamps: Union[bool, str] = "word",
+        generate_kwargs: Optional[Dict[str, Any]] = None,
+        languages: Optional[Sequence[Optional[str]]] = None,
+    ) -> List[Dict[str, Any]]:
+        """Transcribe N independent short buffers in ONE engine call (each
+        truncated to the model chunk). ``languages``: optional per-row
+        forced language codes; ``None`` entries take the call's language,
+        or are detected when that is None too."""
+        gk = dict(generate_kwargs or {})
+        _MISSING = object()
+        lang_kw = gk.pop("language", _MISSING)
+        language = self.language if lang_kw is _MISSING else lang_kw
+        max_new_tokens = int(gk.pop("max_new_tokens", 128))
+        task = gk.pop("task", "transcribe")
+        num_beams = int(gk.pop("num_beams", 1))
+        fallback = _fallback_ladder(gk.pop("fallback_temperatures", None))
+        ts_mode = _timestamp_mode(return_timestamps)
+        want_words = ts_mode is not None
+        win = int(self.model_chunk_length_s * SAMPLE_RATE)
+        windows = [np.asarray(a, np.float32).reshape(-1)[:win] for a in audios]
+        row_languages = None
+        if languages is not None and any(l for l in languages):
+            fill: List[Optional[str]] = [language] * len(windows)
+            need = [i for i in range(len(windows))
+                    if language is None
+                    and not (i < len(languages) and languages[i])]
+            if need:
+                mel = self.featurizer(
+                    _pad_stack(windows, self.featurizer.n_samples))
+                codes, _ = self.engine.detect_language(mel)
+                for i in need:
+                    fill[i] = str(codes[i])
+            row_languages = [
+                languages[i] if i < len(languages) and languages[i]
+                else (fill[i] or "en")
+                for i in range(len(windows))]
+        opts = GenerationOptions(
+            max_new_tokens=max_new_tokens, language=language, task=task,
+            return_timestamps=want_words, num_beams=num_beams,
+        )
+        seqs, ts_seqs, lp_seqs, langs = self._decode_windows(
+            windows, [0] * len(windows), opts, len(windows), want_words,
+            with_logprobs=True, fallback=fallback,
+            row_languages=row_languages)
+        return [
+            self._format_output(
+                seqs[i], ts_seqs[i] if want_words else None,
+                (row_languages[i] if row_languages
+                 else language if language is not None else langs[i]),
+                ts_mode, token_logprobs=lp_seqs[i])
+            for i in range(len(windows))
+        ]
+
+    # -- shared internals ----------------------------------------------------
+
+    def _decode_windows(self, windows, offsets, opts, bsz, want_words,
+                        with_logprobs: bool = False,
+                        fallback: Optional[Sequence[float]] = None,
+                        row_languages: Optional[Sequence[str]] = None):
+        """Run windows through the engine ``bsz`` at a time.
+
+        Returns (seqs, ts_seqs, lp_seqs, langs): per-window token ids,
+        (start, end) times, logprobs, and the language code (detected when
+        ``opts.language is None``)."""
+        seqs: List[List[int]] = []
+        ts_seqs: List[List[Tuple[Optional[float], Optional[float]]]] = []
+        lp_seqs: List[List[float]] = []
+        langs: List[Optional[str]] = []
+        for start in range(0, len(windows), bsz):
+            batch = windows[start: start + bsz]
+            audio = _pad_stack(batch, self.featurizer.n_samples)
+            languages = None
+            mel = None
+            if row_languages is not None:
+                languages = list(row_languages[start: start + len(batch)])
+            elif opts.language is None:
+                # Detect per sample; the features are reused for decoding.
+                mel = self.featurizer(audio)
+                codes, _ = self.engine.detect_language(mel)
+                languages = [str(c) for c in codes]
+            res = self._transcribe_with_fallback(
+                audio, opts, fallback, languages=languages, mel=mel)
+            self._consume_result(
+                res, [len(w) for w in batch], start, offsets, opts,
+                want_words, with_logprobs, languages,
+                seqs, ts_seqs, lp_seqs, langs)
+        return seqs, ts_seqs, lp_seqs, langs
+
+    def _consume_result(self, res, lens, start, offsets, opts, want_words,
+                        with_logprobs, languages,
+                        seqs, ts_seqs, lp_seqs, langs):
+        """Unpack one EngineResult batch into the per-window accumulators.
+        ``lens``: true (unpadded) sample counts per row."""
+        nb = len(lens)
+        langs.extend((languages or [opts.language] * nb)[:nb])
+        p = res.prompt_len
+        if want_words:
+            # Alignment rows populated per sample: prompt + generated - 1.
+            num_rows = p + np.maximum(res.num_generated, 1) - 1
+            token_ts = token_timestamps_from_alignment(
+                res.align, num_rows,
+                num_frames=np.asarray([ln // 160 for ln in lens]),
+                median_filter_width=self.engine.arch.median_filter_width,
+            )
+        for bi in range(nb):
+            n = int(res.num_generated[bi])
+            raw = res.tokens[bi, p: p + n].tolist()
+            keep = [j for j, t in enumerate(raw)
+                    if t < self.engine.special.eot]
+            seqs.append([raw[j] for j in keep])
+            if with_logprobs:
+                lp_seqs.append(
+                    [float(res.token_logprobs[bi, j]) for j in keep])
+            if want_words:
+                # Alignment rows are indexed by RAW generated position j: a
+                # special token dropped mid-sequence must not shift them.
+                offset_s = offsets[start + bi] / SAMPLE_RATE
+                ts: List[Tuple[Optional[float], Optional[float]]] = []
+                for j in keep:
+                    t0 = float(token_ts[bi, p + j]) + offset_s
+                    t1 = (float(token_ts[bi, p + j + 1]) + offset_s
+                          if j + 1 < n else None)
+                    ts.append((t0, t1))
+                ts_seqs.append(ts)
+
+    # -- temperature fallback ladder (opt-in) --------------------------------
+
+    def _transcribe_with_fallback(self, audio, opts, temperatures,
+                                  languages=None, mel=None):
+        """openai-whisper style quality gating: windows whose output is
+        repetitive (zlib compression ratio > 2.4) or low-confidence (mean
+        token logprob < -1.0) are re-decoded by sampling at the next
+        temperature in the ladder. Off unless ``fallback_temperatures`` is
+        passed in generate_kwargs. ``mel``: features already computed for
+        this audio (the language-detection path)."""
+        if mel is not None:
+            res = self.engine.transcribe_features(mel, opts, languages=languages)
+        else:
+            res = self.engine.transcribe_audio(audio, opts, languages=languages)
+        if not temperatures or opts.num_beams != 1:
+            return res
+        for step, t in enumerate(t for t in temperatures if t > 0.0):
+            failed = [i for i in range(audio.shape[0])
+                      if self._window_fails(res, i)]
+            if not failed:
+                break
+            retry_opts = dataclasses.replace(
+                opts, temperature=float(t), seed=opts.seed + step + 1)
+            sub = self.engine.transcribe_audio(
+                audio[failed], retry_opts,
+                languages=([languages[i] for i in failed]
+                           if languages else None))
+            res = _merge_result_rows(res, sub, failed)
+        return res
+
+    def _window_fails(self, res, i: int) -> bool:
+        n = int(res.num_generated[i])
+        if n <= 0:
+            return False
+        if float(res.sum_logprob[i]) / n < -1.0:
+            return True
+        ids = [int(t) for t in res.tokens[i, res.prompt_len: res.prompt_len + n]
+               if int(t) < self.engine.special.eot]
+        text = self._decode(ids).encode("utf-8")
+        if len(text) < 16:
+            return False
+        return len(text) / len(zlib.compress(text)) > 2.4
+
+    def _format_output(self, tokens, token_ts_list, language, ts_mode,
+                       token_logprobs: Optional[List[float]] = None):
+        out: Dict[str, Any] = {"text": self._decode(tokens)}
+        if ts_mode is not None:
+            words, _, indices = combine_tokens_into_words(
+                self._decode, tokens, language=language,
+                special_id=self.engine.special.eot,
+            )
+            chunks = []
+            for w, idx in zip(words, indices):
+                chunk: Dict[str, Any] = {
+                    "text": w,
+                    "timestamp": (token_ts_list[idx[0]][0],
+                                  token_ts_list[idx[-1]][1])}
+                if token_logprobs is not None:
+                    lps = [token_logprobs[j] for j in idx
+                           if j < len(token_logprobs)]
+                    if lps:
+                        chunk["confidence"] = float(np.exp(np.mean(lps)))
+                chunks.append(chunk)
+            if ts_mode == "segment":
+                chunks = _group_words_into_segments(chunks)
+            out["chunks"] = chunks
+        return out
+
+
+# Segment boundaries: break after sentence-final punctuation, or at an
+# inter-word silence longer than this.
+_SEGMENT_PAUSE_S = 1.0
+_SENTENCE_FINAL = (".", "!", "?", "。", "！", "？", "؟")
+
+
+def _timestamp_mode(return_timestamps) -> Optional[str]:
+    """``"word"`` -> word chunks; ``True`` / ``"segment"`` -> segment
+    chunks; falsy -> text only."""
+    if return_timestamps == "word":
+        return "word"
+    if return_timestamps is True or return_timestamps == "segment":
+        return "segment"
+    if return_timestamps:
+        raise ValueError(
+            f"return_timestamps={return_timestamps!r}: expected False, "
+            "True, 'word' or 'segment'")
+    return None
+
+
+def _group_words_into_segments(words: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Group word chunks into HF-style segment chunks: a segment closes
+    after sentence-final punctuation or before a pause longer than
+    ``_SEGMENT_PAUSE_S``; confidence is the mean of its words'."""
+    segments: List[Dict[str, Any]] = []
+    cur: List[Dict[str, Any]] = []
+
+    def flush():
+        if not cur:
+            return
+        seg: Dict[str, Any] = {
+            "text": "".join(w["text"] for w in cur),
+            "timestamp": (cur[0]["timestamp"][0], cur[-1]["timestamp"][1]),
+        }
+        confs = [w["confidence"] for w in cur if "confidence" in w]
+        if confs:
+            seg["confidence"] = float(np.mean(confs))
+        segments.append(seg)
+        cur.clear()
+
+    prev_end: Optional[float] = None
+    for w in words:
+        start_t = w["timestamp"][0]
+        if (cur and prev_end is not None and start_t is not None
+                and start_t - prev_end > _SEGMENT_PAUSE_S):
+            flush()
+        cur.append(w)
+        if w["timestamp"][1] is not None:
+            prev_end = w["timestamp"][1]
+        if w["text"].rstrip().endswith(_SENTENCE_FINAL):
+            flush()
+    flush()
+    return segments
+
+
+def _fallback_ladder(value) -> Optional[Tuple[float, ...]]:
+    """``True`` -> the openai-whisper ladder; a sequence as-is; falsy ->
+    no ladder (plain greedy)."""
+    if not value:
+        return None
+    if value is True:
+        return (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+    return tuple(float(t) for t in value)
+
+
+def _merge_result_rows(base, sub, idx: Sequence[int]):
+    """Overwrite rows ``idx`` of an EngineResult with a retry's rows."""
+    def put(a, b):
+        if a is None or b is None:
+            return a
+        a = np.array(a)
+        a[list(idx)] = b[: len(idx)]
+        return a
+
+    return base._replace(
+        tokens=put(base.tokens, sub.tokens),
+        num_generated=put(base.num_generated, sub.num_generated),
+        sum_logprob=put(base.sum_logprob, sub.sum_logprob),
+        align=put(base.align, sub.align),
+        token_logprobs=put(base.token_logprobs, sub.token_logprobs),
+        no_speech_prob=put(base.no_speech_prob, sub.no_speech_prob),
+    )
+
+
+def _pad_stack(windows: Sequence[np.ndarray], win: int) -> np.ndarray:
+    """Zero-pad host windows to ``win`` samples and stack them."""
+    out = np.zeros((len(windows), win), dtype=np.float32)
+    for i, w in enumerate(windows):
+        out[i, : len(w)] = w
+    return out
+
+
+def _try_load_hf_tokenizer(path: str):
+    """The checkpoint's HF tokenizer, or None (no transformers, no files)."""
+    import os
+
+    try:
+        from transformers import WhisperTokenizer, WhisperTokenizerFast
+    except ImportError:
+        return None
+    if os.path.exists(os.path.join(path, "tokenizer.json")):
+        return WhisperTokenizerFast.from_pretrained(path)
+    if os.path.exists(os.path.join(path, "vocab.json")):
+        return WhisperTokenizer.from_pretrained(path)
+    return None
