@@ -20,10 +20,24 @@ is false. Phases, each of which raises on failure:
    that path, that logits are finite, that timestamps are ordered, that
    the encoder with the kernels agrees with the plain version, and that a
    small f32 model transcribes the same on the card as on the CPU.
+6. [S] The "S" main path at the full width of large-v3 (32 + 32 layers,
+   d_model 1280, 20 heads, d_ff 5120, vocab 51866): random bf16 weights,
+   biases and LayerNorm parameters,
+   quantized as ``"int8-all"`` (int8 decoder and table, W8A8 encoder),
+   ``WhisperEngine(cross_kv_int8=True)`` (K3 packed), ``ASRPipeline`` on a
+   20 s WAV with word timestamps (batch 1: every decode step is one K3
+   launch) and ``transcribe_batch`` of four buffers (batch 4: the plain
+   int8 step, no K3 launch). Prints the W8A8 encoder's error against the
+   bf16 encoder, walls, peak memory and the model's bytes.
+7. [K3] The decode step kernel against its plain version at large-v3 width
+   (T = 1500): at L = 32 for cache lengths 5, 68 and 228, at L = 4
+   (turbo's depth) and at L = 1 over eight steps, the best of which must
+   agree to f32 noise, and the times of both at each.
 
 Times come from CUDA events; every number printed is measured in the run.
 The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.
+power limit, and ``{"ok": true, "device": {...}}`` (``count`` is 1: the
+run uses one card, whatever the machine shows).
 """
 
 from __future__ import annotations
@@ -42,22 +56,32 @@ import torch
 
 from thewhisper_tpu.config import ARCH_PRESETS, SAMPLE_RATE, GenerationOptions
 from thewhisper_tpu_torch.audio.features import (
+    LogMelFeaturizer,
     hann_window,
     log_mel_spectrogram,
     log_mel_spectrogram_plain,
     mel_filter_bank,
 )
 from thewhisper_tpu_torch.engine import WhisperEngine
+from thewhisper_tpu_torch.models.quant import (
+    QuantizedKV,
+    quantize_kv,
+    quantize_params,
+    quantized_bytes,
+)
 from thewhisper_tpu_torch.models.whisper import (
+    DecodeCache,
     compute_cross_kv,
     decoder_prefill,
     decoder_step,
+    embed_tokens,
     encoder_forward,
     init_params,
     make_cache,
 )
 from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as attn
+from thewhisper_tpu_torch.ops import mega_step as mega
 from thewhisper_tpu_torch.pipeline import ASRPipeline
 
 ROOT = Path(__file__).resolve().parent
@@ -201,7 +225,7 @@ def phase_attention() -> dict:
     return main_shape
 
 
-def timed(label: str, fn):
+def timed(label: str, fn, tag: str = "main"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -209,7 +233,7 @@ def timed(label: str, fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[main] {label}: wall {wall:.3f} s, max_memory_allocated "
+    print(f"[{tag}] {label}: wall {wall:.3f} s, max_memory_allocated "
           f"{peak:.3f} GiB", flush=True)
     return out
 
@@ -340,6 +364,209 @@ def phase_small_reference() -> None:
           "words, identical text and word timestamps)", flush=True)
 
 
+def phase_s_path():
+    """The "S" main path at large-v3 width. Returns (model, the W8A8
+    encoder's output on one 30 s window, K3 launches of the batch-1
+    call)."""
+    dev = torch.device("cuda", 0)
+    arch = dataclasses.replace(
+        ARCH_PRESETS["large-v3"],
+        # A few heads on the last decoder layers, so DTW has input.
+        alignment_heads=((29, 4), (30, 11), (31, 3), (31, 17)))
+    t0 = time.perf_counter()
+    # Biases and LayerNorm parameters drawn at random, as a checkpoint has
+    # them, so that K3's reads of them are checked (phase_mega).
+    model = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16, device=dev, bias_std=0.1)
+    torch.cuda.synchronize()
+    bf16_bytes = quantized_bytes(model)
+    print(f"[S] large-v3, {bf16_bytes / 1e9:.3f} GB of bf16 weights, random "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    mel = LogMelFeaturizer(n_mels=arch.n_mels, device=dev)(
+        synth_audio(30, seed=3))
+    with torch.inference_mode():
+        enc_bf16 = encoder_forward(model, mel)
+    quantize_params(model, components=("decoder",))
+    quantize_params(model, components=("encoder",), activation_int8=True)
+    with torch.inference_mode():
+        enc = encoder_forward(model, mel)
+        diff = enc.float() - enc_bf16.float()
+        rel = (diff.norm() / enc_bf16.float().norm()).item()
+    check(bool(torch.isfinite(enc).all()), "W8A8 encoder output not finite")
+    print(f"[S] W8A8 encoder vs bf16 encoder, 30 s window: relative L2 err "
+          f"{rel:.3e}, max abs err {diff.abs().max().item():.3e}", flush=True)
+    del enc_bf16, diff
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    check(model.mega is not None, "the S engine did not pack K3's operands")
+    print(f"[S] quantized_bytes {quantized_bytes(model) / 1e9:.3f} GB "
+          f"(bf16 {bf16_bytes / 1e9:.3f} GB)", flush=True)
+    pipe = ASRPipeline(engine, chunk_length_s=30)
+    results = []
+    generate = engine._generate
+
+    def recording(*args, **kwargs):
+        res = generate(*args, **kwargs)
+        results.append(res)
+        return res
+
+    engine._generate = recording
+    batch = [synth_audio(s, seed=20 + i) for i, s in enumerate((4, 9, 17, 30))]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        wav20 = Path(tmp) / "speech20.wav"
+        write_wav(wav20, synth_audio(20, seed=6))
+        logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = mega.MEGA_LAUNCHES = 0
+        r20 = timed("20 s WAV, word timestamps, batch 1", lambda: pipe(
+            str(wav20), return_timestamps="word",
+            generate_kwargs=dict(GEN_KW)), tag="S")
+        k3_batch1 = mega.MEGA_LAUNCHES
+        rb = timed("transcribe_batch of 4 (4, 9, 17, 30 s)",
+                   lambda: pipe.transcribe_batch(
+                       batch, return_timestamps="word",
+                       generate_kwargs=dict(GEN_KW)), tag="S")
+        launches = {"logmel": logmel.LOGMEL_LAUNCHES,
+                    "encoder_attention": attn.ATTN_LAUNCHES,
+                    "mega_step": mega.MEGA_LAUNCHES}
+    engine._generate = generate
+    print(f"[S] kernel launches on the S path: {launches}", flush=True)
+    check([r.tokens.shape[0] for r in results] == [1, 4],
+          f"engine calls {[r.tokens.shape for r in results]}")
+    # Greedy feeds token i back as step i, 1 <= i < max_new, until EOT.
+    steps = min(int(results[0].num_generated[0]), GEN_KW["max_new_tokens"] - 1)
+    check(steps > 0 and k3_batch1 == steps,
+          f"K3 launches {k3_batch1} != {steps} decode steps of the bs=1 call")
+    check(launches["mega_step"] == k3_batch1, "K3 launched at batch 4")
+    check(launches["logmel"] == 2, f"K1 launches {launches['logmel']} != 2")
+    check(launches["encoder_attention"] == 2 * arch.encoder_layers,
+          f"K2 launches {launches['encoder_attention']} != 2 x 32")
+    check_word_chunks(r20, 20.0, ordered=True)
+    check(len(rb) == 4, "transcribe_batch rows")
+    for r, a in zip(rb, batch):
+        check_word_chunks(r, len(a) / SAMPLE_RATE, ordered=True)
+    for res in results:
+        check(bool(np.isfinite(res.token_logprobs).all()
+                   and np.isfinite(res.sum_logprob).all()
+                   and np.isfinite(res.align).all()), "S result not finite")
+    print(f"[S] 20 s: {len(r20['chunks'])} words, {steps} K3 steps; batch: "
+          f"{[len(r['chunks']) for r in rb]} words", flush=True)
+    return model, enc, k3_batch1
+
+
+def first_row_ratio(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Layer 0's fresh k (or v) row, kernel against plain, as a share of its
+    bound (at most 1 passes): |got - ref| <= 2**-7 max(|got|, |ref|) +
+    2**-10 max|ref|. Both sides take the same LN1 and the same int8 product
+    of the same token, so they are one bf16 rounding of the output apart
+    (2**-7 of the value bounds one bf16 step), plus the few LN1 outputs that
+    may round the other way; each of those moves a value by one int8 weight
+    times one bf16 step of an activation, far below 2**-10 of the row's
+    largest value."""
+    g, r = got.float(), ref.float()
+    bound = 2 ** -7 * torch.maximum(g.abs(), r.abs()) + 2 ** -10 * r.abs().max()
+    return ((g - r).abs() / bound).max().item()
+
+
+# K3's cases: (decoder layers, cache length, positions). Cache lengths are
+# the prompt's 4 plus max_new 1, 64 and 224; the last position is S - 1.
+K3_CASES = ((32, 5, (4,)), (32, 68, (4, 40, 67)), (32, 228, (4, 150, 227)),
+            (4, 68, (4, 67)), (1, 68, (4, 11, 20, 33, 40, 52, 60, 67)))
+# Bound on the logits' max abs err relative to their max, by depth. Kernel
+# and plain step round at the same points, but their f32 sums run in
+# another order, so now and then one value rounds to the other bf16
+# neighbour, and that difference spreads through every later rounding: at
+# L = 1 such a cascade reaches a few 1e-3, at L = 4 and L = 32 it nears the
+# bound tests/test_mega_step.py holds the TPU kernel to. A step in which
+# nothing rounds the other way agrees to f32 noise (about 2e-7), so among
+# L = 1's eight steps the best must agree to K3_EXACT: a fault in the
+# kernel (a dropped bias, a misread LayerNorm vector) moves every step.
+K3_LOGITS_REL = {1: 1e-2, 4: 2e-2, 32: 2e-2}
+K3_EXACT = 1e-5
+
+
+def phase_mega(model, enc) -> dict:
+    """K3 against its plain version on the S model's packed operands
+    (random biases and LayerNorm parameters), the cross K/V of a 30 s
+    window through the W8A8 encoder and random bf16 self K/V, on the first
+    L layers for each of ``K3_CASES``. Bounds: the logits as in
+    ``K3_LOGITS_REL`` and, at L = 1, ``K3_EXACT`` for the best step;
+    alignment max abs <= 2e-3 (f32 probabilities of
+    those logits, the bound of tests/test_mega_step.py); layer 0's fresh
+    k/v row to ``first_row_ratio``; every layer's fresh k/v row <= 5e-2
+    (the bound of tests/test_mega_step.py: one bf16 rounding of values of
+    a few units, grown over the layers); every other cache slot
+    bit-identical (only slot pos is written). Times kernel and plain step
+    for each depth and cache length."""
+    arch, mp = model.arch, model.mega
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    main = None
+    with torch.inference_mode():
+        ck, cv = compute_cross_kv(model, enc)
+        ck, cv = quantize_kv(ck), quantize_kv(cv)
+        for depth, s_len, positions in K3_CASES:
+            arch_l = dataclasses.replace(arch, decoder_layers=depth)
+            mp_l = mp._replace(**{f: getattr(mp, f)[:depth] for f in (
+                "qkv_w", "o_w", "cq_w", "co_w", "fc1_w", "fc2_w", "smalls")})
+            ck_l, cv_l = (QuantizedKV(kv.q[:depth], kv.s[:depth])
+                          for kv in (ck, cv))
+            base = make_cache(arch_l, 1, s_len, ck_l, cv_l,
+                              dtype=torch.bfloat16)
+            for t in (base.self_k, base.self_v):
+                t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
+            where = f"L={depth} S={s_len}"
+            rels = []
+            for pos in positions:
+                x = embed_tokens(model, torch.tensor([[100 + pos]], device=dev),
+                                 pos)[:, 0]
+                caches = [DecodeCache(base.self_k.clone(), base.self_v.clone(),
+                                      ck_l, cv_l) for _ in range(2)]
+                lk, ak = mega.mega_step(mp_l, x, pos, caches[0], arch_l)
+                lp, ap = mega.mega_step_plain(mp_l, x, pos, caches[1], arch_l)
+                torch.cuda.synchronize()
+                err = (lk - lp).abs().max().item()
+                rel = err / lp.abs().max().item()
+                rels.append(rel)
+                aerr = (ak - ap).abs().max().item()
+                rows = [(k[:, 0, :, pos], p[:, 0, :, pos]) for k, p in
+                        zip(caches[0][:2], caches[1][:2])]
+                kverr = max((k.float() - p.float()).abs().max().item()
+                            for k, p in rows)
+                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p in rows)
+                keep = torch.arange(s_len, device=dev) != pos
+                same = all(torch.equal(got[:, :, :, keep], ref[:, :, :, keep])
+                           for c in caches for got, ref in zip(c[:2], base[:2]))
+                print(f"[K3] {where:>11} pos={pos:>3d}: logits max abs err "
+                      f"{err:.3e} (rel {rel:.3e}), align {aerr:.3e}, k/v row "
+                      f"{kverr:.3e}, layer 0 k/v row {ratio0:.3f} of its "
+                      f"bound, other slots identical {same}", flush=True)
+                check(rel <= K3_LOGITS_REL[depth],
+                      f"K3 logits rel err {rel} at {where} pos={pos}")
+                check(aerr <= 2e-3, f"K3 align err {aerr} at {where}")
+                check(ratio0 <= 1.0, f"K3 layer 0 k/v row {ratio0} of its "
+                      f"bound at {where} pos={pos}")
+                check(kverr <= 5e-2, f"K3 k/v row err {kverr} at {where}")
+                check(same, f"K3 touched a cache slot other than {pos}")
+                check(bool(torch.isfinite(lk).all()), "K3 logits not finite")
+            if depth == 1:
+                check(min(rels) <= K3_EXACT, f"K3 at {where}: no step agrees "
+                      f"to {K3_EXACT} (best {min(rels)})")
+            ms = cuda_ms(lambda: mega.mega_step(mp_l, x, pos, caches[0], arch_l))
+            plain_ms = cuda_ms(
+                lambda: mega.mega_step_plain(mp_l, x, pos, caches[1], arch_l),
+                iters=5)
+            print(f"[K3] {where:>11}: kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms per step", flush=True)
+            if (depth, s_len) == (32, 68):      # the main path's step
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return main
+
+
+def result_line(kind: str) -> str:
+    """The last line. ``count`` is the number of cards the run used: one,
+    whatever ``torch.cuda.device_count()`` shows."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": 1}})
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -347,6 +574,8 @@ def main() -> None:
     k2 = phase_attention()
     launches = phase_main_path()
     phase_small_reference()
+    model, enc, k3_launches = phase_s_path()
+    k3 = phase_mega(model, enc)
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",
@@ -356,12 +585,14 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "thewhisper_tpu/models/whisper.py:189",
          "launches": launches["encoder_attention"], **k2},
+        {"name": "mega_step", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/mega_step.cu",
+         "replaces": "thewhisper_tpu/ops/mega_step.py:602",
+         "launches": k3_launches, **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(result_line(torch.cuda.get_device_name(0)))
 
 
 if __name__ == "__main__":

@@ -7,16 +7,24 @@ where only PyTorch is installed:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 Shapes are the slice's production shapes: 10 s and 30 s of audio (1000 and
-3000 frames), S = 1500 and 500 encoder positions, 20 heads of 64.
+3000 frames), S = 1500 and 500 encoder positions, 20 heads of 64; K3 (the
+decode step) at a small arch, d_model 384 with heads of 64 and 2 layers
+(chip_smoke.py holds it at large-v3 width).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from thewhisper_tpu.config import WhisperArch
 from thewhisper_tpu_torch.audio import features as tf
+from thewhisper_tpu_torch.models import quant as tq
+from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as ta
+from thewhisper_tpu_torch.ops import mega_step as tm
 
 from _torch_tiny import cuda_device  # noqa: F401
 
@@ -32,9 +40,10 @@ def _sig(batch, seconds, seed=0):
 
 
 def test_build_reports_resources(cuda_device):
-    """The library builds (or loads) and exports both entry points."""
+    """The library builds (or loads) and exports every entry point."""
     lib = _build.lib()
-    assert hasattr(lib, "twt_logmel") and hasattr(lib, "twt_encoder_attention")
+    for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step"):
+        assert hasattr(lib, name)
     if _build.build_log is not None:
         print(_build.build_log)
 
@@ -107,3 +116,94 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     z = torch.zeros(1, 16, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="valid_len"):
         ta.encoder_attention(z, z, z, valid_len=0)
+
+
+K3_ARCH = WhisperArch(
+    d_model=384, encoder_layers=1, encoder_heads=6, decoder_layers=2,
+    decoder_heads=6, d_ff=1536, n_mels=80, vocab_size=500,
+    max_source_positions=96, max_target_positions=64,
+    alignment_heads=((0, 1), (1, 3)))
+
+
+def _k3_case(device, slots, t_enc=96, seed=0):
+    """A packed bf16 "S" model (random biases and LayerNorm parameters) and
+    a batch-1 cache with random K/V."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    model = tw.init_params(K3_ARCH, g, dtype=torch.bfloat16,
+                           bias_std=0.1).to(device)
+    tq.quantize_params(model)
+    tm.pack_mega_params(tw.fuse_self_qkv(model))
+    shape = (2, 1, 6, t_enc, 64)
+    ck, cv = (tq.quantize_kv(torch.randn(shape, generator=g).to(device))
+              for _ in range(2))
+    cache = tw.make_cache(K3_ARCH, 1, slots, ck, cv, dtype=torch.bfloat16)
+    for t in (cache.self_k, cache.self_v):
+        t.copy_(0.5 * torch.randn(t.shape, generator=g))
+    return model, cache
+
+
+@pytest.mark.parametrize("slots,pos", [(5, 4), (16, 9), (60, 0), (60, 59)])
+def test_mega_step_kernel_matches_plain(cuda_device, slots, pos):
+    """The bounds tests/test_mega_step.py holds the TPU kernel to: logits
+    2e-2 relative to their max, alignment 2e-3, the written k/v rows 5e-2;
+    every other cache slot untouched. Layer 0's rows take the same LN1 and
+    int8 product of the same token on both sides, so they are held to one
+    bf16 rounding (2**-7 of the value) plus 2**-10 of the row's largest
+    value for an LN1 output that rounds the other way."""
+    model, cache = _k3_case(cuda_device, slots)
+    token = torch.tensor([[17]], device=cuda_device)
+    copies = [tw.DecodeCache(cache.self_k.clone(), cache.self_v.clone(),
+                             cache.cross_k, cache.cross_v) for _ in range(2)]
+    before = tm.MEGA_LAUNCHES
+    lk, ck, ak = tm.mega_decoder_step(model, token, pos, copies[0])
+    torch.cuda.synchronize()
+    assert tm.MEGA_LAUNCHES == before + 1
+    lp, cp, ap = tm.mega_decoder_step_plain(model, token, pos, copies[1])
+    assert lk.shape == (1, 500) and ak.shape == (1, 2, 96)
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    assert rel < 2e-2
+    assert (ak - ap).abs().max().item() < 2e-3
+    keep = torch.arange(slots, device=cuda_device) != pos
+    for got, ref, orig in zip((ck.self_k, ck.self_v), (cp.self_k, cp.self_v),
+                              (cache.self_k, cache.self_v)):
+        assert (got[:, :, :, pos].float() - ref[:, :, :, pos].float()).abs().max() < 5e-2
+        g0, r0 = got[0, 0, :, pos].float(), ref[0, 0, :, pos].float()
+        bound = (2 ** -7 * torch.maximum(g0.abs(), r0.abs())
+                 + 2 ** -10 * r0.abs().max())
+        assert ((g0 - r0).abs() <= bound).all()
+        assert torch.equal(got[:, :, :, keep], orig[:, :, :, keep])
+
+
+def test_mega_step_kernel_one_layer_agrees_exactly(cuda_device):
+    """On one layer kernel and plain step round at the same points; a step
+    in which no value rounds to the other bf16 neighbour agrees to f32
+    noise. Among eight steps the best must agree to 1e-5 (a fault such as
+    a dropped bias moves every step) and every one to 1e-2 (one value that
+    rounds the other way spreads through the layer's later roundings)."""
+    model, cache = _k3_case(cuda_device, 60)
+    mp = model.mega._replace(**{f: getattr(model.mega, f)[:1] for f in (
+        "qkv_w", "o_w", "cq_w", "co_w", "fc1_w", "fc2_w", "smalls")})
+    arch = dataclasses.replace(K3_ARCH, decoder_layers=1)
+    ck, cv = (tq.QuantizedKV(kv.q[:1], kv.s[:1])
+              for kv in (cache.cross_k, cache.cross_v))
+    rels = []
+    for pos in (3, 10, 17, 25, 33, 41, 50, 59):
+        x = tw.embed_tokens(model, torch.tensor([[17 + pos]], device=cuda_device),
+                            pos)[:, 0]
+        lk, _ = tm.mega_step(mp, x, pos, tw.DecodeCache(
+            cache.self_k[:1].clone(), cache.self_v[:1].clone(), ck, cv), arch)
+        lp, _ = tm.mega_step_plain(mp, x, pos, tw.DecodeCache(
+            cache.self_k[:1].clone(), cache.self_v[:1].clone(), ck, cv), arch)
+        rels.append(((lk - lp).abs().max() / lp.abs().max()).item())
+    assert max(rels) < 1e-2 and min(rels) < 1e-5, rels
+
+
+def test_mega_step_kernel_rejects_bad_input(cuda_device):
+    model, cache = _k3_case(cuda_device, 8)
+    token = torch.tensor([[17]], device=cuda_device)
+    with pytest.raises(ValueError, match="position"):
+        tm.mega_decoder_step(model, token, 8, cache)
+    f32 = tw.DecodeCache(cache.self_k.float(), cache.self_v.float(),
+                         cache.cross_k, cache.cross_v)
+    with pytest.raises(ValueError, match="bf16"):
+        tm.mega_decoder_step(model, token, 4, f32)

@@ -80,7 +80,8 @@ def test_detect_flexible_checkpoint(tmp_path):
 
 def test_engine_and_pipeline_from_checkpoint(tiny_ckpt):
     """from_checkpoint reads the suppress lists; the pipeline built from
-    the directory (HF tokenizer) transcribes as the JAX one does."""
+    the directory (HF tokenizer) transcribes as the JAX one does, in the
+    float and the "S" mode."""
     from thewhisper_tpu.pipeline import ASRPipeline as JaxPipeline
     from thewhisper_tpu_torch.engine import WhisperEngine
     from thewhisper_tpu_torch.pipeline import ASRPipeline
@@ -98,5 +99,15 @@ def test_engine_and_pipeline_from_checkpoint(tiny_ckpt):
     pipe = ASRPipeline(tiny_ckpt, model_size="XL32", device="cpu")
     assert pipe.tokenizer is not None
     assert pipe(a, **kw) == JaxPipeline(tiny_ckpt, model_size="XL32")(a, **kw)
+    # "S" ("int8-all"): both packages quantize the same checkpoint.
+    import jax.numpy as jnp
+
+    s_pipe = ASRPipeline(tiny_ckpt, model_size="S",
+                         compute_dtype=torch.float32, device="cpu")
+    assert s_pipe.engine.cross_kv_int8
+    assert s_pipe(a, **kw) == JaxPipeline(
+        tiny_ckpt, model_size="S", compute_dtype=jnp.float32)(a, **kw)
     with pytest.raises(NotImplementedError):
-        ASRPipeline(tiny_ckpt, model_size="S", device="cpu")
+        ASRPipeline(tiny_ckpt, model_size="S4", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        WhisperEngine.from_checkpoint(tiny_ckpt, device="cpu", quantize="int4")

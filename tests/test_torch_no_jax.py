@@ -58,3 +58,14 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_result_line_counts_one_card():
+    """The result line reports the card the run used, not the machine's."""
+    import json
+
+    import chip_smoke
+
+    line = json.loads(chip_smoke.result_line("NVIDIA H100 80GB HBM3"))
+    assert line == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}

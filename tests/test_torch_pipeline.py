@@ -122,3 +122,54 @@ def test_load_audio_path_matches_jax(pipelines, tmp_path):
     save_wav(path, audio(2.0, seed=50))
     kw = dict(return_timestamps="word", generate_kwargs=dict(KW))
     assert pipe(path, **kw) == jax_pipe(path, **kw)
+
+
+@pytest.fixture(scope="module")
+def s_pipelines():
+    """Both "S" pipelines ("int8-all": weight-only int8 decoder and table,
+    W8A8 encoder, int8 cross K/V) at f32 on the same float weights, each
+    package quantizing them itself."""
+    from thewhisper_tpu.models.quant import quantize_params as jax_quantize
+    from thewhisper_tpu_torch.models.quant import quantize_params
+
+    tree = jax_params_numpy()
+    jtree = jax_quantize(jax_quantize(tree, components=("decoder",)),
+                         components=("encoder",), activation_int8=True)
+    jax_eng = JaxEngine(jtree, ARCH, special=SPECIAL, batch_buckets=(1, 2, 4),
+                        suppress_tokens=SUPPRESS, cross_kv_int8=True)
+    model = params_from_jax(tree, ARCH, dtype=torch.float32)
+    quantize_params(model, components=("decoder",))
+    quantize_params(model, components=("encoder",), activation_int8=True)
+    eng = WhisperEngine(model, special=SPECIAL, suppress_tokens=SUPPRESS,
+                        cross_kv_int8=True)
+    tok = WordTokenizer()
+    return (JaxPipeline(jax_eng, tokenizer=tok, chunk_length_s=3),
+            ASRPipeline(eng, tokenizer=tok, chunk_length_s=3))
+
+
+@pytest.mark.parametrize("seconds,chunk_length_s", [
+    (2.0, None),               # one window
+    (7.0, 2.0),                # five overlapping windows, LCS merge
+])
+def test_s_pipeline_matches_jax(s_pipelines, seconds, chunk_length_s):
+    """Identical text and word timestamps, as for the float pipeline."""
+    jax_pipe, pipe = s_pipelines
+    a = audio(seconds, seed=2)
+    kw = dict(return_timestamps="word", generate_kwargs=dict(KW),
+              chunk_length_s=chunk_length_s)
+    out, ref = pipe(a, **kw), jax_pipe(a, **kw)
+    assert out == ref
+    assert out["text"].strip() and out["chunks"]
+
+
+def test_s_engine_result_matches_jax(s_pipelines):
+    jax_pipe, pipe = s_pipelines
+    batch = np.stack([audio(3.0, seed=22), audio(3.0, seed=23)])
+    opts = GenerationOptions(max_new_tokens=8, language="en",
+                             return_timestamps=True)
+    ref = jax_pipe.engine.transcribe_audio(batch, opts)
+    out = pipe.engine.transcribe_audio(batch, opts)
+    np.testing.assert_array_equal(out.tokens, ref.tokens)
+    np.testing.assert_array_equal(out.num_generated, ref.num_generated)
+    np.testing.assert_allclose(out.align, ref.align, atol=1e-5)
+    np.testing.assert_allclose(out.token_logprobs, ref.token_logprobs, atol=1e-4)

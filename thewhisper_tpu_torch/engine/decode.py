@@ -6,7 +6,11 @@ Semantics are the JAX loop's: ``suppress`` masked at every step,
 read at the sot position, per-token logprobs, and a stop once every row has
 emitted EOT or ``max_new_tokens`` are out. The loop runs on the host, one
 :func:`decoder_step` per token; the all-done test reads one flag back per
-step. Beam search and speculative decoding are not ported yet.
+step. A batch-1 bf16 step of a model packed for K3 (an "S" engine with
+int8 cross K/V, where ``ops.mega_step.mega_pays``) goes to
+``mega_decoder_step`` instead, as the JAX loop sends it to its decode
+megakernel; the outputs are the same fields either way. Beam search and
+speculative decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,12 +20,14 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from thewhisper_tpu_torch.models.quant import QuantizedKV
 from thewhisper_tpu_torch.models.whisper import (
     DecodeCache,
     Whisper,
     decoder_prefill,
     decoder_step,
 )
+from thewhisper_tpu_torch.ops.mega_step import mega_decoder_step
 
 
 def suppress_mask(vocab_size: int, token_ids: Sequence[int]) -> np.ndarray:
@@ -59,7 +65,12 @@ def greedy_decode(
     b, p = prompt.shape
     dev = prompt.device
     s_max = p + max_new_tokens
-    t_enc = cache.cross_k.shape[3]
+    ck = cache.cross_k
+    t_enc = (ck.q if isinstance(ck, QuantizedKV) else ck).shape[3]
+    # The JAX loop's megakernel conditions; the engine packs the model
+    # (model.mega) only where mega_pays, so packed means it pays.
+    use_mega = (b == 1 and model.dtype == torch.bfloat16
+                and model.mega is not None and isinstance(ck, QuantizedKV))
     n_align = max(1, len(model.arch.alignment_heads))
 
     logits_p, cache, align_p = decoder_prefill(model, prompt, cache)
@@ -101,8 +112,12 @@ def greedy_decode(
         if bool(done.all()):
             break
         pos = p + step - 1                   # cache slot of the token fed
-        logits, cache, align_step = decoder_step(
-            model, tokens[:, pos:pos + 1], pos, cache)
+        if use_mega:
+            logits, cache, align_step = mega_decoder_step(
+                model, tokens[:, pos:pos + 1], pos, cache, capture_alignment)
+        else:
+            logits, cache, align_step = decoder_step(
+                model, tokens[:, pos:pos + 1], pos, cache)
         nxt, lp = pick(logits, False)
         nxt = torch.where(done, eot, nxt)
         tokens[:, pos + 1] = nxt

@@ -5,8 +5,11 @@ PyTorch runs eagerly, so there are no compiled programs to bucket: a call
 featurizes (the K1 kernel on the card), encodes (K2 in every encoder
 layer), computes the cross K/V, prefills the prompt and runs the greedy
 loop, then copies the result to the host as an :class:`EngineResult` with
-the JAX engine's fields. Beam search, speculative drafts, quantized modes,
-the async handles and the window-scan programs are not ported yet.
+the JAX engine's fields. The "S" modes quantize the model
+(``models.quant``) and the cross K/V, and a batch-1 bf16 "S" engine on a
+deep decoder decodes through the K3 kernel (``ops.mega_step``). Beam
+search, speculative drafts, int4, the async handles and the window-scan
+programs are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,13 +34,16 @@ from thewhisper_tpu_torch.audio.features import (
     mel_filter_bank,
 )
 from thewhisper_tpu_torch.engine.decode import greedy_decode, suppress_mask
+from thewhisper_tpu_torch.models.quant import quantize_kv, quantize_params
 from thewhisper_tpu_torch.models.whisper import (
     Whisper,
     compute_cross_kv,
     decoder_prefill,
     encoder_forward,
+    fuse_self_qkv,
     make_cache,
 )
+from thewhisper_tpu_torch.ops.mega_step import mega_pays, pack_mega_params
 
 
 class EngineResult(NamedTuple):
@@ -54,7 +60,13 @@ class EngineResult(NamedTuple):
 
 
 class WhisperEngine:
-    """Whisper inference on one device (the model's)."""
+    """Whisper inference on one device (the model's).
+
+    ``cross_kv_int8`` quantizes the cross K/V of every call
+    (``models.quant.quantize_kv``). With it and ``megakernel``, a decoder
+    where ``ops.mega_step.mega_pays`` gets its self q/k/v fused and K3's
+    operands packed, in place (a no-op unless the decoder is weight-only
+    int8), so batch-1 bf16 greedy steps run as one launch."""
 
     def __init__(
         self,
@@ -62,7 +74,13 @@ class WhisperEngine:
         special: Optional[SpecialTokens] = None,
         suppress_tokens: Sequence[int] = (),
         begin_suppress_tokens: Sequence[int] = (),
+        cross_kv_int8: bool = False,
+        megakernel: bool = True,
     ):
+        self.cross_kv_int8 = cross_kv_int8
+        if (cross_kv_int8 and megakernel and model.mega is None
+                and mega_pays(model.arch)):
+            pack_mega_params(fuse_self_qkv(model))
         self.model = model
         self.arch: WhisperArch = model.arch
         self.device = model.device
@@ -148,7 +166,10 @@ class WhisperEngine:
             p = prompt.shape[1]
             enc = encoder_forward(self.model, mel)
             ck, cv = compute_cross_kv(self.model, enc)
-            cache = make_cache(self.arch, b, p + options.max_new_tokens, ck, cv)
+            if self.cross_kv_int8:
+                ck, cv = quantize_kv(ck), quantize_kv(cv)
+            cache = make_cache(self.arch, b, p + options.max_new_tokens, ck, cv,
+                               dtype=self.compute_dtype)
             generator = None
             if options.temperature:
                 generator = torch.Generator(self.device).manual_seed(options.seed)
@@ -200,14 +221,33 @@ class WhisperEngine:
         compute_dtype: torch.dtype = torch.bfloat16,
         position_mode: Optional[str] = None,
         device="cuda",
+        quantize: Optional[str] = None,
     ) -> "WhisperEngine":
         """Build an engine from an HF checkpoint directory, with the
-        suppress-token lists of its generation config."""
+        suppress-token lists of its generation config.
+
+        ``quantize`` selects an "S" mode, as in the JAX engine: ``"int8"``
+        (weight-only int8 decoder and tied table), ``"int8-weights"`` (the
+        table stays float), ``"int8-all"`` (``"int8"`` plus a W8A8
+        encoder); each also quantizes the cross K/V. ``"int4"`` ("S4") is
+        not ported (ROADMAP Queue 1 item 9)."""
         from thewhisper_tpu_torch.models.load import load_checkpoint
 
+        if quantize == "int4":
+            raise NotImplementedError(
+                "quantize='int4' (\"S4\") is not ported yet "
+                "(ROADMAP Queue 1 item 9)")
+        if quantize not in (None, "int8", "int8-weights", "int8-all"):
+            raise ValueError(f"unknown quantize mode: {quantize}")
         model, _ = load_checkpoint(
             path, dtype=compute_dtype, device=device,
             chunk_length_s=chunk_length_s, position_mode=position_mode)
+        if quantize is not None:
+            quantize_params(model, components=("decoder",),
+                            quantize_embedding_table=quantize != "int8-weights")
+            if quantize == "int8-all":
+                quantize_params(model, components=("encoder",),
+                                activation_int8=True)
         suppress: Sequence[int] = ()
         begin: Sequence[int] = ()
         gen_path = os.path.join(path, "generation_config.json")
@@ -217,4 +257,5 @@ class WhisperEngine:
             suppress = gc.get("suppress_tokens", []) or []
             begin = gc.get("begin_suppress_tokens", []) or []
         return WhisperEngine(model, suppress_tokens=suppress,
-                             begin_suppress_tokens=begin)
+                             begin_suppress_tokens=begin,
+                             cross_kv_int8=quantize is not None)

@@ -8,8 +8,9 @@ Three sources, one target naming:
   :func:`load_checkpoint`; ``safetensors`` is imported only there;
 - an HF state dict, :func:`params_from_hf_state_dict`;
 - the JAX package's parameter pytree as numpy, :func:`params_from_jax`
-  (stacked (L, in, out) linears, (out, in, 3) convs, and the fused decoder
-  ``qkv_w``/``qkv_b`` an engine may have made).
+  (stacked (L, in, out) linears, (out, in, 3) convs, the fused decoder
+  ``qkv_w``/``qkv_b`` an engine may have made, and the int8 leaves of an
+  "S" engine, carried across exactly).
 
 Flexible chunk lengths (< 30 s) truncate or linearly interpolate the
 encoder position table, as the JAX loader does.
@@ -27,6 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from thewhisper_tpu.config import WhisperArch, source_positions_for_seconds
+from thewhisper_tpu_torch.models.quant import (
+    Int8Embedding,
+    Int8Linear,
+    W8A8Linear,
+)
 from thewhisper_tpu_torch.models.whisper import Whisper, model_from_state
 
 
@@ -118,32 +124,57 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
                     dtype: torch.dtype = torch.float32, device=None) -> Whisper:
     """The JAX parameter pytree (``jax.tree.map(np.asarray, params)``) as
     the port's model. Linear weights are stored (L, in, out) there and
-    (out, in) here; convs are (out, in, 3) in both."""
+    (out, in) here; convs are (out, in, 3) in both.
+
+    Quantized leaves carry across exactly, never dequantized: weight-only
+    ``{"q", "s"}`` becomes an ``Int8Linear``, W8A8 ``{"q8", "s8"}`` a
+    ``W8A8Linear``, a per-row int8 ``token_emb`` an ``Int8Embedding``; a
+    fused ``qkv_w`` (float or int8) splits back into q, k and v."""
     f32 = lambda x: np.asarray(x, np.float32)                 # noqa: E731
     state: Dict[str, np.ndarray] = {}
+    quantized: Dict[str, type] = {}
     enc, dec = tree["encoder"], tree["decoder"]
     for conv in ("conv1", "conv2"):
         state[f"encoder.{conv}.weight"] = f32(enc[conv]["w"])
         state[f"encoder.{conv}.bias"] = f32(enc[conv]["b"])
     state["encoder.pos_emb"] = f32(enc["pos_emb"])
-    state["decoder.token_emb"] = f32(dec["token_emb"])
+    emb = dec["token_emb"]
+    if isinstance(emb, Mapping):
+        state["decoder.token_emb.q"] = _int8(emb["q"])
+        state["decoder.token_emb.s"] = f32(emb["s"])
+        quantized["decoder.token_emb"] = Int8Embedding
+    else:
+        state["decoder.token_emb"] = f32(emb)
     state["decoder.pos_emb"] = f32(dec["pos_emb"])
     for side in ("encoder", "decoder"):
         for k in ("scale", "bias"):
             state[f"{side}.ln_post.{'weight' if k == 'scale' else k}"] = f32(
                 tree[side]["ln_post"][k])
 
+    def linear(path: str, w: Any, i: int, part: int = 0, parts: int = 1) -> None:
+        """Layer ``i`` of a stacked linear leaf, out-column block ``part`` of
+        ``parts`` (a fused leaf's q, k or v)."""
+        if isinstance(w, Mapping):
+            w8a8 = "q8" in w
+            q, s = (w["q8"], w["s8"]) if w8a8 else (w["q"], w["s"])
+            q, s = _int8(q[i]), f32(s[i])
+            quantized[path] = W8A8Linear if w8a8 else Int8Linear
+            state[path + ".scale"] = np.split(s, parts, axis=-1)[part]
+        else:
+            q = f32(w[i])
+        state[path + ".weight"] = np.split(q, parts, axis=-1)[part].T
+
     def attn(prefix: str, p: Mapping[str, Any], i: int) -> None:
         if "qkv_w" in p:             # fused by fuse_self_qkv_params
-            q_w, k_w, v_w = np.split(f32(p["qkv_w"][i]), 3, axis=-1)
+            for j, n in enumerate("qkv"):
+                linear(prefix + n, p["qkv_w"], i, j, 3)
             q_b, _, v_b = np.split(f32(p["qkv_b"][i]), 3, axis=-1)
         else:
-            q_w, k_w, v_w = (f32(p[n][i]) for n in ("q_w", "k_w", "v_w"))
+            for n in "qkv":
+                linear(prefix + n, p[f"{n}_w"], i)
             q_b, v_b = f32(p["q_b"][i]), f32(p["v_b"][i])
-        state[prefix + "q.weight"], state[prefix + "q.bias"] = q_w.T, q_b
-        state[prefix + "k.weight"] = k_w.T
-        state[prefix + "v.weight"], state[prefix + "v.bias"] = v_w.T, v_b
-        state[prefix + "out.weight"] = f32(p["o_w"][i]).T
+        state[prefix + "q.bias"], state[prefix + "v.bias"] = q_b, v_b
+        linear(prefix + "out", p["o_w"], i)
         state[prefix + "out.bias"] = f32(p["o_b"][i])
 
     def rest(prefix: str, lp: Mapping[str, Any], i: int, lns) -> None:
@@ -151,7 +182,7 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
             state[f"{prefix}{ln}.weight"] = f32(lp[ln]["scale"][i])
             state[f"{prefix}{ln}.bias"] = f32(lp[ln]["bias"][i])
         for fc in ("fc1", "fc2"):
-            state[f"{prefix}{fc}.weight"] = f32(lp["mlp"][f"{fc}_w"][i]).T
+            linear(prefix + fc, lp["mlp"][f"{fc}_w"], i)
             state[f"{prefix}{fc}.bias"] = f32(lp["mlp"][f"{fc}_b"][i])
 
     for i in range(arch.encoder_layers):
@@ -165,7 +196,16 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
         rest(prefix, lp, i, ("ln1", "ln_cross", "ln2"))
     return model_from_state(
         {k: np.ascontiguousarray(v) for k, v in state.items()}, arch,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, quantized=quantized)
+
+
+def _int8(x: Any) -> np.ndarray:
+    x = np.asarray(x)
+    if x.dtype != np.int8:
+        raise NotImplementedError(
+            f"quantized leaf of type {x.dtype}: only int8 is ported "
+            "(int4 \"S4\" waits, ROADMAP Queue 1 item 9)")
+    return x
 
 
 def _read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:

@@ -18,6 +18,13 @@ Numerics follow JAX: LayerNorm in f32, attention scores and softmax in f32
 with probabilities cast to the value type, f32 logits from the tied
 embedding (a bf16 matmul would round them before argmax), GELU exact in
 f32 and tanh-approximate in bf16.
+
+A model quantized by ``models.quant.quantize_params`` (the "S" mode) runs
+through the same functions: its linears are ``Int8Linear`` or
+``W8A8Linear`` modules, its tied table an ``Int8Embedding``, and the cross
+K/V may be ``QuantizedKV`` (int8 with the scales folded out of the
+products, as JAX's ``_cross_and_mlp`` does). :func:`fuse_self_qkv` turns
+each decoder layer's self q/k/v into one projection.
 """
 
 from __future__ import annotations
@@ -30,6 +37,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.models.quant import (
+    Int8Embedding,
+    Int8Linear,
+    QuantizedKV,
+    swap_in_quantized,
+)
 from thewhisper_tpu_torch.ops.attention import encoder_attention
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -37,7 +50,9 @@ AttentionFn = Callable[..., torch.Tensor]
 
 class DecodeCache(NamedTuple):
     """Self K/V (L, B, H, S_max, dh), updated in place slot by slot, and
-    cross K/V (L, B, H, T_enc, dh), computed once per audio window."""
+    cross K/V (L, B, H, T_enc, dh), computed once per audio window (a
+    :class:`~thewhisper_tpu_torch.models.quant.QuantizedKV` on int8 cross-KV
+    engines)."""
 
     self_k: torch.Tensor
     self_v: torch.Tensor
@@ -163,29 +178,44 @@ class Whisper(nn.Module):
         self.encoder = AudioEncoder(
             arch, n_source_positions or arch.max_source_positions, **kw)
         self.decoder = TextDecoder(arch, **kw)
+        # The K3 operands (ops.mega_step.pack_mega_params), or None.
+        self.mega = None
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.decoder.token_emb.dtype
+        """The compute type (the position table's: the token table may be
+        int8)."""
+        return self.decoder.pos_emb.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.token_emb.device
+        return self.decoder.pos_emb.device
+
+
+def _as_tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v
+    v = np.asarray(v)
+    return torch.from_numpy(np.array(
+        v, dtype=np.int8 if v.dtype == np.int8 else np.float32))
 
 
 def model_from_state(state: Mapping[str, object], arch: WhisperArch,
-                     dtype: torch.dtype = torch.float32,
-                     device=None) -> Whisper:
+                     dtype: torch.dtype = torch.float32, device=None,
+                     quantized: Optional[Mapping[str, type]] = None) -> Whisper:
     """Build a :class:`Whisper` on ``device`` from a state dict in the
-    port's naming (values: tensors or numpy arrays of any float type)."""
-    tensors = {k: (v if isinstance(v, torch.Tensor)
-                   else torch.from_numpy(np.array(v, np.float32)))
-               .to(device=device, dtype=dtype)
-               for k, v in state.items()}
-    n_src = tensors["encoder.pos_emb"].shape[0]
+    port's naming (values: tensors or numpy arrays). ``quantized`` maps the
+    path of each quantized linear or table to its ``models.quant`` class;
+    each value takes the type the module declares (int8 weights, f32
+    scales, ``dtype`` for the rest)."""
+    n_src = state["encoder.pos_emb"].shape[0]
     with torch.device("meta"):
         model = Whisper(arch, n_source_positions=n_src, dtype=dtype)
-    model.load_state_dict(tensors, assign=True)
+        swap_in_quantized(model, quantized or {})
+    types = {k: v.dtype for k, v in model.state_dict().items()}
+    model.load_state_dict(
+        {k: _as_tensor(v).to(device=device, dtype=types[k])
+         for k, v in state.items()}, assign=True)
     return model.requires_grad_(False).eval()
 
 
@@ -231,11 +261,15 @@ def compute_cross_kv(model: Whisper, enc_out: torch.Tensor
 
 
 def make_cache(arch: WhisperArch, batch: int, max_len: int,
-               cross_k: torch.Tensor, cross_v: torch.Tensor,
+               cross_k, cross_v,
                dtype: Optional[torch.dtype] = None) -> DecodeCache:
+    """Zeroed self K/V of ``max_len`` slots beside the cross K/V (tensors
+    or ``QuantizedKV``; the self cache takes ``dtype``, else the cross
+    K/V's type)."""
     shape = (arch.decoder_layers, batch, arch.decoder_heads, max_len,
              arch.head_dim)
-    kw = {"device": cross_k.device, "dtype": dtype or cross_k.dtype}
+    like = cross_k.s if isinstance(cross_k, QuantizedKV) else cross_k
+    kw = {"device": like.device, "dtype": dtype or like.dtype}
     return DecodeCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw),
                        cross_k, cross_v)
 
@@ -265,19 +299,65 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def fuse_self_qkv(model: Whisper) -> Whisper:
+    """Concatenate each decoder layer's self q/k/v into one (3d, d)
+    projection ``qkv`` with a zero k bias, in place (JAX's
+    ``fuse_self_qkv_params``). Works on float and weight-only int8 linears
+    (the per-out-channel scales concatenate along); anything else is left
+    alone. Returns ``model``."""
+    for layer in model.decoder.layers:
+        sa = layer.self_attn
+        parts = [getattr(sa, n, None) for n in ("q", "k", "v")]
+        kinds = {type(p) for p in parts}
+        if len(kinds) != 1 or kinds.pop() not in (nn.Linear, Int8Linear):
+            continue
+        q, k, v = parts
+        with torch.device("meta"):
+            fused = (nn.Linear(q.in_features, 3 * q.out_features,
+                               dtype=q.weight.dtype)
+                     if type(q) is nn.Linear else
+                     Int8Linear(q.in_features, 3 * q.out_features,
+                                dtype=q.bias.dtype))
+        weight = torch.cat([p.weight for p in parts])
+        bias = torch.cat([q.bias, torch.zeros_like(q.bias), v.bias])
+        if isinstance(fused, Int8Linear):
+            fused.weight, fused.bias = weight, bias
+            fused.scale = torch.cat([p.scale for p in parts])
+        else:
+            fused.weight = nn.Parameter(weight, requires_grad=False)
+            fused.bias = nn.Parameter(bias, requires_grad=False)
+        del sa.q, sa.k, sa.v
+        sa.qkv = fused
+    return model
+
+
 def _self_qkv(layer: DecoderLayer, x: torch.Tensor):
-    """LN1 then self-attention q, k, v as (B, H, S, dh)."""
+    """LN1 then self-attention q, k, v as (B, H, S, dh); one projection
+    when the layer is fused (:func:`fuse_self_qkv`)."""
     sa = layer.self_attn
     q_in = layer.ln1(x)
+    qkv = getattr(sa, "qkv", None)
+    if qkv is not None:
+        b, s, _ = q_in.shape
+        out = qkv(q_in).view(b, s, 3, sa.n_heads, -1)
+        return tuple(out[:, :, i].transpose(1, 2) for i in range(3))
     return tuple(sa.heads(p, q_in).transpose(1, 2) for p in (sa.q, sa.k, sa.v))
 
 
 def _cross_and_mlp(x, layer: DecoderLayer, cross_k, cross_v, sel):
     """Cross-attention (capturing the alignment heads through the (H, A)
-    one-hot ``sel``) and the MLP: returns (x, align (B, Sq, A, T))."""
+    one-hot ``sel``) and the MLP: returns (x, align (B, Sq, A, T)).
+
+    int8 cross K/V (``QuantizedKV`` of one layer) folds its scales out of
+    the products: the K scale into the query, the V scale into the output."""
     ca = layer.cross_attn
     cq = ca.heads(ca.q, layer.ln_cross(x)).transpose(1, 2)
-    c, probs = _attend(cq, cross_k.to(cq.dtype), cross_v.to(cq.dtype))
+    if isinstance(cross_k, QuantizedKV):
+        cq = cq * cross_k.s[:, :, None, :].to(cq.dtype)
+        c, probs = _attend(cq, cross_k.q.to(cq.dtype), cross_v.q.to(cq.dtype))
+        c = c * cross_v.s[:, :, None, :].to(c.dtype)
+    else:
+        c, probs = _attend(cq, cross_k.to(cq.dtype), cross_v.to(cq.dtype))
     align = torch.einsum("bhqk,ha->bqak", probs, sel)
     x = x + ca.out(_merge_heads(c))
     x = x + layer.fc2(_gelu(layer.fc1(layer.ln2(x))))
@@ -286,7 +366,30 @@ def _cross_and_mlp(x, layer: DecoderLayer, cross_k, cross_v, sel):
 
 def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     """Tied-embedding logits in f32 (exact products of the working type)."""
-    return torch.matmul(x.float(), model.decoder.token_emb.float().t())
+    emb = model.decoder.token_emb
+    if isinstance(emb, Int8Embedding):
+        return emb.logits(x)
+    return torch.matmul(x.float(), emb.float().t())
+
+
+def embed_tokens(model: Whisper, tokens: torch.Tensor,
+                 offset: int) -> torch.Tensor:
+    """(B, S) ids at positions [offset, offset + S) -> (B, S, d) in the
+    compute type (an int8 table's rows dequantize into it)."""
+    dec = model.decoder
+    s = tokens.shape[1]
+    if isinstance(dec.token_emb, Int8Embedding):
+        emb = dec.token_emb.lookup(tokens, model.dtype)
+    else:
+        emb = dec.token_emb[tokens]
+    return emb + dec.pos_emb[offset:offset + s]
+
+
+def _layer(kv, l: int):
+    """Layer ``l`` of a cross K or V, float or ``QuantizedKV``."""
+    if isinstance(kv, QuantizedKV):
+        return QuantizedKV(kv.q[l], kv.s[l])
+    return kv[l]
 
 
 def _selector(model: Whisper) -> torch.Tensor:
@@ -306,7 +409,7 @@ def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
     Returns (logits (B, P, V) f32, cache, align (B, P, A, T_enc))."""
     dec = model.decoder
     p = tokens.shape[1]
-    x = dec.token_emb[tokens] + dec.pos_emb[:p]
+    x = embed_tokens(model, tokens, 0)
     causal = torch.ones(p, p, dtype=torch.bool, device=x.device).tril()
     sel = _selector(model)
     align = 0.0
@@ -317,8 +420,8 @@ def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
         a, _ = _attend(q, cache.self_k[l, :, :, :p].to(q.dtype),
                        cache.self_v[l, :, :, :p].to(q.dtype), causal)
         x = x + layer.self_attn.out(_merge_heads(a))
-        x, al = _cross_and_mlp(x, layer, cache.cross_k[l], cache.cross_v[l],
-                               sel[l])
+        x, al = _cross_and_mlp(x, layer, _layer(cache.cross_k, l),
+                               _layer(cache.cross_v, l), sel[l])
         align = align + al
     x = dec.ln_post(x)
     return _logits(model, x), cache, align
@@ -333,7 +436,7 @@ def decoder_step(model: Whisper, token: torch.Tensor, position: int,
     k/v as one extra logit, then writes that k/v into slot ``position``.
     Returns (logits (B, V) f32, cache, align (B, A, T_enc))."""
     dec = model.decoder
-    x = dec.token_emb[token] + dec.pos_emb[position:position + 1]
+    x = embed_tokens(model, token, position)
     sel = _selector(model)
     align = 0.0
     for l, layer in enumerate(dec.layers):
@@ -346,8 +449,8 @@ def decoder_step(model: Whisper, token: torch.Tensor, position: int,
         cache.self_k[l, :, :, position] = k[:, :, 0]
         cache.self_v[l, :, :, position] = v[:, :, 0]
         x = x + layer.self_attn.out(_merge_heads(a))
-        x, al = _cross_and_mlp(x, layer, cache.cross_k[l], cache.cross_v[l],
-                               sel[l])
+        x, al = _cross_and_mlp(x, layer, _layer(cache.cross_k, l),
+                               _layer(cache.cross_v, l), sel[l])
         align = align + al
     x = dec.ln_post(x)
     return _logits(model, x)[:, 0], cache, align[:, 0]
@@ -367,11 +470,15 @@ def _sinusoids(length: int, channels: int) -> np.ndarray:
 
 
 def init_params(arch: WhisperArch, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32, device=None) -> Whisper:
+                dtype: torch.dtype = torch.float32, device=None,
+                bias_std: float = 0.0) -> Whisper:
     """Random model with thewhisper_tpu's ``init_params`` distributions:
     N(0, 0.02) weights, embeddings and conv kernels, zero biases, unit
     LayerNorm scales, sinusoidal encoder positions. Draws on ``device``
-    from ``generator`` (which must live there)."""
+    from ``generator`` (which must live there). A ``bias_std`` > 0 draws
+    every bias and LayerNorm shift from N(0, bias_std) and every LayerNorm
+    scale from 1 + N(0, bias_std) instead, as a checkpoint has them (the
+    k projections have no bias, so a fused k bias stays 0)."""
     with torch.device("meta"):
         shapes = {k: v.shape for k, v in Whisper(arch).state_dict().items()}
     state: Dict[str, torch.Tensor] = {}
@@ -379,10 +486,13 @@ def init_params(arch: WhisperArch, generator: torch.Generator,
         if name == "encoder.pos_emb":
             state[name] = torch.from_numpy(
                 _sinusoids(arch.max_source_positions, arch.d_model))
-        elif name.endswith("bias"):
-            state[name] = torch.zeros(shape, device=device)
-        elif ".ln" in name:                       # LayerNorm scales
-            state[name] = torch.ones(shape, device=device)
+        elif name.endswith("bias") or ".ln" in name:
+            # Biases and LayerNorm shifts 0, LayerNorm scales 1.
+            state[name] = torch.full(shape, float(not name.endswith("bias")),
+                                     device=device)
+            if bias_std:
+                state[name] += bias_std * torch.randn(
+                    shape, generator=generator, device=device)
         else:
             state[name] = 0.02 * torch.randn(
                 shape, generator=generator, device=device)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled at first use by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` process a source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. A C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code. No PyTorch header is compiled, so a cold build takes seconds.
@@ -27,7 +28,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,7 @@ _SIGNATURES = {
     "twt_logmel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "twt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
+    "twt_mega_step": [_P] * 22 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()
@@ -74,20 +76,30 @@ def library_path() -> Path:
 def _compile(target: Path) -> None:
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build beside the target and rename: a concurrent build never sees a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)
+    # Build in a scratch directory beside the target and rename: a
+    # concurrent build never sees a half-written library.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)]
+        outs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name} ({p.returncode}):\n{out}" for src, p, out
+                  in zip(_sources(), procs, outs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = Path(tmp) / target.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(so, target)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(outs)
 
 
 def lib() -> ctypes.CDLL:

@@ -1,0 +1,334 @@
+"""The bs=1 decode step in one launch: K3's wrapper, its packed operands and
+its plain version (port of thewhisper_tpu's ``ops/mega_step.py``).
+
+``mega_decoder_step`` is ``models.whisper.decoder_step`` for one sequence
+of an "S" engine (weight-only int8 decoder with fused self q/k/v, per-row
+int8 tied table, int8 cross K/V) at bf16: for each layer LN1, the fused
+qkv GEMV, self-attention over cache slots below ``pos`` plus the fresh
+token as one extra logit, the out-projection, LN, the cross-query GEMV,
+cross-attention over the int8 K/V with the scales folded (summing the
+alignment heads' probabilities), the cross out-projection, LN2, fc1, tanh
+GELU and fc2; then the final LN and the tied-table logits. On a CUDA
+tensor it is one launch of ``csrc/mega_step.cu``, which also writes the
+fresh k/v into cache slot ``pos``; on a CPU tensor it runs
+:func:`mega_decoder_step_plain`, the same function in plain torch on the
+same operands.
+
+Numerics, kernel and plain version alike: LayerNorm in f32; every int8
+product accumulates in f32 and takes its scale and bias after the sum;
+projections round to the compute type; attention scores and softmax in
+f32; the residual stream in the compute type; f32 logits.
+
+The TPU kernel's Mosaic workarounds have no counterpart: the head padding
+to 128 and the head-selector products, the ``smalls8`` replication, the
+slot pad to 8 and cross pad to 256, the transposed 512-padded table copy
+and the caller's where-iota cache write. The weights are read as the
+model stores them ((out, in), each layer's matrices stacked once at
+engine init and the layers' modules rebound to views of the stack).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.models.quant import (
+    Int8Embedding,
+    Int8Linear,
+    QuantizedKV,
+)
+from thewhisper_tpu_torch.models.whisper import (
+    DecodeCache,
+    Whisper,
+    _gelu,
+    embed_tokens,
+)
+from thewhisper_tpu_torch.ops import _build
+
+# Launches of the CUDA kernel (not of the plain version) since import.
+MEGA_LAUNCHES = 0
+
+_DH = 64
+# The per-layer f32 vectors in one (L, NS) row, in this order; widths in
+# units of (D, F). The kernel (csrc/mega_step.cu) reads the same offsets.
+_SMALLS = (("ln1_g", 1, 0), ("ln1_b", 1, 0), ("qkv_s", 3, 0), ("qkv_b", 3, 0),
+           ("o_s", 1, 0), ("o_b", 1, 0), ("lnc_g", 1, 0), ("lnc_b", 1, 0),
+           ("cq_s", 1, 0), ("cq_b", 1, 0), ("co_s", 1, 0), ("co_b", 1, 0),
+           ("ln2_g", 1, 0), ("ln2_b", 1, 0), ("fc1_s", 0, 1), ("fc1_b", 0, 1),
+           ("fc2_s", 1, 0), ("fc2_b", 1, 0))
+
+
+def mega_pays(arch: WhisperArch, batch: int = 1) -> bool:
+    """The JAX package's gate on its accelerator: the one-launch step pays
+    at batch 1 on decoders deeper than 4 layers (large-v3 yes, turbo no).
+    To be re-derived from this card's own times: ``chip_smoke.py`` prints
+    the kernel and the plain step at L = 32 and at L = 4."""
+    return batch == 1 and arch.decoder_layers > 4
+
+
+class MegaParams(NamedTuple):
+    """K3's operands, made once by :func:`pack_mega_params`."""
+
+    qkv_w: torch.Tensor     # (L, 3D, D) int8
+    o_w: torch.Tensor       # (L, D, D) int8
+    cq_w: torch.Tensor      # (L, D, D) int8
+    co_w: torch.Tensor      # (L, D, D) int8
+    fc1_w: torch.Tensor     # (L, F, D) int8
+    fc2_w: torch.Tensor     # (L, D, F) int8
+    smalls: torch.Tensor    # (L, 20 D + 2 F) f32, the _SMALLS vectors
+    lnp: torch.Tensor       # (2, D) f32 final LayerNorm weight, bias
+    emb_q: torch.Tensor     # (V, D) int8 tied table (the model's own)
+    emb_s: torch.Tensor     # (V,) f32 row scales
+    heads: torch.Tensor     # (A, 2) int32 (layer, head) of each alignment head
+
+
+def _smalls_offsets(d: int, f: int):
+    offs, o = {}, 0
+    for name, nd, nf in _SMALLS:
+        offs[name] = (o, nd * d + nf * f)
+        o += nd * d + nf * f
+    return offs
+
+
+def pack_mega_params(model: Whisper) -> Optional[MegaParams]:
+    """Stack the decoder's int8 matrices into (L, out, in) tensors, rebind
+    every layer's weight to a view of its stack (so the model and the
+    kernel share one copy), pack the small f32 vectors and set
+    ``model.mega``. Returns the operands, or None (leaving the model as it
+    was) when the decoder is not weight-only int8 with fused self q/k/v and
+    an int8 tied table."""
+    dec = model.decoder
+    linears = {"qkv": [], "o": [], "cq": [], "co": [], "fc1": [], "fc2": []}
+    for layer in dec.layers:
+        sa, ca = layer.self_attn, layer.cross_attn
+        for key, mod in (("qkv", getattr(sa, "qkv", None)), ("o", sa.out),
+                         ("cq", ca.q), ("co", ca.out), ("fc1", layer.fc1),
+                         ("fc2", layer.fc2)):
+            if type(mod) is not Int8Linear or mod.bias is None:
+                return None
+            linears[key].append(mod)
+    if not isinstance(dec.token_emb, Int8Embedding):
+        return None
+
+    stacks = {}
+    for key, mods in linears.items():
+        stack = torch.stack([m.weight for m in mods])
+        for l, m in enumerate(mods):
+            m.weight = stack[l]
+        stacks[key] = stack
+
+    per_layer = []
+    for layer, qkv, o, cq, co, fc1, fc2 in zip(dec.layers, *linears.values()):
+        per_layer.append(torch.cat([t.float() for t in (
+            layer.ln1.weight, layer.ln1.bias, qkv.scale, qkv.bias,
+            o.scale, o.bias, layer.ln_cross.weight, layer.ln_cross.bias,
+            cq.scale, cq.bias, co.scale, co.bias,
+            layer.ln2.weight, layer.ln2.bias, fc1.scale, fc1.bias,
+            fc2.scale, fc2.bias)]))
+    heads = torch.tensor(model.arch.alignment_heads or [], dtype=torch.int32,
+                         device=model.device).reshape(-1, 2)
+    model.mega = MegaParams(
+        qkv_w=stacks["qkv"], o_w=stacks["o"], cq_w=stacks["cq"],
+        co_w=stacks["co"], fc1_w=stacks["fc1"], fc2_w=stacks["fc2"],
+        smalls=torch.stack(per_layer),
+        lnp=torch.stack([dec.ln_post.weight, dec.ln_post.bias]).float(),
+        emb_q=dec.token_emb.q, emb_s=dec.token_emb.s, heads=heads)
+    return model.mega
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), x.shape[-1:], g, b, 1e-5).to(x.dtype)
+
+
+def _gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """(1, in) x int8 (out, in): f32 products and sum, then scale and bias."""
+    return torch.matmul(x.float(), w.float().t()) * s + b
+
+
+def mega_step_plain(mp: MegaParams, x: torch.Tensor, pos: int,
+                    cache: DecodeCache, arch: WhisperArch,
+                    capture_align: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K3 function in plain torch, on the packed operands of ``arch``'s
+    first ``mp.o_w.shape[0]`` layers. ``x`` (1, D) is the embedded token;
+    writes slot ``pos`` of the batch-1 self cache. Returns (logits (1, V)
+    f32, align (max(A, 1), T) f32, zeros unless ``capture_align``)."""
+    dt = x.dtype
+    n_layers, d = mp.o_w.shape[:2]
+    f = mp.fc1_w.shape[1]
+    h, dh = arch.decoder_heads, d // arch.decoder_heads
+    scale = dh ** -0.5
+    offs = _smalls_offsets(d, f)
+    ck, cv = cache.cross_k, cache.cross_v
+    t = ck.q.shape[3]
+    align = torch.zeros(max(1, mp.heads.shape[0]), t, device=x.device)
+    for l in range(n_layers):
+        def sm(name):
+            o, w = offs[name]
+            return mp.smalls[l, o:o + w]
+
+        # Self-attention over slots < pos plus the fresh token.
+        qkv = _gemv(_ln(x, sm("ln1_g"), sm("ln1_b")), mp.qkv_w[l],
+                    sm("qkv_s"), sm("qkv_b")).to(dt)
+        q, k, v = (qkv[0, i * d:(i + 1) * d].view(h, dh) for i in range(3))
+        cache.self_k[l, 0, :, pos] = k
+        cache.self_v[l, 0, :, pos] = v
+        qs = q.float() * scale
+        keys = cache.self_k[l, 0, :, :pos].float()             # (H, pos, dh)
+        logits = torch.cat([torch.einsum("hd,hsd->hs", qs, keys),
+                            (qs * k.float()).sum(-1, keepdim=True)], dim=-1)
+        p = torch.softmax(logits, dim=-1)
+        att = (torch.einsum("hs,hsd->hd", p[:, :-1],
+                            cache.self_v[l, 0, :, :pos].float())
+               + p[:, -1:] * v.float())
+        x = x + _gemv(att.reshape(1, d).to(dt), mp.o_w[l], sm("o_s"),
+                      sm("o_b")).to(dt)
+
+        # Cross-attention over the int8 K/V, scales folded.
+        cq = _gemv(_ln(x, sm("lnc_g"), sm("lnc_b")), mp.cq_w[l], sm("cq_s"),
+                   sm("cq_b")).to(dt)
+        cqs = cq.float().view(h, dh) * ck.s[l, 0] * scale
+        p = torch.softmax(torch.einsum("hd,htd->ht", cqs, ck.q[l, 0].float()),
+                          dim=-1)
+        if capture_align:
+            for a, (la, ha) in enumerate(arch.alignment_heads):
+                if la == l:
+                    align[a] += p[ha]
+        c = torch.einsum("ht,htd->hd", p, cv.q[l, 0].float()) * cv.s[l, 0]
+        x = x + _gemv(c.reshape(1, d).to(dt), mp.co_w[l], sm("co_s"),
+                      sm("co_b")).to(dt)
+
+        # MLP.
+        hid = _gemv(_ln(x, sm("ln2_g"), sm("ln2_b")), mp.fc1_w[l],
+                    sm("fc1_s"), sm("fc1_b")).to(dt)
+        hid = _gelu(hid)
+        x = x + _gemv(hid, mp.fc2_w[l], sm("fc2_s"), sm("fc2_b")).to(dt)
+    x = _ln(x, mp.lnp[0], mp.lnp[1])
+    return torch.matmul(x.float(), mp.emb_q.float().t()) * mp.emb_s, align
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------------
+
+_barriers = {}
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    """The grid barrier's (count, generation) pair for ``device``. Every
+    launch zeroes it on its stream first; K3 launches on one device share
+    it, so they must not overlap (one stream orders them)."""
+    key = device.index or 0
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _barriers[key]
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"mega_step: {what}")
+
+
+def mega_step(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
+              arch: WhisperArch, capture_align: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's wrapper, the contract of :func:`mega_step_plain`. CPU tensors
+    take the plain version; CUDA tensors one launch of csrc/mega_step.cu,
+    which raises on anything the kernel does not take."""
+    global MEGA_LAUNCHES
+    if x.device.type == "cpu":
+        return mega_step_plain(mp, x, pos, cache, arch, capture_align)
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    n_heads = arch.decoder_heads
+    n_layers, d = mp.o_w.shape[:2]
+    f = mp.fc1_w.shape[1]
+    v = mp.emb_q.shape[0]
+    ck, cv = cache.cross_k, cache.cross_v
+    sk, sv = cache.self_k, cache.self_v
+    _check(x.dtype == torch.bfloat16, f"compute type {x.dtype} (takes bf16)")
+    _check(x.shape == (1, d), f"x of shape {tuple(x.shape)} (takes batch 1)")
+    _check(d % 128 == 0 and f % 128 == 0,
+           f"d_model {d} / d_ff {f} not multiples of 128")
+    _check(d == n_heads * _DH, f"head dim {d // n_heads} (takes {_DH})")
+    _check(sk.dtype == sv.dtype == torch.bfloat16, "self cache must be bf16")
+    _check(sk.shape[:3] == (n_layers, 1, n_heads) and sk.shape[4] == _DH
+           and sk.shape == sv.shape, f"self cache shape {tuple(sk.shape)}")
+    s_max = sk.shape[3]
+    _check(0 <= pos < s_max, f"position {pos} outside the {s_max}-slot cache")
+    _check(isinstance(ck, QuantizedKV) and isinstance(cv, QuantizedKV),
+           "cross K/V must be int8 (QuantizedKV)")
+    t = ck.q.shape[3]
+    for kv in (ck, cv):
+        _check(kv.q.dtype == torch.int8 and kv.q.shape == (
+            n_layers, 1, n_heads, t, _DH), f"cross K/V {tuple(kv.q.shape)}")
+        _check(kv.s.dtype == torch.float32 and kv.s.shape == (
+            n_layers, 1, n_heads, _DH), "cross K/V scales")
+    tensors = (x, sk, sv, ck.q, cv.q, ck.s, cv.s, *mp)
+    _check(all(a.device == x.device for a in tensors), "one device for all")
+    _check(all(a.is_contiguous() for a in tensors), "contiguous operands")
+
+    n_align = mp.heads.shape[0]
+    logits = torch.empty(1, v, device=x.device)
+    align = torch.empty(max(1, n_align), t, device=x.device)
+    # Scratch: qkv (3D) | att (D) | hidden (F) in bf16, then cq (D) f32.
+    work = torch.empty(4 * d + f + 2 * d, dtype=torch.bfloat16,
+                       device=x.device)
+    x = x.clone()                       # the residual stream, in place
+    code = _build.lib().twt_mega_step(
+        mp.qkv_w.data_ptr(), mp.o_w.data_ptr(), mp.cq_w.data_ptr(),
+        mp.co_w.data_ptr(), mp.fc1_w.data_ptr(), mp.fc2_w.data_ptr(),
+        mp.smalls.data_ptr(), mp.lnp.data_ptr(), mp.emb_q.data_ptr(),
+        mp.emb_s.data_ptr(), sk.data_ptr(), sv.data_ptr(), ck.q.data_ptr(),
+        cv.q.data_ptr(), ck.s.data_ptr(), cv.s.data_ptr(),
+        mp.heads.data_ptr(), x.data_ptr(), work.data_ptr(),
+        logits.data_ptr(), align.data_ptr(),
+        _barrier(x.device).data_ptr(),
+        n_layers, d, f, n_heads, v, s_max, t, n_align, int(pos),
+        int(capture_align), x.device.index or 0,
+        _build.stream_handle(x.device))
+    _build.check(code, "twt_mega_step")
+    MEGA_LAUNCHES += 1
+    return logits, align
+
+
+def _run(model: Whisper, token: torch.Tensor, position: int,
+         cache: DecodeCache, capture_align: bool, plain: bool):
+    mp = model.mega
+    if mp is None:
+        raise ValueError("mega_step: the model is not packed "
+                         "(ops.mega_step.pack_mega_params)")
+    x = embed_tokens(model, token, position)[:, 0]              # (1, D)
+    step = mega_step_plain if plain else mega_step
+    logits, align = step(mp, x, int(position), cache, model.arch,
+                         capture_align)
+    return logits, cache, align[None]
+
+
+def mega_decoder_step(model: Whisper, token: torch.Tensor, position: int,
+                      cache: DecodeCache, capture_align: bool = True
+                      ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """One decode step of a packed model at batch 1: ``token`` (1, 1) at
+    cache slot ``position``. The contract of ``models.whisper
+    .decoder_step``: returns (logits (1, V) f32, cache with slot
+    ``position`` written, align (1, A, T_enc) f32, zeros unless
+    ``capture_align``). CPU tensors take :func:`mega_decoder_step_plain`;
+    CUDA tensors launch K3 or raise."""
+    return _run(model, token, position, cache, capture_align, plain=False)
+
+
+def mega_decoder_step_plain(model: Whisper, token: torch.Tensor,
+                            position: int, cache: DecodeCache,
+                            capture_align: bool = True
+                            ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """:func:`mega_decoder_step` in plain torch, on any device."""
+    return _run(model, token, position, cache, capture_align, plain=True)
+
