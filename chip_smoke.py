@@ -19,7 +19,9 @@ is false. Phases, each of which raises on failure:
    ``transcribe_batch`` of four buffers. It checks that both kernels ran on
    that path, that logits are finite, that timestamps are ordered, that
    the encoder with the kernels agrees with the plain version, and that a
-   small f32 model transcribes the same on the card as on the CPU.
+   small f32 model transcribes the same on the card as on the CPU, and
+   decodes the same tokens speculatively (ngram, a one-layer layer-skip
+   draft) as greedily, on the card and on the CPU.
 6. [S] The "S" main path at the full width of large-v3 (32 + 32 layers,
    d_model 1280, 20 heads, d_ff 5120, vocab 51866): random bf16 weights,
    biases and LayerNorm parameters,
@@ -33,6 +35,16 @@ is false. Phases, each of which raises on failure:
    (T = 1500): at L = 32 for cache lengths 5, 68 and 228, at L = 4
    (turbo's depth) and at L = 1 over eight steps, the best of which must
    agree to f32 noise, and the times of both at each.
+8. [K4] The verify-window kernel against its plain version on the S model's
+   operands: L = 32 with windows of 5 (cache 73), 16 (cache 84) and 1, L = 4
+   and L = 1 over eight windows, K3's bounds; one L = 1 window against K3
+   stepping the same tokens; times of K4 and the plain verify a round at
+   L = 32 for windows 1, 5 and 16 beside K3's time a step.
+9. [SPEC] The speculative "S" path at large-v3 width: a second engine on
+   the S model with ngram drafting (``spec_ngram=True``), ``ASRPipeline``
+   on the 20 s WAV without timestamps (batch 1: every verify round is one
+   K4 launch), the K3 greedy call on the same WAV, and a two-layer
+   layer-skip draft; walls, tokens a round and the shared token prefix.
 
 Times come from CUDA events; every number printed is measured in the run.
 The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
@@ -63,6 +75,7 @@ from thewhisper_tpu_torch.audio.features import (
     mel_filter_bank,
 )
 from thewhisper_tpu_torch.engine import WhisperEngine
+from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
 from thewhisper_tpu_torch.models.quant import (
     QuantizedKV,
     quantize_kv,
@@ -353,15 +366,30 @@ def phase_small_reference() -> None:
     cpu_model = init_params(arch, torch.Generator().manual_seed(1))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     audio = synth_audio(20, seed=5)
-    outs = []
+    padded = np.zeros((1, 30 * SAMPLE_RATE), np.float32)
+    padded[0, :len(audio)] = audio
+    opts = GenerationOptions(language="en", max_new_tokens=32)
+    outs, tokens = [], []
     for model in (cpu_model, gpu_model):
         pipe = ASRPipeline(WhisperEngine(model), chunk_length_s=30)
         outs.append(pipe(audio, return_timestamps="word",
                          generate_kwargs={"language": "en",
                                           "max_new_tokens": 32}))
+        # Greedy, ngram drafting and a one-layer layer-skip draft.
+        for engine in (pipe.engine, WhisperEngine(model, spec_ngram=True),
+                       WhisperEngine(model, draft_model=make_layer_skip_draft(
+                           model, 1))):
+            res = engine.transcribe_audio(padded, opts)
+            tokens.append((res.tokens, res.spec_rounds))
     check(outs[0] == outs[1], "small f32 model: card and CPU transcripts differ")
+    check(all(np.array_equal(t, tokens[0][0]) for t, _ in tokens),
+          "small f32 model: speculative and greedy tokens differ")
+    check(all((r is None) == (i % 3 == 0) for i, (_, r) in enumerate(tokens)),
+          "small f32 model: speculation did not run where asked")
     print(f"[ref] small f32 model, 20 s: card == CPU ({len(outs[1]['chunks'])} "
-          "words, identical text and word timestamps)", flush=True)
+          "words, identical text and word timestamps); greedy, ngram and "
+          "layer-skip:1 tokens identical on both (verify rounds "
+          f"{[r for _, r in tokens if r is not None]})", flush=True)
 
 
 def phase_s_path():
@@ -482,6 +510,13 @@ K3_LOGITS_REL = {1: 1e-2, 4: 2e-2, 32: 2e-2}
 K3_EXACT = 1e-5
 
 
+def _layers(mp, ck, cv, depth):
+    """K3's operands and the cross K/V of the first ``depth`` layers."""
+    return (mp._replace(**{f: getattr(mp, f)[:depth] for f in (
+        "qkv_w", "o_w", "cq_w", "co_w", "fc1_w", "fc2_w", "smalls")}),
+        *(QuantizedKV(kv.q[:depth], kv.s[:depth]) for kv in (ck, cv)))
+
+
 def phase_mega(model, enc) -> dict:
     """K3 against its plain version on the S model's packed operands
     (random biases and LayerNorm parameters), the cross K/V of a 30 s
@@ -504,10 +539,7 @@ def phase_mega(model, enc) -> dict:
         ck, cv = quantize_kv(ck), quantize_kv(cv)
         for depth, s_len, positions in K3_CASES:
             arch_l = dataclasses.replace(arch, decoder_layers=depth)
-            mp_l = mp._replace(**{f: getattr(mp, f)[:depth] for f in (
-                "qkv_w", "o_w", "cq_w", "co_w", "fc1_w", "fc2_w", "smalls")})
-            ck_l, cv_l = (QuantizedKV(kv.q[:depth], kv.s[:depth])
-                          for kv in (ck, cv))
+            mp_l, ck_l, cv_l = _layers(mp, ck, cv, depth)
             base = make_cache(arch_l, 1, s_len, ck_l, cv_l,
                               dtype=torch.bfloat16)
             for t in (base.self_k, base.self_v):
@@ -560,6 +592,181 @@ def phase_mega(model, enc) -> dict:
     return main
 
 
+# K4's cases: (decoder layers, cache length, window, positions). The cache
+# lengths are a speculative call's: prompt 4 + max_new 64 + W + 1 for
+# W = 4 (a window of 5 rows) and W = 15 (16 rows); the last position is
+# S - W.
+K4_CASES = ((32, 73, 5, (4, 40, 68)), (32, 84, 16, (4, 68)),
+            (32, 73, 1, (40,)), (4, 73, 5, (4, 68)),
+            (1, 73, 5, (4, 11, 20, 29, 37, 46, 55, 68)))
+
+
+def phase_verify(model, enc) -> dict:
+    """K4 against its plain version on the S model's packed operands, the
+    cross K/V of a 30 s window through the W8A8 encoder and random bf16
+    self K/V, for each of ``K4_CASES``. K4 is K3 over W rows at the same
+    rounding points, so K3's bounds hold row by row: the logits as in
+    ``K3_LOGITS_REL`` and, at L = 1, ``K3_EXACT`` for the best row of the
+    eight windows (a window's worst row agrees to f32 noise only when none
+    of its rows has a value that rounds the other way);
+    layer 0's window rows to ``first_row_ratio``; every window row <= 5e-2;
+    every slot outside the window bit-identical. Then one L = 1 window
+    against K3 stepping its tokens (row j against step j, K3's L = 1
+    bounds), and the times of K4, the plain verify and K3 at L = 32."""
+    arch, mp = model.arch, model.mega
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(8)
+    main, times = None, {}
+    with torch.inference_mode():
+        ck, cv = (quantize_kv(t) for t in compute_cross_kv(model, enc))
+        for depth, s_len, w, positions in K4_CASES:
+            arch_l = dataclasses.replace(arch, decoder_layers=depth)
+            mp_l, ck_l, cv_l = _layers(mp, ck, cv, depth)
+            base = make_cache(arch_l, 1, s_len, ck_l, cv_l,
+                              dtype=torch.bfloat16)
+            for t in (base.self_k, base.self_v):
+                t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
+            where = f"L={depth} S={s_len} W={w}"
+            rels = []
+            for pos in positions:
+                tokens = torch.arange(100 + pos, 100 + pos + w, device=dev)
+                x = embed_tokens(model, tokens[None], pos)[0]
+                caches = [DecodeCache(base.self_k.clone(), base.self_v.clone(),
+                                      ck_l, cv_l) for _ in range(2)]
+                lk = mega.mega_verify(mp_l, x, pos, caches[0], arch_l)
+                lp = mega.mega_verify_plain(mp_l, x, pos, caches[1], arch_l)
+                torch.cuda.synchronize()
+                err = (lk - lp).abs().max().item()
+                rel = err / lp.abs().max().item()
+                row_rels = ((lk - lp).abs().amax(1) / lp.abs().amax(1)).tolist()
+                rels.extend(row_rels)
+                rows = [(k[:, 0, :, pos:pos + w], p[:, 0, :, pos:pos + w])
+                        for k, p in zip(caches[0][:2], caches[1][:2])]
+                kverr = max((k.float() - p.float()).abs().max().item()
+                            for k, p in rows)
+                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p in rows)
+                keep = torch.ones(s_len, dtype=torch.bool, device=dev)
+                keep[pos:pos + w] = False
+                same = all(torch.equal(got[:, :, :, keep], ref[:, :, :, keep])
+                           for c in caches for got, ref in zip(c[:2], base[:2]))
+                print(f"[K4] {where:>16} pos={pos:>3d}: logits max abs err "
+                      f"{err:.3e} (rel {rel:.3e}; best row "
+                      f"{min(row_rels):.3e}), window k/v {kverr:.3e}, "
+                      f"layer 0 window k/v {ratio0:.3f} of its bound, other "
+                      f"slots identical {same}", flush=True)
+                check(rel <= K3_LOGITS_REL[depth],
+                      f"K4 logits rel err {rel} at {where} pos={pos}")
+                check(ratio0 <= 1.0, f"K4 layer 0 window k/v {ratio0} of its "
+                      f"bound at {where} pos={pos}")
+                check(kverr <= 5e-2, f"K4 window k/v err {kverr} at {where}")
+                check(same, f"K4 touched a cache slot outside {pos}..{pos + w - 1}")
+                check(bool(torch.isfinite(lk).all()), "K4 logits not finite")
+            if depth == 1:
+                check(min(rels) <= K3_EXACT, f"K4 at {where}: no row "
+                      f"agrees to {K3_EXACT} (best {min(rels)})")
+            if depth == 32:
+                ms = cuda_ms(lambda: mega.mega_verify(mp_l, x, pos, caches[0],
+                                                      arch_l))
+                plain_ms = cuda_ms(lambda: mega.mega_verify_plain(
+                    mp_l, x, pos, caches[1], arch_l), iters=5)
+                times[w] = (ms, plain_ms)
+                if w == 5:                       # the main path's window
+                    main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+        # One L = 1 window against K3 stepping the same tokens.
+        mp_1, ck_1, cv_1 = _layers(mp, ck, cv, 1)
+        arch_1 = dataclasses.replace(arch, decoder_layers=1)
+        base = make_cache(arch_1, 1, 73, ck_1, cv_1, dtype=torch.bfloat16)
+        for t in (base.self_k, base.self_v):
+            t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
+        pos, w = 30, 5
+        x = embed_tokens(model, torch.arange(300, 300 + w, device=dev)[None],
+                         pos)[0]
+        lv = mega.mega_verify(mp_1, x, pos, DecodeCache(
+            base.self_k.clone(), base.self_v.clone(), ck_1, cv_1), arch_1)
+        steps = DecodeCache(base.self_k.clone(), base.self_v.clone(), ck_1, cv_1)
+        rels = []
+        for j in range(w):
+            ls, _ = mega.mega_step(mp_1, x[j:j + 1], pos + j, steps, arch_1,
+                                   capture_align=False)
+            rels.append(((lv[j] - ls[0]).abs().max() / ls.abs().max()).item())
+        torch.cuda.synchronize()
+        print(f"[K4] L=1 window of {w} against K3 stepping it: logits rel err "
+              f"by row {', '.join(f'{r:.3e}' for r in rels)}", flush=True)
+        check(max(rels) <= K3_LOGITS_REL[1] and min(rels) <= K3_EXACT,
+              f"K4 rows against K3 steps: {rels}")
+
+        # K3's step at the same depth and cache length, for the ratio.
+        mp_l, ck_l, cv_l = _layers(mp, ck, cv, 32)
+        step_cache = make_cache(arch, 1, 73, ck_l, cv_l, dtype=torch.bfloat16)
+        x1 = embed_tokens(model, torch.tensor([[140]], device=dev), 40)[:, 0]
+        k3_ms = cuda_ms(lambda: mega.mega_step(mp_l, x1, 40, step_cache, arch))
+    for w, (ms, plain_ms) in sorted(times.items()):
+        print(f"[K4] L=32 window {w:>2d}: kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms a round; K3 {k3_ms:.4f} ms a step; one K4 "
+              f"round / one K3 step {ms / k3_ms:.3f}", flush=True)
+    return main
+
+
+def phase_spec(model):
+    """The speculative S path: an ngram engine and a two-layer layer-skip
+    engine on the S model, and the K3 greedy engine, on one 20 s WAV at
+    batch 1 without timestamps. Returns K4's launches on the ngram call,
+    which must equal its verify rounds."""
+    engines = {"ngram": WhisperEngine(model, cross_kv_int8=True,
+                                      spec_ngram=True),
+               "greedy": WhisperEngine(model, cross_kv_int8=True),
+               "layer-skip:2": WhisperEngine(
+                   model, cross_kv_int8=True,
+                   draft_model=make_layer_skip_draft(model, 2))}
+    results, launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        wav20 = Path(tmp) / "speech20.wav"
+        write_wav(wav20, synth_audio(20, seed=6))
+        for name, engine in engines.items():
+            generate = engine._generate
+            engine._generate = lambda *a, _g=generate, _n=name, **k: (
+                results.setdefault(_n, _g(*a, **k)))
+            pipe = ASRPipeline(engine, chunk_length_s=30)
+            logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
+            mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = 0
+            out = timed(f"{name}: 20 s WAV, batch 1, no timestamps", lambda: pipe(
+                str(wav20), generate_kwargs=dict(GEN_KW)), tag="SPEC")
+            launches[name] = {"logmel": logmel.LOGMEL_LAUNCHES,
+                              "encoder_attention": attn.ATTN_LAUNCHES,
+                              "mega_step": mega.MEGA_LAUNCHES,
+                              "mega_verify": mega.MEGA_VERIFY_LAUNCHES}
+            check(out["text"].strip() != "", f"{name}: empty transcript")
+    ref = results["greedy"]
+    p, n_ref = ref.prompt_len, int(ref.num_generated[0])
+    for name, res in results.items():
+        n = int(res.num_generated[0])
+        check(bool(np.isfinite(res.token_logprobs).all()
+                   and np.isfinite(res.sum_logprob).all()),
+              f"{name}: logprobs not finite")
+        shared = 0
+        while (shared < min(n, n_ref)
+               and res.tokens[0, p + shared] == ref.tokens[0, p + shared]):
+            shared += 1
+        rounds = res.spec_rounds
+        per_round = f", {(n - 1) / rounds:.3f} tokens a round after the " \
+            f"prefill's first ({rounds} rounds)" if rounds else ""
+        print(f"[SPEC] {name}: {n} tokens{per_round}; kernel launches "
+              f"{launches[name]}; {shared} leading tokens shared with "
+              f"greedy's {n_ref}", flush=True)
+    for name in ("ngram", "layer-skip:2"):
+        rounds = results[name].spec_rounds
+        check(rounds is not None and rounds > 0, f"{name}: no verify round")
+        check(launches[name]["mega_verify"] == rounds,
+              f"{name}: K4 launches {launches[name]['mega_verify']} != "
+              f"{rounds} verify rounds")
+        check(launches[name]["mega_step"] == 0, f"{name}: K3 launched")
+        check(launches[name]["logmel"] == 1
+              and launches[name]["encoder_attention"] == model.arch.encoder_layers,
+              f"{name}: K1/K2 launches {launches[name]}")
+    return launches["ngram"]["mega_verify"]
+
+
 def result_line(kind: str) -> str:
     """The last line. ``count`` is the number of cards the run used: one,
     whatever ``torch.cuda.device_count()`` shows."""
@@ -576,6 +783,8 @@ def main() -> None:
     phase_small_reference()
     model, enc, k3_launches = phase_s_path()
     k3 = phase_mega(model, enc)
+    k4 = phase_verify(model, enc)
+    k4_launches = phase_spec(model)
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",
@@ -589,6 +798,10 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/mega_step.cu",
          "replaces": "thewhisper_tpu/ops/mega_step.py:602",
          "launches": k3_launches, **k3},
+        {"name": "mega_verify", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/mega_verify.cu",
+         "replaces": "thewhisper_tpu/ops/mega_step.py:1061",
+         "launches": k4_launches, **k4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,8 +8,8 @@ where only PyTorch is installed:
 
 Shapes are the slice's production shapes: 10 s and 30 s of audio (1000 and
 3000 frames), S = 1500 and 500 encoder positions, 20 heads of 64; K3 (the
-decode step) at a small arch, d_model 384 with heads of 64 and 2 layers
-(chip_smoke.py holds it at large-v3 width).
+decode step) and K4 (the verify window) at a small arch, d_model 384 with
+heads of 64 and 2 layers (chip_smoke.py holds them at large-v3 width).
 """
 
 import dataclasses
@@ -42,7 +42,8 @@ def _sig(batch, seconds, seed=0):
 def test_build_reports_resources(cuda_device):
     """The library builds (or loads) and exports every entry point."""
     lib = _build.lib()
-    for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step"):
+    for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step",
+                 "twt_mega_verify"):
         assert hasattr(lib, name)
     if _build.build_log is not None:
         print(_build.build_log)
@@ -125,12 +126,12 @@ K3_ARCH = WhisperArch(
     alignment_heads=((0, 1), (1, 3)))
 
 
-def _k3_case(device, slots, t_enc=96, seed=0):
+def _k3_case(device, slots, t_enc=96, seed=0, d_ff=K3_ARCH.d_ff):
     """A packed bf16 "S" model (random biases and LayerNorm parameters) and
     a batch-1 cache with random K/V."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    model = tw.init_params(K3_ARCH, g, dtype=torch.bfloat16,
-                           bias_std=0.1).to(device)
+    model = tw.init_params(dataclasses.replace(K3_ARCH, d_ff=d_ff), g,
+                           dtype=torch.bfloat16, bias_std=0.1).to(device)
     tq.quantize_params(model)
     tm.pack_mega_params(tw.fuse_self_qkv(model))
     shape = (2, 1, 6, t_enc, 64)
@@ -207,3 +208,72 @@ def test_mega_step_kernel_rejects_bad_input(cuda_device):
                          cache.cross_k, cache.cross_v)
     with pytest.raises(ValueError, match="bf16"):
         tm.mega_decoder_step(model, token, 4, f32)
+
+
+@pytest.mark.parametrize("w", [1, 5, 16])
+@pytest.mark.parametrize("pos", [0, 27])
+def test_mega_verify_kernel_matches_plain(cuda_device, w, pos):
+    """K4 against its plain version, K3's bounds: logits 2e-2 relative to
+    their max, the window's k/v rows 5e-2, layer 0's rows within one bf16
+    rounding; every slot outside the window untouched."""
+    slots = 60
+    model, cache = _k3_case(cuda_device, slots)
+    tokens = torch.arange(17, 17 + w, device=cuda_device)[None]
+    copies = [tw.DecodeCache(cache.self_k.clone(), cache.self_v.clone(),
+                             cache.cross_k, cache.cross_v) for _ in range(2)]
+    before = tm.MEGA_VERIFY_LAUNCHES
+    lk, ck, ak = tm.mega_decoder_verify(model, tokens, pos, copies[0])
+    torch.cuda.synchronize()
+    assert tm.MEGA_VERIFY_LAUNCHES == before + 1
+    lp, cp, _ = tm.mega_decoder_verify(model, tokens, pos, copies[1],
+                                       plain=True)
+    assert lk.shape == (1, w, 500) and ak.shape == (1, w, 2, 96)
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    assert rel < 2e-2
+    win = slice(pos, pos + w)
+    keep = torch.ones(slots, dtype=torch.bool, device=cuda_device)
+    keep[win] = False
+    for got, ref, orig in zip((ck.self_k, ck.self_v), (cp.self_k, cp.self_v),
+                              (cache.self_k, cache.self_v)):
+        assert (got[:, :, :, win].float() - ref[:, :, :, win].float()).abs().max() < 5e-2
+        g0, r0 = got[0, 0, :, win].float(), ref[0, 0, :, win].float()
+        bound = (2 ** -7 * torch.maximum(g0.abs(), r0.abs())
+                 + 2 ** -10 * r0.abs().max())
+        assert ((g0 - r0).abs() <= bound).all()
+        assert torch.equal(got[:, :, :, keep], orig[:, :, :, keep])
+
+
+@pytest.mark.parametrize("w,d_ff", [(8, 1536), (16, 5120)])
+def test_mega_verify_rows_are_k3_steps(cuda_device, w, d_ff):
+    """K4's row j and K3's step at slot pos + j share every rounding point
+    and order of sums: on one layer, as K3's own one-layer check, every row
+    within 1e-2 of the step and the best within 1e-5. At 16 rows of d_ff
+    5120 (large-v3's) K4 stages fc2's input in two column chunks."""
+    model, cache = _k3_case(cuda_device, 60, d_ff=d_ff)
+    mp = model.mega._replace(**{f: getattr(model.mega, f)[:1] for f in (
+        "qkv_w", "o_w", "cq_w", "co_w", "fc1_w", "fc2_w", "smalls")})
+    arch = dataclasses.replace(K3_ARCH, decoder_layers=1)
+    ck, cv = (tq.QuantizedKV(kv.q[:1], kv.s[:1])
+              for kv in (cache.cross_k, cache.cross_v))
+    pos = 21
+    tokens = torch.arange(40, 40 + w, device=cuda_device)[None]
+    x = tw.embed_tokens(model, tokens, pos)[0]
+    lv = tm.mega_verify(mp, x, pos, tw.DecodeCache(
+        cache.self_k[:1].clone(), cache.self_v[:1].clone(), ck, cv), arch)
+    steps = tw.DecodeCache(cache.self_k[:1].clone(), cache.self_v[:1].clone(),
+                           ck, cv)
+    rels = []
+    for j in range(w):
+        ls, _ = tm.mega_step(mp, x[j:j + 1], pos + j, steps, arch)
+        rels.append(((lv[j] - ls[0]).abs().max() / ls.abs().max()).item())
+    assert max(rels) < 1e-2 and min(rels) < 1e-5, rels
+
+
+def test_mega_verify_kernel_rejects_bad_input(cuda_device):
+    model, cache = _k3_case(cuda_device, 8)
+    with pytest.raises(ValueError, match="window"):
+        tm.mega_decoder_verify(model, torch.zeros(1, 17, dtype=torch.long,
+                                                  device=cuda_device), 0, cache)
+    with pytest.raises(ValueError, match="outside"):
+        tm.mega_decoder_verify(model, torch.zeros(1, 4, dtype=torch.long,
+                                                  device=cuda_device), 5, cache)

@@ -254,3 +254,119 @@ def test_wrapper_takes_cpu_or_cuda_only(bf16_16):
     x = torch.zeros(1, 384, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tm.mega_step(model.mega, x, 4, cache, ARCH)
+
+
+def _verify_window(pos, w):
+    return np.array([[5 + (i * 7 + pos) % 90 for i in range(w)]], np.int32)
+
+
+def _compare_verify(lr, jsk, jsv, out, pos, w):
+    """The bounds tests/test_mega_step.py::test_verify_parity holds the TPU
+    kernel to: logits 2e-2 relative to their max, the window's k/v 5e-2,
+    every other slot bit-identical. ``jsk``/``jsv`` feature-major."""
+    tl, cache, ta = out
+    lm = tl.float().numpy()
+    assert lm.shape == lr.shape == (1, w, ARCH.vocab_size)
+    rel = np.abs(lr - lm).max() / max(np.abs(lr).max(), 1e-6)
+    assert rel < 2e-2, f"logits rel err {rel}"
+    assert not ta.any()
+    for ref, got in ((jsk, cache.self_k), (jsv, cache.self_v)):
+        r = np.swapaxes(np.asarray(ref, np.float32), 3, 4)
+        g = got.float().numpy()
+        assert np.abs(r - g).max() < 5e-2
+        keep = np.ones(r.shape[3], bool)
+        keep[pos:pos + w] = False
+        np.testing.assert_array_equal(g[:, :, :, keep], r[:, :, :, keep])
+
+
+def _fresh(cache):
+    return tw.DecodeCache(cache.self_k.clone(), cache.self_v.clone(),
+                          cache.cross_k, cache.cross_v)
+
+
+@pytest.mark.parametrize("pos,w", [(4, 5), (9, 5), (6, 3)])
+def test_plain_verify_matches_jax_verify(bf16_16, pos, w):
+    """K4's plain version against JAX's decoder_verify at bf16."""
+    params, jcache, model, cache, jdt = bf16_16
+    tok = _verify_window(pos, w)
+    jl, jc, _ = jw.decoder_verify(params, jnp.asarray(tok),
+                                  jnp.asarray([pos], jnp.int32), jcache,
+                                  ARCH, jdt)
+    out = tm.mega_decoder_verify(model, _t(tok).long(), pos, _fresh(cache))
+    _compare_verify(np.asarray(jl, np.float32), jc.self_k, jc.self_v, out,
+                    pos, w)
+
+
+def test_plain_verify_matches_jax_verify_megakernel(bf16_16):
+    """JAX's verify Pallas kernel itself, in interpret mode on the CPU."""
+    from thewhisper_tpu.ops import mega_step as jm
+
+    params, jcache, model, cache, jdt = bf16_16
+    pos, w = 9, 5
+    sk, sv, cross = jm.prepare_mega_cache(jcache)
+    tok = _verify_window(pos, w)
+    jl, (sk1, sv1), _ = jm.mega_decoder_verify(
+        jm.pack_mega_params(params, ARCH), jnp.asarray(tok), jnp.int32(pos),
+        sk, sv, cross, ARCH)
+    out = tm.mega_decoder_verify(model, _t(tok).long(), pos, _fresh(cache),
+                                 plain=True)
+    _compare_verify(np.asarray(jl, np.float32),
+                    jm.from_slot_major(sk1[:, :16], ARCH.decoder_heads),
+                    jm.from_slot_major(sv1[:, :16], ARCH.decoder_heads),
+                    out, pos, w)
+
+
+def test_plain_verify_rows_are_plain_steps():
+    """Row j of a window is the step at slot pos + j: the same function (at
+    f32, where the window's products and the step's round alike)."""
+    params, jcache, model, cache, jdt = _setup("f32", 16)
+    pos, w = 5, 4
+    tok = _verify_window(pos, w)
+    vl, vcache, _ = tm.mega_decoder_verify(model, _t(tok).long(), pos,
+                                           _fresh(cache))
+    step_cache = _fresh(cache)
+    for j in range(w):
+        sl, step_cache, _ = tm.mega_decoder_step(
+            model, _t(tok[:, j:j + 1]).long(), pos + j, step_cache)
+        torch.testing.assert_close(vl[:, j], sl, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(vcache.self_k, step_cache.self_k)
+
+
+@pytest.mark.parametrize("mode", ["ngram", "layer-skip"])
+def test_speculation_through_k4_route_matches_k3_greedy(bf16_16, monkeypatch,
+                                                        mode):
+    """A bs=1 bf16 speculative decode of the packed model sends every
+    verify round to mega_decoder_verify (K4's route) and gives the tokens
+    of the port's greedy decode through K3's route."""
+    from thewhisper_tpu_torch.engine import speculative as tspec
+
+    params, jcache, model, cache, jdt = bf16_16
+    max_new, w = 8, 3
+    kw = dict(max_new_tokens=max_new, eot=2)
+    fresh = tw.make_cache(ARCH, 1, 4 + max_new, cache.cross_k, cache.cross_v,
+                          dtype=torch.bfloat16)
+    ref = tdecode.greedy_decode(model, _t(PROMPT).long(), fresh, **kw)
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(args[2])
+        return tm.mega_decoder_verify(*args, **kwargs)
+
+    monkeypatch.setattr(tspec, "mega_decoder_verify", counting)
+    s_cap = 4 + max_new + w + 1
+    draft = d_cache = None
+    if mode == "layer-skip":
+        draft = tspec.make_layer_skip_draft(model, 1)
+        enc = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, 96, 384)).astype(np.float32)).to(torch.bfloat16)
+        dk, dv = tw.compute_cross_kv(draft, enc)
+        d_cache = tw.make_cache(draft.arch, 1, s_cap, dk, dv)
+    got = tspec.speculative_decode(
+        model, draft, _t(PROMPT).long(),
+        tw.make_cache(ARCH, 1, s_cap, cache.cross_k, cache.cross_v,
+                      dtype=torch.bfloat16),
+        d_cache, spec_window=w, ngram_draft=mode == "ngram", **kw)
+    assert len(calls) == got.rounds > 0
+    np.testing.assert_array_equal(got.tokens.numpy(), ref.tokens.numpy())
+    np.testing.assert_array_equal(got.num_generated.numpy(),
+                                  ref.num_generated.numpy())

@@ -9,8 +9,8 @@ emitted EOT or ``max_new_tokens`` are out. The loop runs on the host, one
 step. A batch-1 bf16 step of a model packed for K3 (an "S" engine with
 int8 cross K/V, where ``ops.mega_step.mega_pays``) goes to
 ``mega_decoder_step`` instead, as the JAX loop sends it to its decode
-megakernel; the outputs are the same fields either way. Beam search and
-speculative decoding are not ported yet.
+megakernel; the outputs are the same fields either way. Speculative
+decoding is ``engine.speculative``; beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ class GreedyResult(NamedTuple):
     align: torch.Tensor           # (B, A, P + max_new, T_enc) f32 (dummy if off)
     token_logprobs: torch.Tensor  # (B, max_new) f32 per generated token
     no_speech_prob: torch.Tensor  # (B,) f32 P(no_speech | sot) if id given
+    # Verify rounds a speculative decode ran (engine.speculative); None
+    # for plain greedy.
+    rounds: Optional[int] = None
 
 
 def greedy_decode(

@@ -7,13 +7,16 @@ layer), computes the cross K/V, prefills the prompt and runs the greedy
 loop, then copies the result to the host as an :class:`EngineResult` with
 the JAX engine's fields. The "S" modes quantize the model
 (``models.quant``) and the cross K/V, and a batch-1 bf16 "S" engine on a
-deep decoder decodes through the K3 kernel (``ops.mega_step``). Beam
-search, speculative drafts, int4, the async handles and the window-scan
-programs are not ported yet.
+deep decoder decodes through the K3 kernel (``ops.mega_step``). With a
+draft model, ngram drafting or proposal tokens a greedy call decodes
+speculatively (``engine.speculative``; its batch-1 "S" verify rounds run
+K4). Beam search, int4, the async handles and the window-scan programs are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -21,6 +24,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from thewhisper_tpu.config import (
     GenerationOptions,
@@ -34,6 +38,11 @@ from thewhisper_tpu_torch.audio.features import (
     mel_filter_bank,
 )
 from thewhisper_tpu_torch.engine.decode import greedy_decode, suppress_mask
+from thewhisper_tpu_torch.engine.speculative import (
+    load_draft,
+    make_layer_skip_draft,
+    speculative_decode,
+)
 from thewhisper_tpu_torch.models.quant import quantize_kv, quantize_params
 from thewhisper_tpu_torch.models.whisper import (
     Whisper,
@@ -57,6 +66,7 @@ class EngineResult(NamedTuple):
     decode_time_s: float
     token_logprobs: Optional[np.ndarray] = None  # (B, max_new)
     no_speech_prob: Optional[np.ndarray] = None  # (B,)
+    spec_rounds: Optional[int] = None  # verify rounds run (speculative)
 
 
 class WhisperEngine:
@@ -66,7 +76,17 @@ class WhisperEngine:
     (``models.quant.quantize_kv``). With it and ``megakernel``, a decoder
     where ``ops.mega_step.mega_pays`` gets its self q/k/v fused and K3's
     operands packed, in place (a no-op unless the decoder is weight-only
-    int8), so batch-1 bf16 greedy steps run as one launch."""
+    int8), so batch-1 bf16 greedy steps run as one launch (K3) and so do
+    speculative verify rounds (K4).
+
+    ``draft_model`` (a decoder-only or full :class:`Whisper` with the
+    target's vocab and width, e.g. ``engine.speculative
+    .make_layer_skip_draft``) or ``spec_ngram`` make greedy calls
+    speculative: ``spec_window`` drafted tokens a verify round, the output
+    that of plain greedy. The draft's cross K/V come from this engine's
+    encoder states through the draft's own projections, kept float in the
+    compute type. ``draft_int8`` quantizes the draft's decoder (weight-only
+    int8, in place; layers it shares with the target are copied first)."""
 
     def __init__(
         self,
@@ -76,11 +96,40 @@ class WhisperEngine:
         begin_suppress_tokens: Sequence[int] = (),
         cross_kv_int8: bool = False,
         megakernel: bool = True,
+        draft_model: Optional[Whisper] = None,
+        spec_window: int = 4,
+        spec_ngram: bool = False,
+        draft_int8: bool = False,
     ):
+        if spec_ngram and draft_model is not None:
+            raise ValueError("pick one: a draft model or ngram drafting")
+        if draft_model is not None:
+            if draft_model.arch.vocab_size != model.arch.vocab_size:
+                raise ValueError("draft vocab must match the target vocab")
+            if draft_model.arch.d_model != model.arch.d_model:
+                raise ValueError(
+                    "draft d_model must match the target (the draft's "
+                    "cross-KV is computed from the shared encoder's states)")
         self.cross_kv_int8 = cross_kv_int8
         if (cross_kv_int8 and megakernel and model.mega is None
                 and mega_pays(model.arch)):
             pack_mega_params(fuse_self_qkv(model))
+        if draft_model is not None:
+            shared = any(a is b for a, b in zip(draft_model.decoder.layers,
+                                                model.decoder.layers))
+            if draft_int8:
+                if shared and any(type(m) is nn.Linear for m in
+                                  draft_model.decoder.layers.modules()):
+                    # Quantizing in place must not touch the target's layers.
+                    draft_model.decoder.layers = copy.deepcopy(
+                        draft_model.decoder.layers)
+                    shared = False
+                quantize_params(draft_model, components=("decoder",))
+            if not shared:
+                fuse_self_qkv(draft_model)
+        self.draft_model = draft_model
+        self.spec_window = spec_window
+        self.spec_ngram = bool(spec_ngram)
         self.model = model
         self.arch: WhisperArch = model.arch
         self.device = model.device
@@ -130,20 +179,40 @@ class WhisperEngine:
             mel = mel[None]
         return mel.to(self.device)
 
+    def _prep_proposals(self, draft_tokens, options: GenerationOptions,
+                        b: int) -> Optional[torch.Tensor]:
+        """Caller-supplied proposal tokens as (b, max_new) on the device,
+        zero-padded or cut; None for beam or sampling calls (speculation
+        is greedy-only)."""
+        if (draft_tokens is None or options.num_beams != 1
+                or options.temperature):
+            return None
+        dt = np.asarray(draft_tokens, np.int64)
+        if dt.ndim == 1:
+            dt = dt[None]
+        max_new = options.max_new_tokens
+        arr = np.zeros((b, max_new), np.int64)
+        r, c = min(dt.shape[0], b), min(dt.shape[1], max_new)
+        arr[:r, :c] = dt[:r, :c]
+        return torch.from_numpy(arr).to(self.device)
+
     def transcribe_features(
         self,
         mel,                                  # (B, n_mels, T_mel)
         options: GenerationOptions,
         languages: Optional[Sequence[str]] = None,
+        draft_tokens=None,                    # (B, <= max_new) proposals
     ) -> EngineResult:
         t0 = time.perf_counter()
-        return self._generate(self._features(mel), options, languages, t0)
+        return self._generate(self._features(mel), options, languages, t0,
+                              draft_tokens)
 
     def transcribe_audio(
         self,
         audio,                                # (B, n_samples) f32, padded
         options: GenerationOptions,
         languages: Optional[Sequence[str]] = None,
+        draft_tokens=None,                    # (B, <= max_new) proposals
     ) -> EngineResult:
         """Raw audio (already padded to the chunk, ``n_samples % 160 == 0``)
         -> features through the K1 kernel -> :meth:`transcribe_features`."""
@@ -153,13 +222,18 @@ class WhisperEngine:
             x = x[None]
         with torch.inference_mode():
             mel = log_mel_spectrogram(x, self._mel_fb, self._window)
-        return self._generate(mel, options, languages, t0)
+        return self._generate(mel, options, languages, t0, draft_tokens)
 
     def _generate(self, mel: torch.Tensor, options: GenerationOptions,
-                  languages, t0: float) -> EngineResult:
+                  languages, t0: float, draft_tokens=None) -> EngineResult:
         if options.num_beams != 1:
             raise NotImplementedError("beam search is not ported yet")
         b = mel.shape[0]
+        max_new = options.max_new_tokens
+        props = self._prep_proposals(draft_tokens, options, b)
+        spec = not options.temperature and (
+            self.draft_model is not None or self.spec_ngram
+            or props is not None)
         with torch.inference_mode():
             prompt = torch.from_numpy(
                 self._prompt_rows(options, b, languages)).long().to(self.device)
@@ -168,18 +242,37 @@ class WhisperEngine:
             ck, cv = compute_cross_kv(self.model, enc)
             if self.cross_kv_int8:
                 ck, cv = quantize_kv(ck), quantize_kv(cv)
-            cache = make_cache(self.arch, b, p + options.max_new_tokens, ck, cv,
-                               dtype=self.compute_dtype)
-            generator = None
-            if options.temperature:
-                generator = torch.Generator(self.device).manual_seed(options.seed)
-            res = greedy_decode(
-                self.model, prompt, cache, options.max_new_tokens,
-                self.special.eot, suppress=self._suppress,
-                begin_suppress=self._begin_suppress,
-                capture_alignment=options.return_timestamps,
-                no_speech_id=self.special.no_speech,
-                temperature=float(options.temperature), generator=generator)
+            common = dict(suppress=self._suppress,
+                          begin_suppress=self._begin_suppress,
+                          capture_alignment=options.return_timestamps,
+                          no_speech_id=self.special.no_speech)
+            if spec:
+                w = self.spec_window
+                s_cap = p + max_new + w + 1
+                cache = make_cache(self.arch, b, s_cap, ck, cv,
+                                   dtype=self.compute_dtype)
+                draft = d_cache = None
+                if props is None and not self.spec_ngram:
+                    draft = self.draft_model
+                    dck, dcv = (kv.to(self.compute_dtype)
+                                for kv in compute_cross_kv(draft, enc))
+                    d_cache = make_cache(draft.arch, b, s_cap, dck, dcv)
+                res = speculative_decode(
+                    self.model, draft, prompt, cache, d_cache, max_new,
+                    self.special.eot, spec_window=w,
+                    ngram_draft=self.spec_ngram and props is None,
+                    proposal_tokens=props, **common)
+            else:
+                cache = make_cache(self.arch, b, p + max_new, ck, cv,
+                                   dtype=self.compute_dtype)
+                generator = None
+                if options.temperature:
+                    generator = torch.Generator(self.device).manual_seed(
+                        options.seed)
+                res = greedy_decode(
+                    self.model, prompt, cache, max_new, self.special.eot,
+                    temperature=float(options.temperature),
+                    generator=generator, **common)
             align = None
             if options.return_timestamps:
                 # Shipped at compute precision, as the JAX engine does.
@@ -192,7 +285,8 @@ class WhisperEngine:
         return EngineResult(
             tokens=host[0], num_generated=host[1], prompt_len=p,
             sum_logprob=host[2], align=align, decode_time_s=dt,
-            token_logprobs=host[3], no_speech_prob=host[4])
+            token_logprobs=host[3], no_speech_prob=host[4],
+            spec_rounds=res.rounds)
 
     def detect_language(self, mel) -> Tuple[np.ndarray, np.ndarray]:
         """Spoken language from features: one forced decoder pass from
@@ -222,6 +316,8 @@ class WhisperEngine:
         position_mode: Optional[str] = None,
         device="cuda",
         quantize: Optional[str] = None,
+        draft: Optional[str] = None,
+        spec_window: int = 4,
     ) -> "WhisperEngine":
         """Build an engine from an HF checkpoint directory, with the
         suppress-token lists of its generation config.
@@ -230,7 +326,14 @@ class WhisperEngine:
         (weight-only int8 decoder and tied table), ``"int8-weights"`` (the
         table stays float), ``"int8-all"`` (``"int8"`` plus a W8A8
         encoder); each also quantizes the cross K/V. ``"int4"`` ("S4") is
-        not ported (ROADMAP Queue 1 item 9)."""
+        not ported (ROADMAP Queue 1 item 9).
+
+        ``draft`` makes greedy calls speculative: ``"ngram"`` (prompt
+        lookup), ``"layer-skip:N"`` (the target's first N decoder layers,
+        taken after quantization), a ``.npz`` written by either package's
+        ``save_draft``, or another checkpoint directory (same width and
+        vocab; its encoder is dropped). In the "S" modes the draft's
+        decoder is weight-only int8 too (``draft_int8``)."""
         from thewhisper_tpu_torch.models.load import load_checkpoint
 
         if quantize == "int4":
@@ -248,6 +351,20 @@ class WhisperEngine:
             if quantize == "int8-all":
                 quantize_params(model, components=("encoder",),
                                 activation_int8=True)
+        draft_model = None
+        if draft and draft != "ngram":
+            if draft.startswith("layer-skip:"):
+                draft_model = make_layer_skip_draft(
+                    model, int(draft.split(":", 1)[1]))
+            elif draft.endswith(".npz") or os.path.exists(draft + ".npz"):
+                draft_model = load_draft(draft, dtype=compute_dtype,
+                                         device=device)
+            else:
+                draft_model, _ = load_checkpoint(
+                    draft, dtype=compute_dtype, device=device,
+                    chunk_length_s=chunk_length_s,
+                    position_mode=position_mode)
+                draft_model.encoder = None
         suppress: Sequence[int] = ()
         begin: Sequence[int] = ()
         gen_path = os.path.join(path, "generation_config.json")
@@ -258,4 +375,7 @@ class WhisperEngine:
             begin = gc.get("begin_suppress_tokens", []) or []
         return WhisperEngine(model, suppress_tokens=suppress,
                              begin_suppress_tokens=begin,
-                             cross_kv_int8=quantize is not None)
+                             cross_kv_int8=quantize is not None,
+                             draft_model=draft_model, spec_window=spec_window,
+                             spec_ngram=draft == "ngram",
+                             draft_int8=quantize is not None)

@@ -4,6 +4,7 @@ from thewhisper_tpu_torch.models.whisper import (  # noqa: F401
     compute_cross_kv,
     decoder_prefill,
     decoder_step,
+    decoder_verify,
     encoder_forward,
     init_params,
     make_cache,

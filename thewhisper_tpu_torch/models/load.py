@@ -129,15 +129,19 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
     Quantized leaves carry across exactly, never dequantized: weight-only
     ``{"q", "s"}`` becomes an ``Int8Linear``, W8A8 ``{"q8", "s8"}`` a
     ``W8A8Linear``, a per-row int8 ``token_emb`` an ``Int8Embedding``; a
-    fused ``qkv_w`` (float or int8) splits back into q, k and v."""
+    fused ``qkv_w`` (float or int8) splits back into q, k and v. A tree
+    without ``"encoder"`` (a draft saved by JAX's ``save_draft``) gives a
+    decoder-only model."""
     f32 = lambda x: np.asarray(x, np.float32)                 # noqa: E731
     state: Dict[str, np.ndarray] = {}
     quantized: Dict[str, type] = {}
-    enc, dec = tree["encoder"], tree["decoder"]
-    for conv in ("conv1", "conv2"):
-        state[f"encoder.{conv}.weight"] = f32(enc[conv]["w"])
-        state[f"encoder.{conv}.bias"] = f32(enc[conv]["b"])
-    state["encoder.pos_emb"] = f32(enc["pos_emb"])
+    enc, dec = tree.get("encoder"), tree["decoder"]
+    sides = ("decoder",) if enc is None else ("encoder", "decoder")
+    if enc is not None:
+        for conv in ("conv1", "conv2"):
+            state[f"encoder.{conv}.weight"] = f32(enc[conv]["w"])
+            state[f"encoder.{conv}.bias"] = f32(enc[conv]["b"])
+        state["encoder.pos_emb"] = f32(enc["pos_emb"])
     emb = dec["token_emb"]
     if isinstance(emb, Mapping):
         state["decoder.token_emb.q"] = _int8(emb["q"])
@@ -146,7 +150,7 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
     else:
         state["decoder.token_emb"] = f32(emb)
     state["decoder.pos_emb"] = f32(dec["pos_emb"])
-    for side in ("encoder", "decoder"):
+    for side in sides:
         for k in ("scale", "bias"):
             state[f"{side}.ln_post.{'weight' if k == 'scale' else k}"] = f32(
                 tree[side]["ln_post"][k])
@@ -185,7 +189,7 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
             linear(prefix + fc, lp["mlp"][f"{fc}_w"], i)
             state[f"{prefix}{fc}.bias"] = f32(lp["mlp"][f"{fc}_b"][i])
 
-    for i in range(arch.encoder_layers):
+    for i in range(arch.encoder_layers if enc is not None else 0):
         lp, prefix = enc["layers"], f"encoder.layers.{i}."
         attn(prefix + "attn.", lp["attn"], i)
         rest(prefix, lp, i, ("ln1", "ln2"))

@@ -8,11 +8,12 @@ The module tree holds the weights in PyTorch's layout (``nn.Linear`` keeps
   the K2 kernel (``ops.attention.encoder_attention``) on CUDA tensors, and
   the final LayerNorm. S = 1500 runs unpadded: the kernel masks the ragged
   tile, so the TPU's pad-to-512 and segment ids have no counterpart.
-- :func:`compute_cross_kv`, :func:`decoder_prefill`, :func:`decoder_step`:
-  the decoder over a (L, B, H, S, dh) cache written in place (the GPU's
-  layout; the TPU's feature-major (L, B, H, dh, S) and its where-iota
-  writes do not carry over). Both decoder passes return cross-attention
-  probabilities reduced to the checkpoint's alignment heads, the DTW input.
+- :func:`compute_cross_kv`, :func:`decoder_prefill`, :func:`decoder_step`,
+  :func:`decoder_verify`: the decoder over a (L, B, H, S, dh) cache
+  written in place (the GPU's layout; the TPU's feature-major
+  (L, B, H, dh, S) and its where-iota and one-hot writes do not carry
+  over). Every decoder pass returns cross-attention probabilities reduced
+  to the checkpoint's alignment heads, the DTW input.
 
 Numerics follow JAX: LayerNorm in f32, attention scores and softmax in f32
 with probabilities cast to the value type, f32 logits from the tied
@@ -207,10 +208,14 @@ def model_from_state(state: Mapping[str, object], arch: WhisperArch,
     port's naming (values: tensors or numpy arrays). ``quantized`` maps the
     path of each quantized linear or table to its ``models.quant`` class;
     each value takes the type the module declares (int8 weights, f32
-    scales, ``dtype`` for the rest)."""
-    n_src = state["encoder.pos_emb"].shape[0]
+    scales, ``dtype`` for the rest). A state without ``encoder.*`` keys
+    gives a decoder-only model (``encoder`` None), as a draft is."""
+    enc_pos = state.get("encoder.pos_emb")
     with torch.device("meta"):
-        model = Whisper(arch, n_source_positions=n_src, dtype=dtype)
+        model = Whisper(arch, dtype=dtype, n_source_positions=(
+            None if enc_pos is None else enc_pos.shape[0]))
+        if enc_pos is None:
+            model.encoder = None
         swap_in_quantized(model, quantized or {})
     types = {k: v.dtype for k, v in model.state_dict().items()}
     model.load_state_dict(
@@ -372,17 +377,35 @@ def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), emb.float().t())
 
 
+def _lookup(model: Whisper, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) ids -> (B, S, d) token rows in the compute type (an int8
+    table's rows dequantize into it)."""
+    emb = model.decoder.token_emb
+    if isinstance(emb, Int8Embedding):
+        return emb.lookup(tokens, model.dtype)
+    return emb[tokens]
+
+
 def embed_tokens(model: Whisper, tokens: torch.Tensor,
                  offset: int) -> torch.Tensor:
     """(B, S) ids at positions [offset, offset + S) -> (B, S, d) in the
-    compute type (an int8 table's rows dequantize into it)."""
-    dec = model.decoder
+    compute type. The start is clamped so that the S rows fit the position
+    table, as JAX's ``dynamic_slice_in_dim`` does."""
+    pos = model.decoder.pos_emb
     s = tokens.shape[1]
-    if isinstance(dec.token_emb, Int8Embedding):
-        emb = dec.token_emb.lookup(tokens, model.dtype)
-    else:
-        emb = dec.token_emb[tokens]
-    return emb + dec.pos_emb[offset:offset + s]
+    start = min(max(int(offset), 0), pos.shape[0] - s)
+    return _lookup(model, tokens) + pos[start:start + s]
+
+
+def embed_tokens_at(model: Whisper, tokens: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """(B, W) window ids whose first token sits at ``positions`` (B,) ->
+    (B, W, d); each row's position is clipped to the table's last
+    (JAX's ``_embed_tokens_at``)."""
+    pos = model.decoder.pos_emb
+    rows = positions[:, None] + torch.arange(tokens.shape[1],
+                                             device=tokens.device)
+    return _lookup(model, tokens) + pos[rows.clamp(0, pos.shape[0] - 1)]
 
 
 def _layer(kv, l: int):
@@ -454,6 +477,49 @@ def decoder_step(model: Whisper, token: torch.Tensor, position: int,
         align = align + al
     x = dec.ln_post(x)
     return _logits(model, x)[:, 0], cache, align[:, 0]
+
+
+def decoder_verify(model: Whisper, tokens: torch.Tensor,
+                   positions: torch.Tensor, cache: DecodeCache
+                   ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
+    """A window of W tokens (B, W) whose first token sits at cache slot
+    ``positions[b]`` (B,) of sample b: the speculative verify, and the
+    draft's stepper at W = 1.
+
+    Each query attends the cache slots below its sample's window start plus
+    the window's own keys causally (no slot at or past the start is read).
+    The window's k/v are then written in place at ``positions[b] + j``;
+    writes at or past the cache's end are dropped, as JAX's one-hot write
+    drops them. Returns (logits (B, W, V) f32, cache, align (B, W, A,
+    T_enc))."""
+    dec = model.decoder
+    b, w = tokens.shape
+    s_max = cache.self_k.shape[3]
+    dev = tokens.device
+    x = embed_tokens_at(model, tokens, positions)
+    cache_mask = (torch.arange(s_max, device=dev)[None, :]
+                  < positions[:, None])[:, None, None, :]      # (B, 1, 1, S)
+    win_causal = torch.ones(w, w, dtype=torch.bool, device=dev).tril()
+    mask = torch.cat([cache_mask.expand(b, 1, w, s_max),
+                      win_causal.expand(b, 1, w, w)], dim=-1)
+    slots = positions[:, None] + torch.arange(w, device=dev)   # (B, W)
+    bi, ji = (slots < s_max).nonzero(as_tuple=True)
+    si = slots[bi, ji]
+    sel = _selector(model)
+    align = 0.0
+    for l, layer in enumerate(dec.layers):
+        q, k, v = _self_qkv(layer, x)                          # (B, H, W, dh)
+        keys = torch.cat([cache.self_k[l].to(q.dtype), k], dim=2)
+        vals = torch.cat([cache.self_v[l].to(q.dtype), v], dim=2)
+        a, _ = _attend(q, keys, vals, mask)
+        cache.self_k[l][bi, :, si] = k[bi, :, ji].to(cache.self_k.dtype)
+        cache.self_v[l][bi, :, si] = v[bi, :, ji].to(cache.self_v.dtype)
+        x = x + layer.self_attn.out(_merge_heads(a))
+        x, al = _cross_and_mlp(x, layer, _layer(cache.cross_k, l),
+                               _layer(cache.cross_v, l), sel[l])
+        align = align + al
+    x = dec.ln_post(x)
+    return _logits(model, x), cache, align
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ linked into one shared library with a plain C interface, loaded with
 non-zero code. No PyTorch header is compiled, so a cold build takes seconds.
 
 The library lands in ``thewhisper_tpu_torch/build/`` (git-ignored), named by
-a hash of the sources, so an edited source never loads a stale build.
+a hash of the sources and the headers they share (``csrc/*.cuh``), so an
+edited source never loads a stale build.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "twt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
     "twt_mega_step": [_P] * 22 + [_I] * 11 + [_P],
+    "twt_mega_verify": [_P] * 20 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -66,7 +68,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    # Headers too: an edited header must not load a library built before.
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -51,6 +51,8 @@ class ASRPipeline:
         position_mode: Optional[str] = None,
         batch_size: int = 8,
         device="cuda",
+        draft: Optional[str] = None,        # speculative decoding (engine doc)
+        reuse_previous_tokens: bool = False,
     ):
         if isinstance(model, WhisperEngine):
             self.engine = model
@@ -66,7 +68,8 @@ class ASRPipeline:
             quant = {"S": "int8-all", "S-legacy": "int8"}.get(model_size)
             self.engine = WhisperEngine.from_checkpoint(
                 model, chunk_length_s=chunk_length_s, compute_dtype=dtype,
-                position_mode=position_mode, device=device, quantize=quant)
+                position_mode=position_mode, device=device, quantize=quant,
+                draft=draft)
             if tokenizer is None:
                 tokenizer = _try_load_hf_tokenizer(model)
         self.tokenizer = tokenizer
@@ -76,6 +79,9 @@ class ASRPipeline:
         self.featurizer = LogMelFeaturizer(
             n_mels=self.engine.arch.n_mels,
             chunk_length_s=self.model_chunk_length_s, device=self.engine.device)
+        # Cross-call speculative reuse (see _transcribe_with_fallback).
+        self._reuse_previous = bool(reuse_previous_tokens)
+        self._prev_gen_tokens: Optional[np.ndarray] = None
 
     # -- token decode helper -------------------------------------------------
 
@@ -132,9 +138,12 @@ class ASRPipeline:
             return_timestamps=want_words, num_beams=num_beams,
         )
         windows = [audio[o: o + win] for o in offsets]
+        # Cross-call reuse only when the audio is one window (a rolling
+        # buffer); a multi-window file would feed one window's tokens as the
+        # guess for another.
         seqs, ts_seqs, _, langs = self._decode_windows(
             windows, offsets, opts, batch_size or self.batch_size, want_words,
-            fallback=fallback)
+            fallback=fallback, allow_reuse=len(windows) == 1)
 
         if len(seqs) == 1:
             tokens, token_ts_list = seqs[0], (ts_seqs[0] if want_words else None)
@@ -197,7 +206,7 @@ class ASRPipeline:
         )
         seqs, ts_seqs, lp_seqs, langs = self._decode_windows(
             windows, [0] * len(windows), opts, len(windows), want_words,
-            with_logprobs=True, fallback=fallback,
+            with_logprobs=True, fallback=fallback, allow_reuse=True,
             row_languages=row_languages)
         return [
             self._format_output(
@@ -213,6 +222,7 @@ class ASRPipeline:
     def _decode_windows(self, windows, offsets, opts, bsz, want_words,
                         with_logprobs: bool = False,
                         fallback: Optional[Sequence[float]] = None,
+                        allow_reuse: bool = False,
                         row_languages: Optional[Sequence[str]] = None):
         """Run windows through the engine ``bsz`` at a time.
 
@@ -236,7 +246,8 @@ class ASRPipeline:
                 codes, _ = self.engine.detect_language(mel)
                 languages = [str(c) for c in codes]
             res = self._transcribe_with_fallback(
-                audio, opts, fallback, languages=languages, mel=mel)
+                audio, opts, fallback, languages=languages, mel=mel,
+                allow_reuse=allow_reuse)
             self._consume_result(
                 res, [len(w) for w in batch], start, offsets, opts,
                 want_words, with_logprobs, languages,
@@ -283,17 +294,35 @@ class ASRPipeline:
     # -- temperature fallback ladder (opt-in) --------------------------------
 
     def _transcribe_with_fallback(self, audio, opts, temperatures,
-                                  languages=None, mel=None):
+                                  languages=None, mel=None,
+                                  allow_reuse: bool = False):
         """openai-whisper style quality gating: windows whose output is
         repetitive (zlib compression ratio > 2.4) or low-confidence (mean
         token logprob < -1.0) are re-decoded by sampling at the next
         temperature in the ladder. Off unless ``fallback_temperatures`` is
         passed in generate_kwargs. ``mel``: features already computed for
-        this audio (the language-detection path)."""
+        this audio (the language-detection path).
+
+        With ``reuse_previous_tokens`` and ``allow_reuse``, the previous
+        call's generated tokens ride as speculative proposals when the batch
+        has as many rows: a rolling buffer re-transcribed a tick later
+        repeats most of them, so most rounds accept the whole window. The
+        greedy output is unchanged."""
+        reuse = self._reuse_previous and allow_reuse
+        draft = None
+        if (reuse and opts.num_beams == 1 and not opts.temperature
+                and self._prev_gen_tokens is not None
+                and self._prev_gen_tokens.shape[0] == audio.shape[0]):
+            draft = self._prev_gen_tokens
         if mel is not None:
-            res = self.engine.transcribe_features(mel, opts, languages=languages)
+            res = self.engine.transcribe_features(
+                mel, opts, languages=languages, draft_tokens=draft)
         else:
-            res = self.engine.transcribe_audio(audio, opts, languages=languages)
+            res = self.engine.transcribe_audio(
+                audio, opts, languages=languages, draft_tokens=draft)
+        if reuse:
+            self._prev_gen_tokens = np.asarray(
+                res.tokens[:, res.prompt_len:], np.int32)
         if not temperatures or opts.num_beams != 1:
             return res
         for step, t in enumerate(t for t in temperatures if t > 0.0):
