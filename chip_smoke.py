@@ -45,9 +45,27 @@ is false. Phases, each of which raises on failure:
    on the 20 s WAV without timestamps (batch 1: every verify round is one
    K4 launch), the K3 greedy call on the same WAV, and a two-layer
    layer-skip draft; walls, tokens a round and the shared token prefix.
+10. [P1] The no-exp attention control (the TPU attention probe's timing
+    control) against its plain version at B = 4 and at the probe's B = 32,
+    H = 20, S = 1536, bf16; the B = 32 call timed beside K2 and the library
+    attention.
+11. [P2]/[P3] The int8 MLP chain at d_model 1280, d_ff 5120 against its
+    plain version at L = 32 and L = 1; 32 one-layer launches equal one
+    chain bit for bit; times and GB/s.
+12. [P4]/[P5] The row and column cache writes, bit-exact, every other slot
+    unchanged, timed beside torch's in-place writes. P2-P5's times are
+    device times from CUDA-graph replays: a wrapper's host work (20-80 us
+    a call) is more than these kernels take on the card.
+13. [probes] The probes' path: each probe entry point
+    (``thewhisper_tpu_torch.tools``) runs on the card, with the launch counts
+    of its kernels read around it.
 
 Times come from CUDA events; every number printed is measured in the run.
-The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
+The kernels' JSON line gives each kernel's launches on its path, its error
+against the plain version, its time, the plain version's, the bound (the
+larger of bytes over 3.35 TB/s and operations over the peak rate for their
+type) and, where one PyTorch call computes the same function, that call's
+time. The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}`` (``count`` is 1: the
 run uses one card, whatever the machine shows).
 """
@@ -57,7 +75,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
-import subprocess
+import math
 import tempfile
 import time
 import wave
@@ -66,7 +84,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from thewhisper_tpu.config import ARCH_PRESETS, SAMPLE_RATE, GenerationOptions
 from thewhisper_tpu_torch.audio.features import (
     LogMelFeaturizer,
     hann_window,
@@ -74,6 +91,7 @@ from thewhisper_tpu_torch.audio.features import (
     log_mel_spectrogram_plain,
     mel_filter_bank,
 )
+from thewhisper_tpu_torch.config import ARCH_PRESETS, SAMPLE_RATE, GenerationOptions
 from thewhisper_tpu_torch.engine import WhisperEngine
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
 from thewhisper_tpu_torch.models.quant import (
@@ -94,8 +112,25 @@ from thewhisper_tpu_torch.models.whisper import (
 )
 from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as attn
+from thewhisper_tpu_torch.ops import attention_control as control
+from thewhisper_tpu_torch.ops import cache_write as cw
 from thewhisper_tpu_torch.ops import mega_step as mega
+from thewhisper_tpu_torch.ops import mlp_chain as mlp
 from thewhisper_tpu_torch.pipeline import ASRPipeline
+from thewhisper_tpu_torch.tools import (
+    attention_probe,
+    cache_write_probe,
+    gemv_chain_probe,
+    mega_caps_probe,
+)
+from thewhisper_tpu_torch.tools._card import (
+    BF16_FLOPS,
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    card,
+    cuda_ms,
+    graph_ms,
+)
 
 ROOT = Path(__file__).resolve().parent
 GEN_KW = {"language": "en", "max_new_tokens": 64}
@@ -106,19 +141,18 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` calls, after one
-    warm-up call, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def bound(bytes_moved: float, flops: float, flops_per_s: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over the peak rate for their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def synth_audio(seconds: float, seed: int) -> np.ndarray:
@@ -149,10 +183,7 @@ def phase_device() -> str:
     # Every f32 comparison here is against true f32 (JAX's HIGHEST).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    smi = smi.strip().splitlines()[0]
+    smi = card(torch.device("cuda", 0))
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"nvidia-smi: {smi}", flush=True)
@@ -196,9 +227,31 @@ def phase_logmel() -> dict:
                       f"err {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms",
                       flush=True)
                 if (b, seconds, n_mels) == (4, 30, 128):   # main-path shape
+                    # The least work for the function, in f32: the window,
+                    # an FFT of the 400-sample frame (5 N log2 N), power,
+                    # mel projection and log. K1's direct 400 x 201 DFT does
+                    # about five times as many operations.
+                    frames = out.shape[0] * out.shape[2]
+                    flops = frames * (400 + 5 * 400 * math.log2(400) + 3 * 201
+                                      + 2 * 201 * n_mels + n_mels)
+                    library_ms = cuda_ms(lambda: stft_log_mel(audio, fb, win))
+                    print(f"[K1] B=4 30 s 128 mels: torch.stft route "
+                          f"{library_ms:.4f} ms", flush=True)
                     main_shape = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms}
+                                  "plain_ms": plain_ms,
+                                  **bound(nbytes(audio, fb, win, out), flops,
+                                          F32_FLOPS),
+                                  "library_ms": library_ms}
     return main_shape
+
+
+def stft_log_mel(audio, fb, win):
+    """K1's function by the library route, timed as a yardstick only:
+    ``torch.stft``, the mel product and the log."""
+    spec = torch.stft(audio, 400, 160, window=win, center=True,
+                      pad_mode="reflect", return_complex=True)[..., :-1]
+    mel = torch.matmul(fb.t(), spec.abs() ** 2)
+    return torch.log10(torch.clamp_min(mel, 1e-10))
 
 
 def phase_attention() -> dict:
@@ -233,8 +286,18 @@ def phase_attention() -> dict:
                   f"{shown}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms",
                   flush=True)
             if dtype == torch.bfloat16 and (s, valid_len) == (1500, None):
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                library_ms = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt))
+                print(f"[K2] bf16 B=4 S=1500: scaled_dot_product_attention "
+                      f"{library_ms:.4f} ms", flush=True)
                 main_shape = {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms}
+                              "plain_ms": plain_ms,
+                              **bound(nbytes(q, k, v, out),
+                                      4 * q.shape[0] * 20 * s * s * 64,
+                                      BF16_FLOPS),
+                              "library_ms": library_ms}
     return main_shape
 
 
@@ -588,8 +651,24 @@ def phase_mega(model, enc) -> dict:
             print(f"[K3] {where:>11}: kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms per step", flush=True)
             if (depth, s_len) == (32, 68):      # the main path's step
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **step_bound(mp_l, ck_l, cv_l, caches[0], pos, 1),
+                        "library_ms": None}
     return main
+
+
+def step_bound(mp, ck, cv, cache, pos: int, rows: int) -> dict:
+    """K3's (rows = 1) or K4's bound: every packed operand and the int8
+    cross K/V read once, the self K/V of slots 0 .. pos + rows - 1 read, the
+    window's logits written; two operations a weight byte for each row
+    (about 2 GFLOP a row at large-v3), at the bf16 rate."""
+    n_layers, _, n_heads, _, dh = cache.self_k.shape
+    self_kv = 2 * n_layers * n_heads * (pos + rows) * dh * 2
+    weights = nbytes(mp.qkv_w, mp.o_w, mp.cq_w, mp.co_w, mp.fc1_w, mp.fc2_w,
+                     mp.emb_q)
+    moved = (nbytes(*mp) + nbytes(ck.q, cv.q, ck.s, cv.s) + self_kv
+             + rows * mp.emb_s.numel() * 4)
+    return bound(moved, 2 * rows * weights, BF16_FLOPS)
 
 
 # K4's cases: (decoder layers, cache length, window, positions). The cache
@@ -671,7 +750,9 @@ def phase_verify(model, enc) -> dict:
                     mp_l, x, pos, caches[1], arch_l), iters=5)
                 times[w] = (ms, plain_ms)
                 if w == 5:                       # the main path's window
-                    main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                    main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            **step_bound(mp_l, ck_l, cv_l, caches[0], pos, w),
+                            "library_ms": None}
 
         # One L = 1 window against K3 stepping the same tokens.
         mp_1, ck_1, cv_1 = _layers(mp, ck, cv, 1)
@@ -767,6 +848,195 @@ def phase_spec(model):
     return launches["ngram"]["mega_verify"]
 
 
+def rel_err(got: torch.Tensor, ref: torch.Tensor):
+    """(max abs err, max abs err relative to the reference's largest value)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / ref.float().abs().max().item()
+
+
+def phase_control() -> dict:
+    """[P1] The no-exp attention control against its plain version at
+    B = 4 (a grid of 80 heads) and at the probe's B = 32 (640 heads), H = 20,
+    S = 1536, bf16: within 2e-2 of the largest value (the outputs reach the
+    thousands; a score summed in another order may round p to the other
+    bf16 neighbour). The plain version holds one 512-key tile of f32 scores
+    at a time (2 GB at B = 32). The B = 32 call is timed beside K2 and
+    ``scaled_dot_product_attention`` on the same inputs."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(32, 20, 1536, 64, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    for b in (4, 32):
+        out = control.attention_control(q[:b], k[:b], v[:b])
+        ref = control.attention_control_plain(q[:b], k[:b], v[:b])
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == q.dtype, "P1 output")
+        err, rel = rel_err(out, ref)
+        print(f"[P1] B={b} H=20 S=1536 bf16: max abs err {err:.3e} (rel to "
+              f"max {rel:.3e}; largest value {ref.float().abs().max().item():.1f})",
+              flush=True)
+        check(rel <= 2e-2, f"P1 rel err {rel} at B={b}")
+    del ref
+    ms = cuda_ms(lambda: control.attention_control(q, k, v), iters=5)
+    plain_ms = cuda_ms(lambda: control.attention_control_plain(q, k, v), iters=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    k2_ms = cuda_ms(lambda: attn.encoder_attention(qt, kt, vt), iters=5)
+    library_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        iters=5)
+    print(f"[P1] B=32 H=20 S=1536 bf16: kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  K2 {k2_ms:.4f} ms  "
+          f"scaled_dot_product_attention {library_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(q, k, v, out), 4 * 32 * 20 * 1536 ** 2 * 64,
+                    BF16_FLOPS),
+            "library_ms": library_ms}
+
+
+def phase_mlp():
+    """[P2]/[P3] The int8 MLP chain at the probe's widths (d_model 1280,
+    d_ff 5120) with random LayerNorm parameters: P2 against its plain
+    version within 2e-2 of the largest value at L = 32 (K3's bound at that
+    depth: bf16 roundings that go the other way cascade) and within 1e-2 at
+    L = 1; P3 over the 32 layers in turn equals P2 bit for bit; times of
+    both and of the plain versions, and GB/s against the weights' bytes.
+    Returns the kernels-line entries of P2 and P3."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(12)
+    p = gemv_chain_probe.make_inputs(32, 1280, 5120, g, dev)
+    x, ops = p["x"], gemv_chain_probe.operands(p)
+    one = [t[:1] for t in ops]
+    with torch.inference_mode():
+        chain = mlp.mlp_chain(x, *ops)
+        err, rel = rel_err(chain, mlp.mlp_chain_plain(x, *ops))
+        err1, rel1 = rel_err(mlp.mlp_chain(x, *one), mlp.mlp_chain_plain(x, *one))
+        y = x
+        for l in range(32):
+            y = mlp.mlp_layer(y, l, *ops)
+        same = torch.equal(y, chain)
+        layer_err, _ = rel_err(mlp.mlp_layer(x, 0, *ops),
+                               mlp.mlp_layer_plain(x, 0, *ops))
+    print(f"[P2] L=32: max abs err {err:.3e} (rel {rel:.3e}); L=1: {err1:.3e} "
+          f"(rel {rel1:.3e}); mlp_layer x 32 == mlp_chain: {same}", flush=True)
+    check(rel <= 2e-2, f"P2 L=32 rel err {rel}")
+    check(rel1 <= 1e-2, f"P2 L=1 rel err {rel1}")
+    check(same, "P3 x 32 differs from P2")
+
+    def by_layer():
+        z = x
+        for l in range(32):
+            z = mlp.mlp_layer(z, l, *ops)
+        return z
+
+    # Device times from CUDA-graph replays (the wrapper's host work, 20-80 us
+    # a call, would otherwise hide P3's launch boundaries); eager beside.
+    with torch.inference_mode():
+        ms = graph_ms(lambda: mlp.mlp_chain(x, *ops), calls=4)
+        chain_plain_ms = graph_ms(lambda: mlp.mlp_chain_plain(x, *ops), calls=2)
+        by_layer_ms = graph_ms(by_layer, calls=4)
+        layer_ms = graph_ms(lambda: mlp.mlp_layer(x, 0, *ops))
+        layer_plain_ms = graph_ms(lambda: mlp.mlp_layer_plain(x, 0, *ops))
+        eager = (cuda_ms(lambda: mlp.mlp_chain(x, *ops)), cuda_ms(by_layer, iters=10))
+    gb = gemv_chain_probe.weight_bytes(p) / 1e9
+    print(f"[P2] L=32: kernel {ms:.4f} ms ({gb / ms * 1e3:.1f} GB/s of {gb:.4f} "
+          f"GB of weights), plain {chain_plain_ms:.4f} ms; [P3] 32 launches "
+          f"{by_layer_ms:.4f} ms ({gb / by_layer_ms * 1e3:.1f} GB/s), one layer "
+          f"{layer_ms:.4f} ms, plain layer {layer_plain_ms:.4f} ms (CUDA graph); "
+          f"eager P2 {eager[0]:.4f} ms, P3 x 32 {eager[1]:.4f} ms", flush=True)
+    moved = nbytes(x, *ops) + nbytes(chain)
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": chain_plain_ms,
+             **bound(moved, 4 * 32 * 1280 * 5120, BF16_FLOPS),
+             "library_ms": None},
+            {"max_abs_err": layer_err, "ms": layer_ms, "plain_ms": layer_plain_ms,
+             **bound(moved / 32, 4 * 1280 * 5120, BF16_FLOPS),
+             "library_ms": None})
+
+
+def phase_cache_writes():
+    """[P4]/[P5] The slot writes at the probes' shapes against their plain
+    versions, bit for bit, every other slot unchanged; device times (CUDA
+    graph replays) beside the plain (torch in-place) write and
+    ``index_copy_``, and the eager kernel call. Returns the kernels-line
+    entries of P4 and P5."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    entries = []
+    for shape, pos in (((448, 1280), 13), ((32 * 448, 1280), 9000)):
+        cache, row = rand(*shape), rand(1, shape[1])
+        got = cw.write_row(cache.clone(), pos, row)
+        ref = cw.write_row_plain(cache.clone(), pos, row)
+        keep = torch.arange(shape[0], device=dev) != pos
+        exact = torch.equal(got, ref) and torch.equal(got[keep], cache[keep])
+        check(exact, f"P4 at {shape}, row {pos}")
+        slot = torch.tensor([pos], device=dev)
+        ms = graph_ms(lambda: cw.write_row(cache, pos, row))
+        plain_ms = graph_ms(lambda: cw.write_row_plain(cache, pos, row))
+        library_ms = graph_ms(lambda: cache.index_copy_(0, slot, row))
+        eager_ms = cuda_ms(lambda: cw.write_row(cache, pos, row), iters=100)
+        print(f"[P4] {shape}: bit-exact, other rows unchanged; kernel "
+              f"{ms * 1e3:.2f} us  torch in-place {plain_ms * 1e3:.2f} us  "
+              f"index_copy_ {library_ms * 1e3:.2f} us (CUDA graph); eager "
+              f"kernel call {eager_ms * 1e3:.2f} us", flush=True)
+    entries.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    **bound(2 * nbytes(row), 0, BF16_FLOPS),
+                    "library_ms": library_ms})
+
+    cache, col, pos = rand(128, 1280, 228), rand(128, 1280, 1), 7
+    got = cw.write_column(cache.clone(), col, pos)
+    ref = cw.write_column_plain(cache.clone(), col, pos)
+    keep = torch.arange(228, device=dev) != pos
+    check(torch.equal(got, ref) and torch.equal(got[:, :, keep], cache[:, :, keep]),
+          "P5 column write")
+    slot = torch.tensor([pos], device=dev)
+    ms = graph_ms(lambda: cw.write_column(cache, col, pos))
+    plain_ms = graph_ms(lambda: cw.write_column_plain(cache, col, pos))
+    library_ms = graph_ms(lambda: cache.index_copy_(2, slot, col))
+    eager_ms = cuda_ms(lambda: cw.write_column(cache, col, pos), iters=100)
+    print(f"[P5] (128, 1280, 228): bit-exact, other slots unchanged; kernel "
+          f"{ms * 1e3:.2f} us  torch in-place {plain_ms * 1e3:.2f} us  "
+          f"index_copy_ {library_ms * 1e3:.2f} us (CUDA graph); eager kernel "
+          f"call {eager_ms * 1e3:.2f} us", flush=True)
+    entries.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    **bound(2 * nbytes(col), 0, BF16_FLOPS),
+                    "library_ms": library_ms})
+    return entries
+
+
+# The probe entry points as the smoke run drives them, each with the counts
+# of the kernels on its path: the attention chain at the probe's widths but
+# two layers deep (the 32-layer chain is the probe's own run), the others as
+# a user runs them (the MLP chain with fewer repetitions).
+PROBE_RUNS = (
+    (attention_probe, ["--layers", "2", "--reps", "1"],
+     lambda: {"attention_control": control.CONTROL_LAUNCHES}),
+    (gemv_chain_probe, ["--hybrid", "--reps", "3"],
+     lambda: {"mlp_chain": mlp.MLP_CHAIN_LAUNCHES,
+              "mlp_layer": mlp.MLP_LAYER_LAUNCHES}),
+    (mega_caps_probe, [], lambda: {"write_row": cw.ROW_LAUNCHES}),
+    (cache_write_probe, [], lambda: {"write_column": cw.COLUMN_LAUNCHES}),
+)
+
+
+def phase_probes() -> dict:
+    """The probes' path: each probe entry point runs once on the card with
+    the launch counts set to 0 just before it and read just after; every
+    kernel of its path must have launched."""
+    launches = {}
+    for probe, args, counts in PROBE_RUNS:
+        control.CONTROL_LAUNCHES = mlp.MLP_CHAIN_LAUNCHES = 0
+        mlp.MLP_LAYER_LAUNCHES = cw.ROW_LAUNCHES = cw.COLUMN_LAUNCHES = 0
+        probe.main(args)
+        launches.update(counts())
+    print(f"[probes] kernel launches on the probes' path: {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"{name} did not launch on its probe's path")
+    return launches
+
+
 def result_line(kind: str) -> str:
     """The last line. ``count`` is the number of cards the run used: one,
     whatever ``torch.cuda.device_count()`` shows."""
@@ -785,6 +1055,12 @@ def main() -> None:
     k3 = phase_mega(model, enc)
     k4 = phase_verify(model, enc)
     k4_launches = phase_spec(model)
+    del model, enc
+    torch.cuda.empty_cache()
+    p1 = phase_control()
+    p2, p3 = phase_mlp()
+    p4, p5 = phase_cache_writes()
+    probe_launches = phase_probes()
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",
@@ -802,6 +1078,26 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/mega_verify.cu",
          "replaces": "thewhisper_tpu/ops/mega_step.py:1061",
          "launches": k4_launches, **k4},
+        {"name": "attention_control", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/attention_control.cu",
+         "replaces": "tools/attention_probe.py:112",
+         "launches": probe_launches["attention_control"], **p1},
+        {"name": "mlp_chain", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/mlp_chain.cu",
+         "replaces": "tools/gemv_chain_probe.py:150",
+         "launches": probe_launches["mlp_chain"], **p2},
+        {"name": "mlp_layer", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/mlp_chain.cu",
+         "replaces": "tools/gemv_chain_probe.py:259",
+         "launches": probe_launches["mlp_layer"], **p3},
+        {"name": "write_row", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/cache_write.cu",
+         "replaces": "tools/mega_caps_probe.py:74",
+         "launches": probe_launches["write_row"], **p4},
+        {"name": "write_column", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/cache_write.cu",
+         "replaces": "tools/cache_write_probe.py:127",
+         "launches": probe_launches["write_column"], **p5},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,7 +9,10 @@ where only PyTorch is installed:
 Shapes are the slice's production shapes: 10 s and 30 s of audio (1000 and
 3000 frames), S = 1500 and 500 encoder positions, 20 heads of 64; K3 (the
 decode step) and K4 (the verify window) at a small arch, d_model 384 with
-heads of 64 and 2 layers (chip_smoke.py holds them at large-v3 width).
+heads of 64 and 2 layers (chip_smoke.py holds them at large-v3 width). The
+probe kernels (P1-P5) at small sizes: the no-exp attention control at
+S = 1024 and 1536, the int8 MLP chain at d_model 256, d_ff 1024, the slot
+writes at the probes' own cache shapes.
 """
 
 import dataclasses
@@ -18,13 +21,16 @@ import numpy as np
 import pytest
 import torch
 
-from thewhisper_tpu.config import WhisperArch
 from thewhisper_tpu_torch.audio import features as tf
+from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models import quant as tq
 from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as ta
+from thewhisper_tpu_torch.ops import attention_control as tac
+from thewhisper_tpu_torch.ops import cache_write as tcw
 from thewhisper_tpu_torch.ops import mega_step as tm
+from thewhisper_tpu_torch.ops import mlp_chain as tmc
 
 from _torch_tiny import cuda_device  # noqa: F401
 
@@ -43,7 +49,8 @@ def test_build_reports_resources(cuda_device):
     """The library builds (or loads) and exports every entry point."""
     lib = _build.lib()
     for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step",
-                 "twt_mega_verify"):
+                 "twt_mega_verify", "twt_attention_control", "twt_mlp_chain",
+                 "twt_strided_write"):
         assert hasattr(lib, name)
     if _build.build_log is not None:
         print(_build.build_log)
@@ -277,3 +284,106 @@ def test_mega_verify_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="outside"):
         tm.mega_decoder_verify(model, torch.zeros(1, 4, dtype=torch.long,
                                                   device=cuda_device), 5, cache)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s", [(1, 2, 1024), (2, 3, 1536)])
+def test_attention_control_kernel_matches_plain(cuda_device, dtype, b, h, s):
+    """P1 against its plain version, relative to the largest value (outputs
+    reach the thousands): f32 1e-5 (the same f32 math, summed in another
+    order); bf16 1e-2 (a score summed in another order may round p to the
+    other bf16 neighbour, and the output rounds to bf16)."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v = (torch.randn(b, h, s, 64, generator=g).to(cuda_device, dtype)
+               for _ in range(3))
+    before = tac.CONTROL_LAUNCHES
+    out = tac.attention_control(q, k, v)
+    torch.cuda.synchronize()
+    assert tac.CONTROL_LAUNCHES == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    ref = tac.attention_control_plain(q, k, v)
+    assert _rel(out, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_attention_control_kernel_rejects_bad_input(cuda_device):
+    x = torch.zeros(1, 2, 1000, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="512"):
+        tac.attention_control(x, x, x)
+    y = torch.zeros(1, 2, 512, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tac.attention_control(y, y, y)
+
+
+def _mlp_case(device, n_layers=2, d=256, f=1024, seed=0):
+    """The probe's operands, random LayerNorm parameters included (a kernel
+    that misreads one would pass with unit scales and zero shifts)."""
+    from thewhisper_tpu_torch.tools.gemv_chain_probe import make_inputs, operands
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p = make_inputs(n_layers, d, f, g, torch.device("cpu"))
+    return p["x"].to(device), [t.to(device) for t in operands(p)]
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+def test_mlp_chain_kernel_matches_plain(cuda_device, n_layers):
+    """P2 against its plain version within 1e-2 of the largest value (the
+    same bf16 rounding points, f32 sums in another order); P3 over every
+    layer in turn equals P2 bit for bit (the same partials summed in the same
+    order)."""
+    x, ops = _mlp_case(cuda_device, n_layers)
+    before = tmc.MLP_CHAIN_LAUNCHES, tmc.MLP_LAYER_LAUNCHES
+    chain = tmc.mlp_chain(x, *ops)
+    y = x
+    for l in range(n_layers):
+        y = tmc.mlp_layer(y, l, *ops)
+    torch.cuda.synchronize()
+    assert (tmc.MLP_CHAIN_LAUNCHES, tmc.MLP_LAYER_LAUNCHES) == (
+        before[0] + 1, before[1] + n_layers)
+    assert chain.shape == x.shape and chain.dtype == torch.bfloat16
+    assert _rel(chain, tmc.mlp_chain_plain(x, *ops)) < 1e-2
+    assert torch.equal(y, chain)
+    assert torch.equal(tmc.mlp_chain(x, *ops), chain)       # deterministic
+
+
+def test_mlp_chain_kernel_rejects_bad_input(cuda_device):
+    x, ops = _mlp_case(cuda_device, 1, d=192, f=512)
+    with pytest.raises(ValueError, match="multiples"):
+        tmc.mlp_chain(x, *ops)
+    x, ops = _mlp_case(cuda_device, 2)
+    with pytest.raises(ValueError, match="outside"):
+        tmc.mlp_layer(x, 2, *ops)
+
+
+@pytest.mark.parametrize("shape,pos", [((448, 1280), 13), ((32, 448, 1280), 14335),
+                                       ((32, 448, 1280), 0)])
+def test_write_row_kernel_equals_plain(cuda_device, shape, pos):
+    g = torch.Generator(device="cpu").manual_seed(pos)
+    cache = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    row = torch.randn(1, shape[-1], generator=g).to(cuda_device, torch.bfloat16)
+    ref = tcw.write_row_plain(cache.clone(), pos, row)
+    before = tcw.ROW_LAUNCHES
+    got = tcw.write_row(cache, pos, row)
+    torch.cuda.synchronize()
+    assert tcw.ROW_LAUNCHES == before + 1 and got.data_ptr() == cache.data_ptr()
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="outside"):
+        tcw.write_row(cache, cache.numel() // shape[-1], row)
+
+
+@pytest.mark.parametrize("pos", [0, 7, 227])
+def test_write_column_kernel_equals_plain(cuda_device, pos):
+    g = torch.Generator(device="cpu").manual_seed(pos)
+    cache = torch.randn(128, 1280, 228, generator=g).to(cuda_device, torch.bfloat16)
+    col = torch.randn(128, 1280, 1, generator=g).to(cuda_device, torch.bfloat16)
+    ref = tcw.write_column_plain(cache.clone(), col, pos)
+    before = tcw.COLUMN_LAUNCHES
+    got = tcw.write_column(cache, col, pos)
+    torch.cuda.synchronize()
+    assert tcw.COLUMN_LAUNCHES == before + 1 and got.data_ptr() == cache.data_ptr()
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="outside"):
+        tcw.write_column(cache, col, 228)

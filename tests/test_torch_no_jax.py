@@ -1,8 +1,10 @@
-"""The port runs where JAX is not installed (the GPU machine has none).
+"""The port runs where JAX is not installed (the GPU machine has none),
+and imports nothing of the JAX package: not even its modules that do not
+import JAX (the port keeps its own ``config``, ``align`` and ``text``).
 
-Each check runs in a fresh interpreter with ``sys.modules["jax"] = None``,
-so any ``import jax`` (direct or through a JAX-importing module of
-``thewhisper_tpu``) raises ImportError.
+Each check runs in a fresh interpreter with ``sys.modules["jax"] = None``
+and ``sys.modules["thewhisper_tpu"] = None``, so any ``import jax`` and any
+import of ``thewhisper_tpu`` or one of its modules raises ImportError.
 """
 
 import os
@@ -14,7 +16,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCK_JAX = 'import sys; sys.modules["jax"] = None\n'
+_BLOCK_JAX = ('import sys; sys.modules["jax"] = None; '
+              'sys.modules["thewhisper_tpu"] = None\n')
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -35,9 +38,22 @@ def test_every_port_module_imports_without_jax():
         "print(' '.join(names))\n")
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 17
+    assert len(names) >= 27
     assert "thewhisper_tpu_torch.engine.speculative" in names
     assert "thewhisper_tpu_torch.ops.mega_step" in names
+    for name in ("config", "align", "text", "ops.mlp_chain",
+                 "ops.attention_control", "ops.cache_write",
+                 "tools.gemv_chain_probe", "tools.attention_probe",
+                 "tools.mega_caps_probe", "tools.cache_write_probe"):
+        assert f"thewhisper_tpu_torch.{name}" in names
+
+
+def test_the_block_catches_an_import_of_the_jax_package():
+    """The guard of the check above: a module of ``thewhisper_tpu`` that
+    imports no JAX still fails to import under it."""
+    proc = _run("import thewhisper_tpu.config\n")
+    assert proc.returncode != 0
+    assert "ModuleNotFoundError" in proc.stderr or "ImportError" in proc.stderr
 
 
 def test_chip_smoke_fails_without_a_gpu():

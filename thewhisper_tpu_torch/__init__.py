@@ -8,9 +8,10 @@ kernel on the ported path is a hand-written CUDA kernel for Hopper
 version beside it; CPU tensors take the plain version, CUDA tensors the
 kernel.
 
-Host-side modules that never touched JAX are imported from
-``thewhisper_tpu`` rather than copied: ``config``, ``align`` (DTW word
-timestamps) and ``text`` (word grouping and the LCS window merge).
+The port imports nothing of ``thewhisper_tpu``, not even its host-side
+modules that never touched JAX: it keeps its own copies of ``config``,
+``align`` (DTW word timestamps) and ``text`` (word grouping and the LCS
+window merge), held equal to the JAX package's by ``tests/test_torch_host.py``.
 """
 
 from thewhisper_tpu_torch.engine import EngineResult, WhisperEngine  # noqa: F401

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from thewhisper_tpu.config import HOP_LENGTH, N_FFT, SAMPLE_RATE
+from thewhisper_tpu_torch.config import HOP_LENGTH, N_FFT, SAMPLE_RATE
 from thewhisper_tpu_torch.ops.logmel import log_mel, log_mel_plain
 
 

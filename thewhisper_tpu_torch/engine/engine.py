@@ -26,16 +26,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from thewhisper_tpu.config import (
-    GenerationOptions,
-    LANGUAGES,
-    SpecialTokens,
-    WhisperArch,
-)
 from thewhisper_tpu_torch.audio.features import (
     hann_window,
     log_mel_spectrogram,
     mel_filter_bank,
+)
+from thewhisper_tpu_torch.config import (
+    GenerationOptions,
+    LANGUAGES,
+    SpecialTokens,
+    WhisperArch,
 )
 from thewhisper_tpu_torch.engine.decode import greedy_decode, suppress_mask
 from thewhisper_tpu_torch.engine.speculative import (

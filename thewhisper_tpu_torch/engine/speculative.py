@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.engine.decode import GreedyResult
 from thewhisper_tpu_torch.models.quant import (
     Int8Embedding,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from thewhisper_tpu.config import WhisperArch, source_positions_for_seconds
+from thewhisper_tpu_torch.config import WhisperArch, source_positions_for_seconds
 from thewhisper_tpu_torch.models.quant import (
     Int8Embedding,
     Int8Linear,

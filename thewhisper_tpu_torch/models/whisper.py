@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models.quant import (
     Int8Embedding,
     Int8Linear,

@@ -41,6 +41,9 @@ _SIGNATURES = {
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
     "twt_mega_step": [_P] * 22 + [_I] * 11 + [_P],
     "twt_mega_verify": [_P] * 20 + [_I] * 10 + [_P],
+    "twt_attention_control": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "twt_mlp_chain": [_P] * 12 + [_I] * 6 + [_P],
+    "twt_strided_write": [_P, _P, _L, _L, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -132,3 +135,19 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_barriers = {}
+
+
+def grid_barrier(device):
+    """The (count, generation) pair of the grid barrier that the cooperative
+    kernels (K3, K4, P2/P3) use on ``device``. Every launch zeroes it on its
+    stream first; launches share it, so they must not overlap (one stream
+    orders them)."""
+    import torch
+
+    key = device.index or 0
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _barriers[key]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from thewhisper_tpu.config import HOP_LENGTH, N_FFT
+from thewhisper_tpu_torch.config import HOP_LENGTH, N_FFT
 from thewhisper_tpu_torch.ops import _build
 
 N_BINS = N_FFT // 2 + 1

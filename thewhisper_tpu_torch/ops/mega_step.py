@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from thewhisper_tpu.config import WhisperArch
+from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models.quant import (
     Int8Embedding,
     Int8Linear,
@@ -257,19 +257,6 @@ def mega_verify_plain(mp: MegaParams, x: torch.Tensor, pos: int,
 # The kernel
 # ---------------------------------------------------------------------------
 
-_barriers = {}
-
-
-def _barrier(device: torch.device) -> torch.Tensor:
-    """The grid barrier's (count, generation) pair for ``device``. Every
-    launch zeroes it on its stream first; K3 launches on one device share
-    it, so they must not overlap (one stream orders them)."""
-    key = device.index or 0
-    if key not in _barriers:
-        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _barriers[key]
-
-
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"mega_step: {what}")
@@ -341,7 +328,7 @@ def mega_step(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
     code = _build.lib().twt_mega_step(
         *_pointers(mp, cache), mp.heads.data_ptr(), x.data_ptr(),
         work.data_ptr(), logits.data_ptr(), align.data_ptr(),
-        _barrier(x.device).data_ptr(),
+        _build.grid_barrier(x.device).data_ptr(),
         n_layers, d, f, n_heads, v, s_max, t, n_align, int(pos),
         int(capture_align), x.device.index or 0,
         _build.stream_handle(x.device))
@@ -371,7 +358,7 @@ def mega_verify(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
     x = x.clone()                       # the residual stream, in place
     code = _build.lib().twt_mega_verify(
         *_pointers(mp, cache), x.data_ptr(), work.data_ptr(),
-        logits.data_ptr(), _barrier(x.device).data_ptr(),
+        logits.data_ptr(), _build.grid_barrier(x.device).data_ptr(),
         n_layers, d, f, n_heads, v, s_max, t, w, int(pos),
         x.device.index or 0, _build.stream_handle(x.device))
     _build.check(code, "twt_mega_verify")

@@ -6,8 +6,8 @@ Same surface and output as the JAX ``ASRPipeline``:
 returns ``{"text": str, "chunks": [{"text", "timestamp": (start, end)}]}``.
 Windows of the call's ``chunk_length_s`` overlap by a sixth on each side,
 are padded to the model chunk, decoded ``batch_size`` at a time, and merged
-by the timestamp-aware LCS of ``thewhisper_tpu.text``; word timestamps come
-from the DTW of ``thewhisper_tpu.align``.
+by the timestamp-aware LCS of ``text.py``; word timestamps come from the
+DTW of ``align.py``.
 
 The JAX pipeline's device-side machinery (the offset-window programs, the
 pipelined dispatch, the device file cache, latency buckets and the
@@ -24,12 +24,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from thewhisper_tpu.align import token_timestamps_from_alignment
-from thewhisper_tpu.config import GenerationOptions, SAMPLE_RATE
-from thewhisper_tpu.text import combine_tokens_into_words, find_longest_common_sequence
+from thewhisper_tpu_torch.align import token_timestamps_from_alignment
 from thewhisper_tpu_torch.audio.features import LogMelFeaturizer
 from thewhisper_tpu_torch.audio.io import load_audio
+from thewhisper_tpu_torch.config import GenerationOptions, SAMPLE_RATE
 from thewhisper_tpu_torch.engine import WhisperEngine
+from thewhisper_tpu_torch.text import combine_tokens_into_words, find_longest_common_sequence
 
 
 class ASRPipeline:
