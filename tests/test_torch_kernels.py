@@ -57,7 +57,8 @@ def test_build_reports_resources(cuda_device):
 
 
 @pytest.mark.parametrize("batch,seconds,n_mels", [
-    (1, 30.0, 128), (4, 10.0, 80), (4, 30.0, 128), (2, 1.3, 128)])
+    (1, 30.0, 128), (4, 10.0, 80), (4, 30.0, 128), (2, 1.3, 128),
+    (1, 30.0, 80)])
 def test_logmel_kernel_matches_plain(cuda_device, batch, seconds, n_mels):
     audio = torch.from_numpy(_sig(batch, seconds)).to(cuda_device)
     fb = torch.from_numpy(tf.mel_filter_bank(num_mel_filters=n_mels)).to(cuda_device)
@@ -69,6 +70,19 @@ def test_logmel_kernel_matches_plain(cuda_device, batch, seconds, n_mels):
     ref = tf.log_mel_spectrogram_plain(audio, fb, win)
     # The bound tests/test_logmel_pallas.py holds the TPU kernel to.
     torch.testing.assert_close(out, ref, atol=5e-4, rtol=0)
+
+
+def test_logmel_kernel_takes_unaligned_audio(cuda_device):
+    """The kernel stages the audio as float4s; a view whose data starts off
+    a 16-byte boundary gives the same features."""
+    fb = torch.from_numpy(tf.mel_filter_bank(num_mel_filters=80)).to(cuda_device)
+    win = torch.from_numpy(tf.hann_window()).to(cuda_device)
+    padded = torch.from_numpy(_sig(1, 3.0 + 1 / 16000)).to(cuda_device)
+    audio = padded[:, 1:]                                 # 4 bytes past the base
+    assert audio.data_ptr() % 16 and audio.shape == (1, 48000)
+    torch.testing.assert_close(tf.log_mel_spectrogram(audio, fb, win),
+                               tf.log_mel_spectrogram_plain(audio, fb, win),
+                               atol=5e-4, rtol=0)
 
 
 def test_logmel_kernel_rejects_bad_input(cuda_device):
@@ -89,7 +103,8 @@ def _qkv(b, s, h, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,valid_len", [
-    (4, 1500, None), (4, 500, None), (2, 1500, 1111), (1, 77, 5)])
+    (4, 1500, None), (4, 500, None), (2, 1500, 1111), (1, 77, 5),
+    (1, 1500, None), (1, 1536, None)])
 def test_attention_kernel_matches_plain(cuda_device, dtype, b, s, valid_len):
     q, k, v = _qkv(b, s, 20, dtype, cuda_device)
     before = ta.ATTN_LAUNCHES
@@ -98,11 +113,43 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, b, s, valid_len):
     assert ta.ATTN_LAUNCHES == before + 1
     assert out.shape == q.shape and out.dtype == dtype
     ref = ta.encoder_attention_plain(q, k, v, valid_len=valid_len)
-    # f32: summation order only. bf16: the kernel keeps the probabilities in
-    # f32 where the plain version rounds them to bf16 before the value
-    # product; both round the output to bf16 once.
+    # f32: summation order only. bf16: both round the probabilities to bf16
+    # before the value product, but the kernel rounds them unnormalized
+    # (relative to a running max) and divides after; the output rounds to
+    # bf16 once.
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_attention_kernel_bf16_rescales_large_scores(cuda_device):
+    """Inputs scaled by 8: scores span hundreds, so the running max moves
+    from tile to tile and every earlier tile's sum must be rescaled. Bound:
+    2e-2 of the output's largest value."""
+    q, k, v = (8 * x for x in _qkv(2, 1500, 20, torch.bfloat16, cuda_device, seed=4))
+    out = ta.encoder_attention(q, k, v)
+    ref = ta.encoder_attention_plain(q, k, v)
+    assert _rel(out, ref) < 2e-2
+
+
+def test_attention_kernel_bf16_one_valid_key_is_exact(cuda_device):
+    """valid_len = 1: every query attends key 0 alone with weight exactly 1,
+    so the output is v[:, 0] bit for bit."""
+    q, k, v = _qkv(2, 300, 20, torch.bfloat16, cuda_device, seed=5)
+    out = ta.encoder_attention(q, k, v, valid_len=1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v[:, :1].expand_as(out))
+
+
+def test_attention_kernel_bf16_rejects_misaligned_operands(cuda_device):
+    """TMA needs 16-byte-aligned base pointers and strides."""
+    flat = torch.zeros(100 * 20 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 100, 20, 64)                     # base + 2 bytes
+    ok = torch.zeros(1, 100, 20, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ta.encoder_attention(shifted, ok, ok)
+    wide = torch.zeros(1, 100, 20, 68, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):                 # 136-byte head stride
+        ta.encoder_attention(ok, wide[..., :64], ok)
 
 
 def test_attention_kernel_takes_strided_views(cuda_device):
@@ -112,6 +159,17 @@ def test_attention_kernel_takes_strided_views(cuda_device):
     torch.testing.assert_close(ta.encoder_attention(q, k, v),
                                ta.encoder_attention_plain(q, k, v),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_attention_kernel_bf16_takes_strided_views(cuda_device):
+    """The bf16 route's tensor maps over the encoder's views of (B, S, d)
+    projections and over (B, H, S, dh) tensors transposed (the probes')."""
+    x = torch.randn(2, 300, 3 * 20 * 64, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (t.view(2, 300, 20, 64) for t in x.chunk(3, dim=-1))
+    ref = ta.encoder_attention_plain(q, k, v)
+    assert _rel(ta.encoder_attention(q, k, v), ref) < 2e-2
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert _rel(ta.encoder_attention(qt, kt, vt), ref) < 2e-2
 
 
 def test_attention_kernel_rejects_bad_input(cuda_device):

@@ -113,3 +113,17 @@ def test_engine_and_pipeline_from_checkpoint(tiny_ckpt):
         ASRPipeline(tiny_ckpt, model_size="S4", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         WhisperEngine.from_checkpoint(tiny_ckpt, device="cpu", quantize="int4")
+
+
+@pytest.mark.parametrize("loader", ["load_checkpoint", "load_draft"])
+def test_public_loaders_default_to_the_card(loader):
+    """The port's loaders land on the card unless the caller names the CPU,
+    as JAX's land on the default accelerator and as
+    ``WhisperEngine.from_checkpoint`` and ``ASRPipeline`` already do."""
+    import inspect
+
+    from thewhisper_tpu_torch.engine import speculative
+    from thewhisper_tpu_torch.models import load
+
+    fn = getattr(load, loader, None) or getattr(speculative, loader)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -274,7 +274,7 @@ def test_draft_files_cross_between_packages(models, tmp_path):
     tree, model = models["target"]
     jt, ja = jspec.make_layer_skip_draft(tree, ARCH, 2)
     jspec.save_draft(str(tmp_path / "jax_draft"), jt, ja)
-    loaded = tspec.load_draft(str(tmp_path / "jax_draft.npz"))
+    loaded = tspec.load_draft(str(tmp_path / "jax_draft.npz"), device="cpu")
     assert dataclasses.asdict(loaded.arch) == dataclasses.asdict(ja)
     assert loaded.encoder is None
     ref = tspec.make_layer_skip_draft(model, 2).state_dict()
@@ -296,7 +296,7 @@ def test_draft_files_cross_between_packages(models, tmp_path):
     np.testing.assert_array_equal(
         np.asarray(jt2["decoder"]["layers"]["mlp"]["fc1_w"]["q"]),
         np.asarray(ref_q["decoder"]["layers"]["mlp"]["fc1_w"]["q"]))
-    back = tspec.load_draft(str(tmp_path / "port_draft"))
+    back = tspec.load_draft(str(tmp_path / "port_draft"), device="cpu")
     for k, v in draft.state_dict().items():
         if "self_attn" not in k:
             torch.testing.assert_close(back.state_dict()[k], v, atol=0, rtol=0)

@@ -156,9 +156,10 @@ def save_draft(path: str, draft: Whisper) -> None:
 
 
 def load_draft(path: str, dtype: torch.dtype = torch.float32,
-               device=None) -> Whisper:
+               device="cuda") -> Whisper:
     """A draft written by either package's ``save_draft``, as a
-    decoder-only model in ``dtype`` (float leaves) on ``device``."""
+    decoder-only model in ``dtype`` (float leaves) on ``device`` (the card
+    unless the caller names the CPU)."""
     from thewhisper_tpu_torch.models.load import params_from_jax
 
     tree: dict = {}

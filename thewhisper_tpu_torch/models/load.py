@@ -248,11 +248,12 @@ def detect_flexible_checkpoint(path: str, cfg: Mapping[str, Any],
 def load_checkpoint(
     path: str,
     dtype: torch.dtype = torch.float32,
-    device=None,
+    device="cuda",
     chunk_length_s: float = 30.0,
     position_mode: Optional[str] = None,
 ) -> Tuple[Whisper, WhisperArch]:
-    """Load an HF Whisper checkpoint directory into (model, arch).
+    """Load an HF Whisper checkpoint directory into (model, arch) on
+    ``device`` (the card unless the caller names the CPU).
 
     ``position_mode`` defaults to "truncate" for flexible fine-tunes
     (:func:`detect_flexible_checkpoint`), else "interpolate"."""

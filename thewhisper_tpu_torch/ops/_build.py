@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argtypes of every C entry point in csrc/.
 _SIGNATURES = {
-    "twt_logmel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "twt_logmel": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "twt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
     "twt_mega_step": [_P] * 22 + [_I] * 11 + [_P],

@@ -5,7 +5,9 @@
 encoder layer runs, which thewhisper_tpu sends to the Pallas TPU flash
 attention (``models/whisper.py::_flash_attention``). On a CUDA tensor it
 launches ``csrc/encoder_attention.cu`` (dh = 64, f32 or bf16, any S, no
-padded copies); on a CPU tensor it runs :func:`encoder_attention_plain`.
+padded copies): bf16 on the tensor cores (TMA and wgmma, which need
+16-byte-aligned base pointers and strides), f32 on the CUDA cores. On a CPU
+tensor it runs :func:`encoder_attention_plain`.
 """
 
 from __future__ import annotations
@@ -67,6 +69,11 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[1, {s}]")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("encoder_attention: head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+            x.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in x.stride()[:3])
+            for x in (q, k, v)):
+        raise ValueError("encoder_attention: bf16 operands need 16-byte-aligned "
+                         "base pointers and strides (TMA)")
     out = torch.empty(b, s, h, dh, device=q.device, dtype=q.dtype)
     code = _build.lib().twt_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
