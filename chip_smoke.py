@@ -27,7 +27,10 @@ is false. Phases, each of which raises on failure:
    library attention (K2 must beat the plain attention at B = 4), and that a
    small f32 model transcribes the same on the card as on the CPU, and
    decodes the same tokens speculatively (ngram, a one-layer layer-skip
-   draft) as greedily, on the card and on the CPU.
+   draft) as greedily, on the card and on the CPU. It prints the bf16
+   encoder's relative L2 drift from an f32 copy with the plain attention.
+   [turbo S] Then the same model quantized as ``"int8-all"`` with int8
+   cross K/V: the 20 s WAV at batch 1, every decode step one K3 launch.
 6. [S] The "S" main path at the full width of large-v3 (32 + 32 layers,
    d_model 1280, 20 heads, d_ff 5120, vocab 51866): random bf16 weights,
    biases and LayerNorm parameters,
@@ -38,14 +41,19 @@ is false. Phases, each of which raises on failure:
    int8 step, no K3 launch). Prints the W8A8 encoder's error against the
    bf16 encoder, walls, peak memory and the model's bytes.
 7. [K3] The decode step kernel against its plain version at large-v3 width
-   (T = 1500): at L = 32 for cache lengths 5, 68 and 228, at L = 4
-   (turbo's depth) and at L = 1 over eight steps, the best of which must
-   agree to f32 noise, and the times of both at each.
+   on the production cross K/V (the W8A8 encoder with K2, T = 1500): at
+   L = 32 for cache lengths 5, 68 and 228, at L = 4 (turbo's depth) and at
+   L = 1 over eight steps, the best of which must agree to f32 noise; at
+   every depth the kernel's distance from the same function computed in f32
+   at most 1.5 times the bf16 plain version's. Times of both at each, the
+   kernel eager and from a CUDA graph, and the phase stamps of one L = 32
+   step (where the launch's time goes).
 8. [K4] The verify-window kernel against its plain version on the S model's
    operands: L = 32 with windows of 5 (cache 73), 16 (cache 84) and 1, L = 4
-   and L = 1 over eight windows, K3's bounds; one L = 1 window against K3
-   stepping the same tokens; times of K4 and the plain verify a round at
-   L = 32 for windows 1, 5 and 16 beside K3's time a step.
+   and L = 1 over eight windows, K3's checks; one L = 1 window against K3
+   stepping the same tokens; times of K4 (eager and from a CUDA graph) and
+   the plain verify a round at L = 32 for windows 1, 5 and 16 beside K3's
+   time a step, and the phase stamps of one window of 5.
 9. [SPEC] The speculative "S" path at large-v3 width: a second engine on
    the S model with ngram drafting (``spec_ngram=True``), ``ASRPipeline``
    on the 20 s WAV without timestamps (batch 1: every verify round is one
@@ -71,7 +79,8 @@ The kernels' JSON line gives each kernel's launches on its path, its error
 against the plain version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the peak rate for their
 type) and, where one PyTorch call computes the same function, that call's
-time. The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
+time (and, for K3 and K4, ``graph_ms``, the device time from a CUDA
+graph). The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}`` (``count`` is 1: the
 run uses one card, whatever the machine shows).
 """
@@ -478,7 +487,59 @@ def phase_main_path() -> dict:
                and np.isfinite(res.sum_logprob).all()
                and np.isfinite(res.align).all()), "engine result not finite")
     encoder_walls(model, pipe.featurizer)
-    return launches
+    encoder_drift(model, pipe.featurizer)
+    return launches, model
+
+
+def encoder_drift(model, featurizer) -> None:
+    """Prints the bf16 turbo encoder's (with K2) relative L2 drift from an
+    f32 copy of it with the plain attention, on one 30 s window."""
+    with torch.inference_mode():
+        mel = featurizer(synth_audio(30, seed=3))
+        enc = encoder_forward(model, mel)
+        ref_model = copy.deepcopy(model).float()
+        ref = encoder_forward(ref_model, mel.float(),
+                              attention=attn.encoder_attention_plain)
+        del ref_model
+        rel = l2_rel(enc, ref).item()
+    check(math.isfinite(rel), "encoder drift not finite")
+    print(f"[main] bf16 encoder with K2 against an f32 encoder with the plain "
+          f"attention, 30 s window: relative L2 {rel:.3e}", flush=True)
+
+
+def phase_turbo_s(model) -> None:
+    """[turbo S] The turbo model quantized in place as ``"int8-all"`` (int8
+    decoder and table, W8A8 encoder), ``WhisperEngine(cross_kv_int8=True)``:
+    the 20 s WAV at batch 1 with word timestamps, twice, each with K3's
+    count zeroed just before. Every decode step must be one K3 launch
+    (``mega_pays`` at batch 1 for any depth)."""
+    quantize_params(model, components=("decoder",))
+    quantize_params(model, components=("encoder",), activation_int8=True)
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    check(model.mega is not None, "the turbo S engine did not pack K3's operands")
+    pipe = ASRPipeline(engine, chunk_length_s=30)
+    results = []
+    generate = engine._generate
+    engine._generate = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        wav20 = Path(tmp) / "speech20.wav"
+        write_wav(wav20, synth_audio(20, seed=6))
+        for run in (1, 2):
+            mega.MEGA_LAUNCHES = 0
+            r20 = timed(f"turbo S, 20 s WAV, word timestamps, batch 1, call {run}",
+                        lambda: pipe(str(wav20), return_timestamps="word",
+                                     generate_kwargs=dict(GEN_KW)), tag="turbo S")
+            launches = mega.MEGA_LAUNCHES
+            res = results[-1]
+            steps = min(int(res.num_generated[0]), GEN_KW["max_new_tokens"] - 1)
+            check(steps > 0 and launches == steps,
+                  f"turbo S: K3 launches {launches} != {steps} decode steps")
+            check_word_chunks(r20, 20.0, ordered=True)
+            check(bool(np.isfinite(res.token_logprobs).all()
+                       and np.isfinite(res.align).all()), "turbo S result not finite")
+            print(f"[turbo S] call {run}: {len(r20['chunks'])} words, {steps} "
+                  f"decode steps, K3 launches {launches}", flush=True)
+    engine._generate = generate
 
 
 def phase_small_reference() -> None:
@@ -520,10 +581,9 @@ def phase_small_reference() -> None:
 
 def phase_s_path():
     """The "S" main path at large-v3 width. Returns (model, the W8A8
-    encoder's output on one 30 s window through the plain attention, K3
-    launches of the batch-1 call). [K3] and [K4] take their cross K/V from
-    that output: their bounds at depth sit on bf16 rounding cascades, so
-    their operands do not depend on how K2 rounds."""
+    encoder's output on one 30 s window, with K2, as the pipeline computes
+    it, K3 launches of the batch-1 call). [K3] and [K4] take their cross K/V
+    from that output: the production cross K/V."""
     dev = torch.device("cuda", 0)
     arch = dataclasses.replace(
         ARCH_PRESETS["large-v3"],
@@ -551,8 +611,6 @@ def phase_s_path():
     check(bool(torch.isfinite(enc).all()), "W8A8 encoder output not finite")
     print(f"[S] W8A8 encoder vs bf16 encoder, 30 s window: relative L2 err "
           f"{rel:.3e}, max abs err {diff.abs().max().item():.3e}", flush=True)
-    with torch.inference_mode():
-        enc = encoder_forward(model, mel, attention=attn.encoder_attention_plain)
     del enc_bf16, diff
     engine = WhisperEngine(model, cross_kv_int8=True)
     check(model.mega is not None, "the S engine did not pack K3's operands")
@@ -627,17 +685,24 @@ def first_row_ratio(got: torch.Tensor, ref: torch.Tensor) -> float:
 # the prompt's 4 plus max_new 1, 64 and 224; the last position is S - 1.
 K3_CASES = ((32, 5, (4,)), (32, 68, (4, 40, 67)), (32, 228, (4, 150, 227)),
             (4, 68, (4, 67)), (1, 68, (4, 11, 20, 33, 40, 52, 60, 67)))
-# Bound on the logits' max abs err relative to their max, by depth. Kernel
-# and plain step round at the same points, but their f32 sums run in
-# another order, so now and then one value rounds to the other bf16
-# neighbour, and that difference spreads through every later rounding: at
-# L = 1 such a cascade reaches a few 1e-3, at L = 4 and L = 32 it nears the
-# bound tests/test_mega_step.py holds the TPU kernel to. A step in which
-# nothing rounds the other way agrees to f32 noise (about 2e-7), so among
-# L = 1's eight steps the best must agree to K3_EXACT: a fault in the
-# kernel (a dropped bias, a misread LayerNorm vector) moves every step.
-K3_LOGITS_REL = {1: 1e-2, 4: 2e-2, 32: 2e-2}
+# Kernel and plain step round at the same points, but their f32 sums run
+# in another order, so now and then one value rounds to the other bf16
+# neighbour, and that difference spreads through every later rounding. On
+# one layer such a cascade reaches a few 1e-3 (every step within
+# K3_ONE_LAYER_REL) and a step in which nothing rounds the other way agrees
+# to f32 noise (about 2e-7): among L = 1's eight steps the best must agree
+# to K3_EXACT, since a fault (a dropped bias, a misread LayerNorm vector)
+# moves every step. At depth both versions drift from the exact function by
+# their own cascades, so each is measured against the same function with
+# every rounding point in f32 (``mega.mega_reference``): the kernel's
+# relative L2 distance from it may be at most F32_RATIO times the bf16
+# plain version's, for the logits, the alignment and every layer's fresh
+# k/v row.
+K3_ONE_LAYER_REL = 1e-2
 K3_EXACT = 1e-5
+F32_RATIO = 1.5
+PHASES = ("LN1 + qkv", "self-attention", "out-projection", "LN + cross q",
+          "cross-attention", "cross out-proj", "LN2 + fc1 + GELU", "fc2")
 
 
 def _layers(mp, ck, cv, depth):
@@ -647,23 +712,77 @@ def _layers(mp, ck, cv, depth):
         *(QuantizedKV(kv.q[:depth], kv.s[:depth]) for kv in (ck, cv)))
 
 
+def l2_rel(got: torch.Tensor, ref: torch.Tensor,
+           by_layer: bool = False) -> torch.Tensor:
+    """||got - ref|| / ||ref|| in f32, over everything or, ``by_layer``,
+    over each slice along dim 0."""
+    g, r = got.float(), ref.float()
+    if not by_layer:
+        return (g - r).norm() / r.norm()
+    return (g - r).flatten(1).norm(dim=1) / r.flatten(1).norm(dim=1)
+
+
+def f32_ratio(got, plain, ref, by_layer: bool = False) -> float:
+    """The kernel's distance from the f32 reference over the bf16 plain
+    version's (the worst layer, ``by_layer``)."""
+    return (l2_rel(got, ref, by_layer) / l2_rel(plain, ref, by_layer)).max().item()
+
+
+def stamp_table(tag: str, stamps: torch.Tensor, n_layers: int) -> dict:
+    """Prints where one launch's time went, from the kernel's phase stamps
+    (``mega.stamps_tensor``): for each of the 8 phases of a layer, the mean
+    over the layers of its work (start to arrival at its grid barrier), of
+    that the matrix product and of that the wait for ring stages, and its
+    barrier wait (arrival to leaving), for block 0, and work and barrier
+    wait for the last block; the final phase; and an upper bound on one
+    barrier's own cost, the later leaving of the two blocks minus their
+    later arrival (median and least over the barriers). Returns the
+    totals."""
+    s = stamps.cpu().double() / 1e3                        # us
+    main = s[:, :8 * n_layers].reshape(2, n_layers, 8, -1)
+    work = (main[..., 1] - main[..., 0]).mean(1)            # (2, 8)
+    wait = (main[..., 2] - main[..., 1]).mean(1)
+    gemm = torch.where(main[..., 3] > 0, main[..., 1] - main[..., 3],
+                       torch.zeros_like(main[..., 3])).mean(1)
+    ring = main[..., 4].mean(1)
+    mma = main[..., 5].mean(1)
+    own = (main[..., 2].min(0).values - main[..., 1].max(0).values).flatten()
+    total = (s[0, -1, 2] - s[0, 0, 0]).item()
+    final = (s[0, -1, 1] - s[0, -1, 0]).item()
+    print(f"[{tag}] phase stamps, us a layer (mean of {n_layers}); block 0: work "
+          f"(of it the product, of that the ring wait), barrier wait | last "
+          f"block: work, barrier wait", flush=True)
+    for i, name in enumerate(PHASES):
+        print(f"[{tag}]   {i + 1}. {name:<17} {work[0, i]:7.3f} ({gemm[0, i]:6.3f}, "
+              f"{ring[0, i]:6.3f}, {mma[0, i]:6.3f}) {wait[0, i]:7.3f} | {work[1, i]:7.3f} "
+              f"{wait[1, i]:7.3f}", flush=True)
+    layer = (work[0].sum() + wait[0].sum()).item()
+    print(f"[{tag}]   a layer {layer:.3f} us (work {work[0].sum().item():.3f}, "
+          f"of it products {gemm[0].sum().item():.3f} and ring waits "
+          f"{ring[0].sum().item():.3f}; barrier wait {wait[0].sum().item():.3f}); "
+          f"final LN + logits {final:.3f} us (ring wait {s[0, -1, 4].item():.3f}); "
+          f"launch start to end {total:.3f} us; {8 * n_layers} grid barriers, "
+          f"one at most {own.median().item():.3f} us (median; least "
+          f"{own.min().item():.3f})", flush=True)
+    return {"layer_us": layer, "wait_us": wait[0].sum().item(),
+            "final_us": final, "total_us": total}
+
+
 def phase_mega(model, enc) -> dict:
     """K3 against its plain version on the S model's packed operands
     (random biases and LayerNorm parameters), the cross K/V of a 30 s
-    window through the W8A8 encoder and random bf16 self K/V, on the first
-    L layers for each of ``K3_CASES``. Bounds: the logits as in
-    ``K3_LOGITS_REL`` and, at L = 1, ``K3_EXACT`` for the best step;
-    alignment max abs <= 2e-3 (f32 probabilities of
-    those logits, the bound of tests/test_mega_step.py); layer 0's fresh
-    k/v row to ``first_row_ratio``; every layer's fresh k/v row <= 5e-2
-    (the bound of tests/test_mega_step.py: one bf16 rounding of values of
-    a few units, grown over the layers); every other cache slot
-    bit-identical (only slot pos is written). Times kernel and plain step
-    for each depth and cache length."""
+    window through the W8A8 encoder with K2 and random bf16 self K/V, on
+    the first L layers for each of ``K3_CASES``. Checks: the f32-referenced
+    bound (``F32_RATIO``) on the logits, the alignment and every layer's
+    fresh k/v row; at L = 1 ``K3_ONE_LAYER_REL`` and ``K3_EXACT`` for the
+    best step; layer 0's fresh k/v row to ``first_row_ratio``; every other
+    cache slot bit-identical (only slot pos is written). Times kernel
+    (eager and from a CUDA graph) and plain step for each depth and cache
+    length, and prints the phase stamps of one L = 32, S = 68 step."""
     arch, mp = model.arch, model.mega
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(7)
-    main = None
+    main, times = None, {}
     with torch.inference_mode():
         ck, cv = compute_cross_kv(model, enc)
         ck, cv = quantize_kv(ck), quantize_kv(cv)
@@ -683,44 +802,60 @@ def phase_mega(model, enc) -> dict:
                                       ck_l, cv_l) for _ in range(2)]
                 lk, ak = mega.mega_step(mp_l, x, pos, caches[0], arch_l)
                 lp, ap = mega.mega_step_plain(mp_l, x, pos, caches[1], arch_l)
+                lr, ar, ref = mega.mega_reference(mp_l, x, pos, base, arch_l)
                 torch.cuda.synchronize()
                 err = (lk - lp).abs().max().item()
                 rel = err / lp.abs().max().item()
                 rels.append(rel)
-                aerr = (ak - ap).abs().max().item()
-                rows = [(k[:, 0, :, pos], p[:, 0, :, pos]) for k, p in
-                        zip(caches[0][:2], caches[1][:2])]
-                kverr = max((k.float() - p.float()).abs().max().item()
-                            for k, p in rows)
-                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p in rows)
+                rows = [(k[:, 0, :, pos], p[:, 0, :, pos], r[:, 0, :, pos])
+                        for k, p, r in zip(caches[0][:2], caches[1][:2], ref[:2])]
+                ratios = {"logits": f32_ratio(lk, lp, lr),
+                          "k/v rows": max(f32_ratio(k, p, r, by_layer=True)
+                                          for k, p, r in rows)}
+                if ap.abs().max() > 0:
+                    ratios["align"] = f32_ratio(ak, ap, ar[0])
+                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p, _ in rows)
                 keep = torch.arange(s_len, device=dev) != pos
-                same = all(torch.equal(got[:, :, :, keep], ref[:, :, :, keep])
-                           for c in caches for got, ref in zip(c[:2], base[:2]))
+                same = all(torch.equal(got[:, :, :, keep], ref_[:, :, :, keep])
+                           for c in caches for got, ref_ in zip(c[:2], base[:2]))
                 print(f"[K3] {where:>11} pos={pos:>3d}: logits max abs err "
-                      f"{err:.3e} (rel {rel:.3e}), align {aerr:.3e}, k/v row "
-                      f"{kverr:.3e}, layer 0 k/v row {ratio0:.3f} of its "
-                      f"bound, other slots identical {same}", flush=True)
-                check(rel <= K3_LOGITS_REL[depth],
-                      f"K3 logits rel err {rel} at {where} pos={pos}")
-                check(aerr <= 2e-3, f"K3 align err {aerr} at {where}")
+                      f"{err:.3e} (rel {rel:.3e}); distance from f32 over the "
+                      f"plain version's: "
+                      f"{', '.join(f'{k} {v:.3f}' for k, v in ratios.items())};"
+                      f" layer 0 k/v row {ratio0:.3f} of its bound, other "
+                      f"slots identical {same}", flush=True)
+                check(max(ratios.values()) <= F32_RATIO,
+                      f"K3 f32-referenced ratios {ratios} at {where} pos={pos}")
                 check(ratio0 <= 1.0, f"K3 layer 0 k/v row {ratio0} of its "
                       f"bound at {where} pos={pos}")
-                check(kverr <= 5e-2, f"K3 k/v row err {kverr} at {where}")
                 check(same, f"K3 touched a cache slot other than {pos}")
                 check(bool(torch.isfinite(lk).all()), "K3 logits not finite")
             if depth == 1:
-                check(min(rels) <= K3_EXACT, f"K3 at {where}: no step agrees "
-                      f"to {K3_EXACT} (best {min(rels)})")
+                check(max(rels) <= K3_ONE_LAYER_REL and min(rels) <= K3_EXACT,
+                      f"K3 at {where}: steps {rels} (every one within "
+                      f"{K3_ONE_LAYER_REL}, the best within {K3_EXACT})")
             ms = cuda_ms(lambda: mega.mega_step(mp_l, x, pos, caches[0], arch_l))
+            dev_ms = graph_ms(lambda: mega.mega_step(mp_l, x, pos, caches[0],
+                                                     arch_l))
             plain_ms = cuda_ms(
                 lambda: mega.mega_step_plain(mp_l, x, pos, caches[1], arch_l),
                 iters=5)
-            print(f"[K3] {where:>11}: kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms per step", flush=True)
+            times[depth, s_len] = (ms, dev_ms)
+            print(f"[K3] {where:>11}: kernel {ms:.4f} ms eager, {dev_ms:.4f} ms "
+                  f"on the device (CUDA graph)  plain {plain_ms:.4f} ms per step",
+                  flush=True)
             if (depth, s_len) == (32, 68):      # the main path's step
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                stamps = mega.stamps_tensor(depth, dev)
+                mega.mega_step(mp_l, x, pos, caches[0], arch_l, stamps=stamps)
+                torch.cuda.synchronize()
+                stamp_table("K3 L=32 S=68", stamps, depth)
+                main = {"max_abs_err": err, "ms": ms, "graph_ms": dev_ms,
+                        "plain_ms": plain_ms,
                         **step_bound(mp_l, ck_l, cv_l, caches[0], pos, 1),
                         "library_ms": None}
+    print(f"[K3] bound at L=32 S=68 {main['bound_ms']:.4f} ms ({main['bound_by']}); "
+          f"eager {main['ms'] / main['bound_ms']:.2f}x, device "
+          f"{main['graph_ms'] / main['bound_ms']:.2f}x of it", flush=True)
     return main
 
 
@@ -749,16 +884,18 @@ K4_CASES = ((32, 73, 5, (4, 40, 68)), (32, 84, 16, (4, 68)),
 
 def phase_verify(model, enc) -> dict:
     """K4 against its plain version on the S model's packed operands, the
-    cross K/V of a 30 s window through the W8A8 encoder and random bf16
-    self K/V, for each of ``K4_CASES``. K4 is K3 over W rows at the same
-    rounding points, so K3's bounds hold row by row: the logits as in
-    ``K3_LOGITS_REL`` and, at L = 1, ``K3_EXACT`` for the best row of the
-    eight windows (a window's worst row agrees to f32 noise only when none
-    of its rows has a value that rounds the other way);
-    layer 0's window rows to ``first_row_ratio``; every window row <= 5e-2;
-    every slot outside the window bit-identical. Then one L = 1 window
-    against K3 stepping its tokens (row j against step j, K3's L = 1
-    bounds), and the times of K4, the plain verify and K3 at L = 32."""
+    cross K/V of a 30 s window through the W8A8 encoder with K2 and random
+    bf16 self K/V, for each of ``K4_CASES``. K4 is K3 over W rows at the
+    same rounding points, so K3's checks hold row by row: the
+    f32-referenced bound on the logits and every layer's window k/v rows;
+    at L = 1 every row within ``K3_ONE_LAYER_REL`` and the best row of the
+    eight windows within ``K3_EXACT`` (a window's worst row agrees to f32
+    noise only when none of its rows has a value that rounds the other
+    way); layer 0's window rows to ``first_row_ratio``; every slot outside
+    the window bit-identical. Then one L = 1 window against K3 stepping its
+    tokens (row j against step j, K3's L = 1 bounds), the times of K4 (eager
+    and from a CUDA graph), the plain verify and K3 at L = 32, and the phase
+    stamps of one L = 32 window of 5."""
     arch, mp = model.arch, model.mega
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(8)
@@ -781,43 +918,56 @@ def phase_verify(model, enc) -> dict:
                                       ck_l, cv_l) for _ in range(2)]
                 lk = mega.mega_verify(mp_l, x, pos, caches[0], arch_l)
                 lp = mega.mega_verify_plain(mp_l, x, pos, caches[1], arch_l)
+                lr, _, ref = mega.mega_reference(mp_l, x, pos, base, arch_l)
                 torch.cuda.synchronize()
                 err = (lk - lp).abs().max().item()
                 rel = err / lp.abs().max().item()
                 row_rels = ((lk - lp).abs().amax(1) / lp.abs().amax(1)).tolist()
                 rels.extend(row_rels)
-                rows = [(k[:, 0, :, pos:pos + w], p[:, 0, :, pos:pos + w])
-                        for k, p in zip(caches[0][:2], caches[1][:2])]
-                kverr = max((k.float() - p.float()).abs().max().item()
-                            for k, p in rows)
-                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p in rows)
+                win = slice(pos, pos + w)
+                rows = [(k[:, 0, :, win], p[:, 0, :, win], r[:, 0, :, win])
+                        for k, p, r in zip(caches[0][:2], caches[1][:2], ref[:2])]
+                ratios = {"logits": f32_ratio(lk, lp, lr),
+                          "k/v rows": max(f32_ratio(k, p, r, by_layer=True)
+                                          for k, p, r in rows)}
+                ratio0 = max(first_row_ratio(k[0], p[0]) for k, p, _ in rows)
                 keep = torch.ones(s_len, dtype=torch.bool, device=dev)
-                keep[pos:pos + w] = False
-                same = all(torch.equal(got[:, :, :, keep], ref[:, :, :, keep])
-                           for c in caches for got, ref in zip(c[:2], base[:2]))
+                keep[win] = False
+                same = all(torch.equal(got[:, :, :, keep], ref_[:, :, :, keep])
+                           for c in caches for got, ref_ in zip(c[:2], base[:2]))
                 print(f"[K4] {where:>16} pos={pos:>3d}: logits max abs err "
                       f"{err:.3e} (rel {rel:.3e}; best row "
-                      f"{min(row_rels):.3e}), window k/v {kverr:.3e}, "
-                      f"layer 0 window k/v {ratio0:.3f} of its bound, other "
+                      f"{min(row_rels):.3e}); distance from f32 over the plain "
+                      f"version's: "
+                      f"{', '.join(f'{k} {v:.3f}' for k, v in ratios.items())};"
+                      f" layer 0 window k/v {ratio0:.3f} of its bound, other "
                       f"slots identical {same}", flush=True)
-                check(rel <= K3_LOGITS_REL[depth],
-                      f"K4 logits rel err {rel} at {where} pos={pos}")
+                check(max(ratios.values()) <= F32_RATIO,
+                      f"K4 f32-referenced ratios {ratios} at {where} pos={pos}")
                 check(ratio0 <= 1.0, f"K4 layer 0 window k/v {ratio0} of its "
                       f"bound at {where} pos={pos}")
-                check(kverr <= 5e-2, f"K4 window k/v err {kverr} at {where}")
                 check(same, f"K4 touched a cache slot outside {pos}..{pos + w - 1}")
                 check(bool(torch.isfinite(lk).all()), "K4 logits not finite")
             if depth == 1:
-                check(min(rels) <= K3_EXACT, f"K4 at {where}: no row "
-                      f"agrees to {K3_EXACT} (best {min(rels)})")
+                check(max(rels) <= K3_ONE_LAYER_REL and min(rels) <= K3_EXACT,
+                      f"K4 at {where}: rows {rels} (every one within "
+                      f"{K3_ONE_LAYER_REL}, the best within {K3_EXACT})")
             if depth == 32:
                 ms = cuda_ms(lambda: mega.mega_verify(mp_l, x, pos, caches[0],
                                                       arch_l))
+                dev_ms = graph_ms(lambda: mega.mega_verify(
+                    mp_l, x, pos, caches[0], arch_l))
                 plain_ms = cuda_ms(lambda: mega.mega_verify_plain(
                     mp_l, x, pos, caches[1], arch_l), iters=5)
-                times[w] = (ms, plain_ms)
+                times[w] = (ms, dev_ms, plain_ms)
                 if w == 5:                       # the main path's window
-                    main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    stamps = mega.stamps_tensor(depth, dev)
+                    mega.mega_verify(mp_l, x, pos, caches[0], arch_l,
+                                     stamps=stamps)
+                    torch.cuda.synchronize()
+                    stamp_table("K4 L=32 W=5", stamps, depth)
+                    main = {"max_abs_err": err, "ms": ms, "graph_ms": dev_ms,
+                            "plain_ms": plain_ms,
                             **step_bound(mp_l, ck_l, cv_l, caches[0], pos, w),
                             "library_ms": None}
 
@@ -841,7 +991,7 @@ def phase_verify(model, enc) -> dict:
         torch.cuda.synchronize()
         print(f"[K4] L=1 window of {w} against K3 stepping it: logits rel err "
               f"by row {', '.join(f'{r:.3e}' for r in rels)}", flush=True)
-        check(max(rels) <= K3_LOGITS_REL[1] and min(rels) <= K3_EXACT,
+        check(max(rels) <= K3_ONE_LAYER_REL and min(rels) <= K3_EXACT,
               f"K4 rows against K3 steps: {rels}")
 
         # K3's step at the same depth and cache length, for the ratio.
@@ -849,10 +999,16 @@ def phase_verify(model, enc) -> dict:
         step_cache = make_cache(arch, 1, 73, ck_l, cv_l, dtype=torch.bfloat16)
         x1 = embed_tokens(model, torch.tensor([[140]], device=dev), 40)[:, 0]
         k3_ms = cuda_ms(lambda: mega.mega_step(mp_l, x1, 40, step_cache, arch))
-    for w, (ms, plain_ms) in sorted(times.items()):
-        print(f"[K4] L=32 window {w:>2d}: kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms a round; K3 {k3_ms:.4f} ms a step; one K4 "
-              f"round / one K3 step {ms / k3_ms:.3f}", flush=True)
+        k3_dev = graph_ms(lambda: mega.mega_step(mp_l, x1, 40, step_cache, arch))
+    for w, (ms, dev_ms, plain_ms) in sorted(times.items()):
+        print(f"[K4] L=32 window {w:>2d}: kernel {ms:.4f} ms eager, {dev_ms:.4f}"
+              f" ms on the device (CUDA graph)  plain {plain_ms:.4f} ms a round; "
+              f"K3 {k3_ms:.4f} ms eager, {k3_dev:.4f} ms on the device a step; "
+              f"one K4 round / one K3 step {ms / k3_ms:.3f} eager, "
+              f"{dev_ms / k3_dev:.3f} on the device", flush=True)
+    print(f"[K4] bound at L=32 W=5 {main['bound_ms']:.4f} ms ({main['bound_by']}); "
+          f"eager {main['ms'] / main['bound_ms']:.2f}x, device "
+          f"{main['graph_ms'] / main['bound_ms']:.2f}x of it", flush=True)
     return main
 
 
@@ -1116,7 +1272,10 @@ def main() -> None:
     phase_build()
     k1 = phase_logmel()
     k2 = phase_attention()
-    launches = phase_main_path()
+    launches, turbo = phase_main_path()
+    phase_turbo_s(turbo)
+    del turbo
+    torch.cuda.empty_cache()
     phase_small_reference()
     model, enc, k3_launches = phase_s_path()
     k3 = phase_mega(model, enc)

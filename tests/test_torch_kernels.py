@@ -9,7 +9,10 @@ where only PyTorch is installed:
 Shapes are the slice's production shapes: 10 s and 30 s of audio (1000 and
 3000 frames), S = 1500 and 500 encoder positions, 20 heads of 64; K3 (the
 decode step) and K4 (the verify window) at a small arch, d_model 384 with
-heads of 64 and 2 layers (chip_smoke.py holds them at large-v3 width). The
+heads of 64 and 2 layers, with T and cache lengths that are and are not
+multiples of their attention chunks (chip_smoke.py holds them at large-v3
+width; ``python -m thewhisper_tpu_torch.tools.mega_mutants`` checks that
+these tests fail on broken copies of their engine). The
 probe kernels (P1-P5) at small sizes: the no-exp attention control at
 S = 1024 and 1536, the int8 MLP chain at d_model 256, d_ff 1024, the slot
 writes at the probes' own cache shapes.
@@ -262,6 +265,39 @@ def test_mega_step_kernel_one_layer_agrees_exactly(cuda_device):
             cache.self_k[:1].clone(), cache.self_v[:1].clone(), ck, cv), arch)
         rels.append(((lk - lp).abs().max() / lp.abs().max()).item())
     assert max(rels) < 1e-2 and min(rels) < 1e-5, rels
+
+
+@pytest.mark.parametrize("t_enc,slots,pos,w", [(1501, 61, 60, 1), (97, 200, 150, 1),
+                                               (97, 64, 57, 5), (1500, 200, 140, 16)])
+def test_mega_kernels_take_ragged_chunks(cuda_device, t_enc, slots, pos, w):
+    """T and the window's slots (pos + W) that are not multiples of the
+    attention chunks (ops.mega_step.attention_chunks on this card's SM
+    count; past SELF_MIN_CHUNK slots the self-attention splits too): K3
+    (W = 1) or K4 against the plain version, logits 2e-2 relative to their
+    max, alignment 2e-3, every other slot untouched. Positions past the
+    position table take its last rows on both sides."""
+    model, cache = _k3_case(cuda_device, slots, t_enc=t_enc)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, least in ((t_enc, 1), (pos + w, tm.SELF_MIN_CHUNK)):
+        length, count = tm.attention_chunks(n, 6, sms, least)
+        assert n % length != 0 or count == 1, (n, length)
+    tokens = torch.arange(17, 17 + w, device=cuda_device)[None]
+    copies = [tw.DecodeCache(cache.self_k.clone(), cache.self_v.clone(),
+                             cache.cross_k, cache.cross_v) for _ in range(2)]
+    if w == 1:
+        lk, ck, ak = tm.mega_decoder_step(model, tokens, pos, copies[0])
+        lp, cp, ap = tm.mega_decoder_step_plain(model, tokens, pos, copies[1])
+        assert (ak - ap).abs().max().item() < 2e-3
+    else:
+        lk, ck, _ = tm.mega_decoder_verify(model, tokens, pos, copies[0])
+        lp, cp, _ = tm.mega_decoder_verify(model, tokens, pos, copies[1],
+                                           plain=True)
+    torch.cuda.synchronize()
+    assert ((lk - lp).abs().max() / lp.abs().max()).item() < 2e-2
+    keep = torch.ones(slots, dtype=torch.bool, device=cuda_device)
+    keep[pos:pos + w] = False
+    for got, orig in zip((ck.self_k, ck.self_v), (cache.self_k, cache.self_v)):
+        assert torch.equal(got[:, :, :, keep], orig[:, :, :, keep])
 
 
 def test_mega_step_kernel_rejects_bad_input(cuda_device):

@@ -220,31 +220,78 @@ def test_greedy_through_k3_route_matches_jax(bf16_16, monkeypatch):
     assert np.abs(a_r - a_g).max() < 5e-3
 
 
-def test_pack_and_gate(monkeypatch):
+def test_pack_and_gate():
     """Packing needs a weight-only int8 decoder with fused self q/k/v; the
-    engine packs only where mega_pays (the JAX gate: batch 1, deeper than
-    turbo's 4 decoder layers)."""
-    import thewhisper_tpu_torch.engine.engine as te
-
+    engine packs wherever mega_pays: at batch 1, for any decoder depth
+    (turbo's 4 layers and this 2-layer arch too; K3 beats the plain step
+    on the card at every depth)."""
     assert tm.mega_pays(ARCH_PRESETS["large-v3"])
-    assert not tm.mega_pays(ARCH_PRESETS["large-v3-turbo"])
+    assert tm.mega_pays(ARCH_PRESETS["large-v3-turbo"])
+    assert tm.mega_pays(ARCH)
     assert not tm.mega_pays(ARCH_PRESETS["large-v3"], batch=4)
+    assert not tm.mega_pays(ARCH_PRESETS["large-v3-turbo"], batch=4)
     params = _jax_params(jnp.float32)
     assert tm.pack_mega_params(params_from_jax(params, ARCH)) is None
     float_model = tw.fuse_self_qkv(params_from_jax(
         jax_tree(jw.init_params(ARCH, seed=3)), ARCH))
     assert tm.pack_mega_params(float_model) is None    # not int8
-    shallow = params_from_jax(params, ARCH)
-    WhisperEngine(shallow, cross_kv_int8=True)
-    assert shallow.mega is None                        # 2 layers: no pack
-    monkeypatch.setattr(te, "mega_pays", lambda arch, batch=1: True)
+    plain_kv = params_from_jax(params, ARCH)
+    WhisperEngine(plain_kv)
+    assert plain_kv.mega is None                       # float cross K/V
     packed = params_from_jax(params, ARCH)
     WhisperEngine(packed, cross_kv_int8=True)
-    assert packed.mega is not None
+    assert packed.mega is not None                     # 2 layers: packed
     # The stacks and the layers' modules share one copy.
     layer = packed.decoder.layers[1]
     assert layer.self_attn.qkv.weight.data_ptr() == packed.mega.qkv_w[1].data_ptr()
     assert packed.mega.smalls.shape == (2, 20 * 384 + 2 * 1536)
+
+
+def test_turbo_depth_s_engine_greedy_through_k3_route_matches_jax(monkeypatch):
+    """A 4-layer "S" engine (turbo's decoder depth) at batch 1 packs K3's
+    operands, sends every greedy step to mega_decoder_step and gives JAX's
+    XLA-step tokens exactly."""
+    import dataclasses
+
+    import jax
+    from thewhisper_tpu.engine.decode import greedy_decode as jax_greedy
+
+    arch = dataclasses.replace(ARCH, decoder_layers=4,
+                               alignment_heads=((2, 1), (3, 3)))
+    params = _with_biases(jw.init_params(arch, seed=4, dtype=jnp.bfloat16))
+    params = jax_tree(jq.quantize_params(params, components=("decoder",)))
+    model = params_from_jax(params, arch, dtype=torch.bfloat16)
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    assert model.mega is not None and model.mega.o_w.shape[0] == 4
+    assert engine.model is model
+
+    rng = np.random.default_rng(1)
+    enc = jnp.asarray(rng.standard_normal((1, 96, 384)), jnp.bfloat16)
+    jparams = jax.tree.map(jnp.asarray, params)
+    ck, cv = jw.compute_cross_kv(jparams, enc, arch)
+    max_new = 6
+    jcache = jw.make_cache(arch, 1, 4 + max_new, jq.quantize_kv(ck),
+                           jq.quantize_kv(cv), dtype=jnp.bfloat16)
+    kw = dict(max_new_tokens=max_new, eot=2, capture_alignment=True)
+    monkeypatch.setenv("WHISPER_MEGAKERNEL", "0")
+    ref = jax_greedy(jparams, arch, jnp.asarray(PROMPT), jcache,
+                     compute_dtype=jnp.bfloat16, **kw)
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(args[2])
+        return tm.mega_decoder_step(*args, **kwargs)
+
+    monkeypatch.setattr(tdecode, "mega_decoder_step", counting)
+    cache = _port_cache(jcache)
+    fresh = tw.make_cache(arch, 1, 4 + max_new, cache.cross_k, cache.cross_v,
+                          dtype=torch.bfloat16)
+    got = tdecode.greedy_decode(model, _t(PROMPT).long(), fresh, **kw)
+    n = int(got.num_generated[0])
+    assert calls == list(range(4, 4 + min(n, max_new - 1)))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(got.num_generated.numpy(),
+                                  np.asarray(ref.num_generated))
 
 
 def test_wrapper_takes_cpu_or_cuda_only(bf16_16):

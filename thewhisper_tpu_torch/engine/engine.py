@@ -6,8 +6,8 @@ featurizes (the K1 kernel on the card), encodes (K2 in every encoder
 layer), computes the cross K/V, prefills the prompt and runs the greedy
 loop, then copies the result to the host as an :class:`EngineResult` with
 the JAX engine's fields. The "S" modes quantize the model
-(``models.quant``) and the cross K/V, and a batch-1 bf16 "S" engine on a
-deep decoder decodes through the K3 kernel (``ops.mega_step``). With a
+(``models.quant``) and the cross K/V, and a batch-1 bf16 "S" engine, at
+any decoder depth, decodes through the K3 kernel (``ops.mega_step``). With a
 draft model, ngram drafting or proposal tokens a greedy call decodes
 speculatively (``engine.speculative``; its batch-1 "S" verify rounds run
 K4). Beam search, int4, the async handles and the window-scan programs are

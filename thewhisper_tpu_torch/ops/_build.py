@@ -39,8 +39,8 @@ _SIGNATURES = {
     "twt_logmel": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "twt_encoder_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
-    "twt_mega_step": [_P] * 22 + [_I] * 11 + [_P],
-    "twt_mega_verify": [_P] * 20 + [_I] * 10 + [_P],
+    "twt_mega_step": [_P] * 19 + [_L] + [_P] * 3 + [_I] * 15 + [_P],
+    "twt_mega_verify": [_P] * 18 + [_L] + [_P] * 2 + [_I] * 14 + [_P],
     "twt_attention_control": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "twt_mlp_chain": [_P] * 12 + [_I] * 6 + [_P],
     "twt_strided_write": [_P, _P, _L, _L, _L, _I, _P],
@@ -141,10 +141,10 @@ _barriers = {}
 
 
 def grid_barrier(device):
-    """The (count, generation) pair of the grid barrier that the cooperative
-    kernels (K3, K4, P2/P3) use on ``device``. Every launch zeroes it on its
-    stream first; launches share it, so they must not overlap (one stream
-    orders them)."""
+    """The (count, generation) pair of the grid barrier that P2/P3's
+    cooperative launch uses on ``device`` (K3 and K4 keep theirs in their
+    scratch). Every launch zeroes it on its stream first; launches share
+    it, so they must not overlap (one stream orders them)."""
     import torch
 
     key = device.index or 0

@@ -13,7 +13,8 @@ GELU and fc2; then the final LN and the tied-table logits. On a CUDA
 tensor it is one launch of ``csrc/mega_step.cu``, which also writes the
 fresh k/v into cache slot ``pos``; on a CPU tensor it runs
 :func:`mega_decoder_step_plain`, the same function in plain torch on the
-same operands.
+same operands. The engine packs the operands at batch 1 for any decoder
+depth (:func:`mega_pays`).
 
 ``mega_decoder_verify`` is K3 over a window of W <= 16 tokens at slots
 ``pos .. pos + W - 1`` (``models.whisper.decoder_verify`` at batch 1,
@@ -22,7 +23,11 @@ window's rows up to r, and every row gets its logits. On a CUDA tensor it
 is one launch of ``csrc/mega_verify.cu`` (K4), which writes the window's
 k/v into the cache itself; on a CPU tensor :func:`mega_verify_plain`.
 K3's and K4's plain versions are one function: the step is the window of
-one row.
+one row, and the two kernels are one engine (``csrc/mega_common.cuh``):
+every block streams its share of the weights through a TMA ring, the
+products run on the tensor cores, attention runs over (head, chunk) items
+on every SM. The wrapper picks the attention chunks for the card's SM count
+(:func:`attention_chunks`) and keeps the scratch for each (device, size).
 
 Numerics, kernel and plain version alike: LayerNorm in f32; every int8
 product accumulates in f32 and takes its scale and bias after the sum;
@@ -70,7 +75,7 @@ MAX_WINDOW = 16
 
 _DH = 64
 # The per-layer f32 vectors in one (L, NS) row, in this order; widths in
-# units of (D, F). The kernel (csrc/mega_step.cu) reads the same offsets.
+# units of (D, F). The kernels (csrc/mega_common.cuh) read the same offsets.
 _SMALLS = (("ln1_g", 1, 0), ("ln1_b", 1, 0), ("qkv_s", 3, 0), ("qkv_b", 3, 0),
            ("o_s", 1, 0), ("o_b", 1, 0), ("lnc_g", 1, 0), ("lnc_b", 1, 0),
            ("cq_s", 1, 0), ("cq_b", 1, 0), ("co_s", 1, 0), ("co_b", 1, 0),
@@ -79,11 +84,15 @@ _SMALLS = (("ln1_g", 1, 0), ("ln1_b", 1, 0), ("qkv_s", 3, 0), ("qkv_b", 3, 0),
 
 
 def mega_pays(arch: WhisperArch, batch: int = 1) -> bool:
-    """The JAX package's gate on its accelerator: the one-launch step pays
-    at batch 1 on decoders deeper than 4 layers (large-v3 yes, turbo no).
-    To be re-derived from this card's own times: ``chip_smoke.py`` prints
-    the kernel and the plain step at L = 32 and at L = 4."""
-    return batch == 1 and arch.decoder_layers > 4
+    """Whether the one-launch step (K3) pays: at batch 1, for any decoder
+    depth. The JAX package gates on depth too (its TPU compile policy);
+    on the H100 K3 beats the plain step at every depth ``chip_smoke.py``
+    [K3] times: 0.2706 against 5.4394 ms a step at L = 4 (turbo's depth)
+    and 1.8175 against 31.5258 ms at L = 32 (large-v3) with the first,
+    CUDA-core kernel; 0.2562 against 5.7542 ms and 1.6901 against 46.7695
+    ms with the redesigned engine (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    del arch
+    return batch == 1
 
 
 class MegaParams(NamedTuple):
@@ -171,9 +180,13 @@ def _gemv(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
     return torch.matmul(x.float(), w.float().t()) * s + b
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
 def _rows_plain(mp: MegaParams, x: torch.Tensor, pos: int,
-                cache: DecodeCache, arch: WhisperArch, capture_align: bool
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                cache: DecodeCache, arch: WhisperArch, capture_align: bool,
+                gelu=_gelu) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 and K4 in plain torch: the W rows of ``x`` (W, D) are the tokens
     at slots ``pos .. pos + W - 1`` of the batch-1 self cache, written here;
     row r attends slots ``[0, pos + r]``. Returns (logits (W, V) f32,
@@ -226,7 +239,7 @@ def _rows_plain(mp: MegaParams, x: torch.Tensor, pos: int,
         # MLP.
         hid = _gemv(_ln(x, sm("ln2_g"), sm("ln2_b")), mp.fc1_w[l],
                     sm("fc1_s"), sm("fc1_b")).to(dt)
-        hid = _gelu(hid)
+        hid = gelu(hid)
         x = x + _gemv(hid, mp.fc2_w[l], sm("fc2_s"), sm("fc2_b")).to(dt)
     x = _ln(x, mp.lnp[0], mp.lnp[1])
     return torch.matmul(x.float(), mp.emb_q.float().t()) * mp.emb_s, align
@@ -242,6 +255,22 @@ def mega_step_plain(mp: MegaParams, x: torch.Tensor, pos: int,
     f32, align (max(A, 1), T) f32, zeros unless ``capture_align``)."""
     logits, align = _rows_plain(mp, x, pos, cache, arch, capture_align)
     return logits, align[0]
+
+
+def mega_reference(mp: MegaParams, x: torch.Tensor, pos: int,
+                   cache: DecodeCache, arch: WhisperArch
+                   ) -> Tuple[torch.Tensor, torch.Tensor, DecodeCache]:
+    """K3's and K4's function with every rounding point in f32: the int8
+    weights as stored, the rows ``x`` (W, D), the residual and f32 copies
+    of the self cache, the kernels' tanh GELU. The yardstick that a kernel
+    and the plain version in bf16 are both measured against at depth,
+    where each drifts from it by its own bf16 rounding cascade. Returns
+    (logits (W, V), align (W, max(A, 1), T), the f32 cache it wrote)."""
+    ref = DecodeCache(cache.self_k.float(), cache.self_v.float(),
+                      cache.cross_k, cache.cross_v)
+    logits, align = _rows_plain(mp, x.float(), pos, ref, arch, True,
+                                gelu=_gelu_tanh)
+    return logits, align, ref
 
 
 def mega_verify_plain(mp: MegaParams, x: torch.Tensor, pos: int,
@@ -306,12 +335,99 @@ def _pointers(mp: MegaParams, cache: DecodeCache):
             ck.s.data_ptr(), cv.s.data_ptr())
 
 
+# The engine's partition (csrc/mega_common.cuh): rows of a matrix by block,
+# attention items by (head, chunk). MAX_CHUNK is the cross K/V rows that
+# fit one ring stage (16 rows of 1280 + 64 bytes, 64 bytes a row).
+MAX_CHUNK = 16 * (1280 + 64) // 64
+_PART = 68                  # floats of a chunk's partial: m, l, 2 unused, o
+# The self-attention's chunks hold at least this many slots: below it a
+# head's slots are one item, which writes its output without the combine
+# (at S = 68 the split over 132 blocks cost more in its combine than it
+# saved; H100 80GB HBM3, 700 W).
+SELF_MIN_CHUNK = 128
+
+
+def row_range(block: int, blocks: int, rows: int) -> Tuple[int, int]:
+    """Block ``block``'s rows of a ``rows``-row matrix, as the kernel splits
+    them (``row_lo``): contiguous, every row once, block sizes at most one
+    apart."""
+    return block * rows // blocks, (block + 1) * rows // blocks
+
+
+def attention_chunks(n: int, heads: int, blocks: int,
+                     min_len: int = 1) -> Tuple[int, int]:
+    """(chunk length, chunks a head) of the attention items over ``n``
+    keys: ``heads`` x chunks items, as many as ``blocks`` (one wave of
+    about equal items) where the keys allow, a chunk at least ``min_len``
+    and at most MAX_CHUNK keys."""
+    per_head = max(1, blocks // heads)
+    length = min(MAX_CHUNK, max(min_len, -(-n // per_head)))
+    return length, -(-n // length)
+
+
+def work_bytes(n_layers: int, w: int, d: int, f: int, h: int, sn: int,
+               cn: int, a: int, t: int) -> int:
+    """The kernels' scratch (``work_bytes`` of csrc/mega_common.cuh): the
+    counters each launch zeroes (the grid barrier's and the attention items
+    done of each layer and head), the qkv, attention and hidden rows in
+    bf16, the cross query, the self and cross chunks' partials and the
+    alignment heads' raw scores in f32."""
+    counters = -(-4 * (1 + 2 * n_layers * h) // 16) * 16
+    return (counters + 2 * w * (4 * d + f) + 4 * w * d
+            + 4 * _PART * w * h * (sn + cn) + 4 * max(a, 1) * t)
+
+
+_scratch = {}
+_sms = {}
+
+
+def _work(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` bytes of the kernels' scratch, kept for each (device, size):
+    launches on one stream do not overlap, so they can share it."""
+    key = (device.index or 0, n)
+    if key not in _scratch:
+        _scratch[key] = torch.empty(n, dtype=torch.uint8, device=device)
+    return _scratch[key]
+
+
+def _launch_plan(x: torch.Tensor, n_layers: int, w: int, pos: int, d: int,
+                 f: int, h: int, t: int, a: int):
+    """(chunks, scratch) of one launch: the self and cross chunking for the
+    card's SM count (one block an SM) and the scratch they need."""
+    key = x.device.index or 0
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sc, sn = attention_chunks(pos + w, h, _sms[key], SELF_MIN_CHUNK)
+    cc, cn = attention_chunks(t, h, _sms[key])
+    work = _work(x.device, work_bytes(n_layers, w, d, f, h, sn, cn, a, t))
+    return (sc, sn, cc, cn), work
+
+
+STAMPS = ("start", "arrive", "leave", "product", "ring_wait", "mma")
+
+
+def stamps_tensor(n_layers: int, device) -> torch.Tensor:
+    """A zeroed int64 (2, 8 L + 1, 6) tensor for a kernel's ``stamps``, for
+    block 0 (row 0) and the grid's last block (row 1), phase 8 l + i being
+    phase i of layer l and the last the final LayerNorm and the logits:
+    %globaltimer in ns at the phase's start, at its arrival at the grid
+    barrier that ends it, at its leaving and at the start of its matrix
+    product (0 where it has none), then the ns it waited for the ring's
+    weight stages and the ns warp 0 spent in the product's loops
+    (``STAMPS``)."""
+    return torch.zeros(2, 8 * n_layers + 1, len(STAMPS), dtype=torch.int64,
+                       device=device)
+
+
 def mega_step(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
-              arch: WhisperArch, capture_align: bool = True
+              arch: WhisperArch, capture_align: bool = True,
+              stamps: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's wrapper, the contract of :func:`mega_step_plain`. CPU tensors
     take the plain version; CUDA tensors one launch of csrc/mega_step.cu,
-    which raises on anything the kernel does not take."""
+    which raises on anything the kernel does not take. ``stamps`` (from
+    :func:`stamps_tensor`, CUDA only) records where the launch's time
+    goes."""
     global MEGA_LAUNCHES
     if x.device.type == "cpu":
         return mega_step_plain(mp, x, pos, cache, arch, capture_align)
@@ -319,30 +435,39 @@ def mega_step(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
     _check(x.shape[0] == 1, f"x of shape {tuple(x.shape)} (takes batch 1)")
     _check(0 <= pos < s_max, f"position {pos} outside the {s_max}-slot cache")
     n_align = mp.heads.shape[0]
+    chunks, work = _launch_plan(x, n_layers, 1, pos, d, f, n_heads, t, n_align)
     logits = torch.empty(1, v, device=x.device)
     align = torch.empty(max(1, n_align), t, device=x.device)
-    # Scratch: qkv (3D) | att (D) | hidden (F) in bf16, then cq (D) f32.
-    work = torch.empty(4 * d + f + 2 * d, dtype=torch.bfloat16,
-                       device=x.device)
     x = x.clone()                       # the residual stream, in place
     code = _build.lib().twt_mega_step(
         *_pointers(mp, cache), mp.heads.data_ptr(), x.data_ptr(),
-        work.data_ptr(), logits.data_ptr(), align.data_ptr(),
-        _build.grid_barrier(x.device).data_ptr(),
-        n_layers, d, f, n_heads, v, s_max, t, n_align, int(pos),
-        int(capture_align), x.device.index or 0,
-        _build.stream_handle(x.device))
+        work.data_ptr(), work.numel(), logits.data_ptr(), align.data_ptr(),
+        _stamps_ptr(stamps, n_layers, x), n_layers, d, f, n_heads, v, s_max,
+        t, n_align, int(pos), int(capture_align), *chunks,
+        x.device.index or 0, _build.stream_handle(x.device))
     _build.check(code, "twt_mega_step")
     MEGA_LAUNCHES += 1
     return logits, align
 
 
+def _stamps_ptr(stamps: Optional[torch.Tensor], n_layers: int,
+                x: torch.Tensor) -> int:
+    if stamps is None:
+        return 0
+    _check(stamps.dtype == torch.int64 and stamps.is_contiguous()
+           and stamps.device == x.device
+           and stamps.shape == (2, 8 * n_layers + 1, len(STAMPS)),
+           f"stamps {tuple(stamps.shape)} (takes stamps_tensor({n_layers}))")
+    return stamps.data_ptr()
+
+
 def mega_verify(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
-                arch: WhisperArch) -> torch.Tensor:
+                arch: WhisperArch, stamps: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """K4's wrapper, the contract of :func:`mega_verify_plain`. CPU tensors
     take the plain version; CUDA tensors one launch of csrc/mega_verify.cu,
     which raises on anything the kernel does not take (a window of 1 to
-    16 rows that fits the cache)."""
+    16 rows that fits the cache). ``stamps`` as for :func:`mega_step`."""
     global MEGA_VERIFY_LAUNCHES
     if x.device.type == "cpu":
         return mega_verify_plain(mp, x, pos, cache, arch)
@@ -351,16 +476,14 @@ def mega_verify(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
     _check(1 <= w <= MAX_WINDOW, f"window of {w} rows (takes 1..{MAX_WINDOW})")
     _check(0 <= pos and pos + w <= s_max,
            f"window at {pos}..{pos + w - 1} outside the {s_max}-slot cache")
+    chunks, work = _launch_plan(x, n_layers, w, pos, d, f, n_heads, t, 0)
     logits = torch.empty(w, v, device=x.device)
-    # Scratch: qkv (W, 3D) | att (W, D) | hidden (W, F) in bf16, then cq
-    # (W, D) f32.
-    work = torch.empty(w * (6 * d + f), dtype=torch.bfloat16, device=x.device)
     x = x.clone()                       # the residual stream, in place
     code = _build.lib().twt_mega_verify(
-        *_pointers(mp, cache), x.data_ptr(), work.data_ptr(),
-        logits.data_ptr(), _build.grid_barrier(x.device).data_ptr(),
-        n_layers, d, f, n_heads, v, s_max, t, w, int(pos),
-        x.device.index or 0, _build.stream_handle(x.device))
+        *_pointers(mp, cache), x.data_ptr(), work.data_ptr(), work.numel(),
+        logits.data_ptr(), _stamps_ptr(stamps, n_layers, x), n_layers, d, f, n_heads, v, s_max,
+        t, w, int(pos), *chunks, x.device.index or 0,
+        _build.stream_handle(x.device))
     _build.check(code, "twt_mega_verify")
     MEGA_VERIFY_LAUNCHES += 1
     return logits
