@@ -14,7 +14,9 @@ multiples of their attention chunks (chip_smoke.py holds them at large-v3
 width; ``python -m thewhisper_tpu_torch.tools.mega_mutants`` checks that
 these tests fail on broken copies of their engine). The
 probe kernels (P1-P5) at small sizes: the no-exp attention control at
-S = 1024 and 1536, the int8 MLP chain at d_model 256, d_ff 1024, the slot
+S = 512 (one block's query rows past S), 1024 and 1536 and at the probe's 20
+heads (``mega_mutants`` checks these tests too against broken copies of
+P1's kernel), the int8 MLP chain at d_model 256, d_ff 1024, the slot
 writes at the probes' own cache shapes.
 """
 
@@ -385,7 +387,8 @@ def _rel(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,s", [(1, 2, 1024), (2, 3, 1536)])
+@pytest.mark.parametrize("b,h,s", [(1, 2, 1024), (2, 3, 1536), (1, 1, 512),
+                                   (2, 20, 1536)])
 def test_attention_control_kernel_matches_plain(cuda_device, dtype, b, h, s):
     """P1 against its plain version, relative to the largest value (outputs
     reach the thousands): f32 1e-5 (the same f32 math, summed in another
@@ -403,6 +406,42 @@ def test_attention_control_kernel_matches_plain(cuda_device, dtype, b, h, s):
     assert _rel(out, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+def _control_case(device, dtype, b=1, h=20, s=1536, q_scale=1.0, seed=5):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, 64, generator=g) for _ in range(3))
+    return [t.to(device, dtype) for t in (q * q_scale, k, v)]
+
+
+def test_attention_control_kernel_bf16_rounds_p_as_plain(cuda_device):
+    """q scaled by 4: scores span hundreds and p rounds to bf16 with an
+    error of up to 2**-9 of its value. Kernel and plain version round the
+    same p at the same point, so the outputs differ only where a score
+    summed in another order rounds p (or the output) the other way: within
+    1e-2 of the largest value and, over the whole output, 5e-4 relative L2
+    (a p rounded toward zero instead of to nearest gives about 5e-3)."""
+    q, k, v = _control_case(cuda_device, torch.bfloat16, q_scale=4.0)
+    out = tac.attention_control(q, k, v).float()
+    ref = tac.attention_control_plain(q, k, v).float()
+    assert _rel(out, ref) < 1e-2
+    assert ((out - ref).norm() / ref.norm()).item() < 5e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_control_kernel_row_sums_match_plain(cuda_device, dtype):
+    """l, the row sum of the unrounded p, never reaches the output (every
+    p <= 0, so the division is by 1); read through ``row_sums`` it agrees
+    with the plain version's to f32 summation order, 1e-5 of its largest
+    magnitude (summing the bf16-rounded p instead moves it about 1e-4)."""
+    q, k, v = _control_case(cuda_device, dtype, b=2, h=4)
+    got = torch.empty(q.shape[:-1], device=cuda_device)
+    want = torch.empty_like(got)
+    tac.attention_control(q, k, v, row_sums=got)
+    tac.attention_control_plain(q, k, v, row_sums=want)
+    torch.cuda.synchronize()
+    assert want.max().item() <= 0
+    assert _rel(got, want) < 1e-5
+
+
 def test_attention_control_kernel_rejects_bad_input(cuda_device):
     x = torch.zeros(1, 2, 1000, 64, device=cuda_device)
     with pytest.raises(ValueError, match="512"):
@@ -410,6 +449,14 @@ def test_attention_control_kernel_rejects_bad_input(cuda_device):
     y = torch.zeros(1, 2, 512, 32, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tac.attention_control(y, y, y)
+    flat = torch.zeros(2 * 512 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 2, 512, 64)                      # base + 2 bytes
+    ok = torch.zeros(1, 2, 512, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tac.attention_control(shifted, ok, ok)
+    with pytest.raises(ValueError, match="row_sums"):
+        tac.attention_control(ok, ok, ok, row_sums=torch.zeros(1, 2, 512, device=cuda_device,
+                                                               dtype=torch.bfloat16))
 
 
 def _mlp_case(device, n_layers=2, d=256, f=1024, seed=0):

@@ -41,7 +41,7 @@ _SIGNATURES = {
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _P],
     "twt_mega_step": [_P] * 19 + [_L] + [_P] * 3 + [_I] * 15 + [_P],
     "twt_mega_verify": [_P] * 18 + [_L] + [_P] * 2 + [_I] * 14 + [_P],
-    "twt_attention_control": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "twt_attention_control": [_P] * 5 + [_I] * 6 + [_P],
     "twt_mlp_chain": [_P] * 12 + [_I] * 6 + [_P],
     "twt_strided_write": [_P, _P, _L, _L, _L, _I, _P],
 }

@@ -13,12 +13,20 @@ rescale of ``acc`` by the old ``m``); ``l += rowsum(p)`` in f32;
 max(l, 1)`` in q's type. The answer depends on the 512-key tiling, because
 ``m`` moves between tiles and earlier tiles are never corrected.
 
+Every p <= 0, so l <= 0 and the division is by 1: ``l`` never reaches the
+output. A caller that wants it (a test of the bookkeeping) passes
+``row_sums``, a (B, H, S) f32 tensor that receives each row's ``l``.
+
 Tensors are (B, H, S, dh) with dh = 64 and S a multiple of 512, as the
-probe's. On a CUDA tensor it launches ``csrc/attention_control.cu``; on a
-CPU tensor it runs :func:`attention_control_plain`.
+probe's. On a CUDA tensor it launches ``csrc/attention_control.cu`` (bf16 on
+the tensor cores through TMA and wgmma, which need 16-byte-aligned base
+pointers; f32 on the CUDA cores); on a CPU tensor it runs
+:func:`attention_control_plain`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,10 +40,11 @@ _DH = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def attention_control_plain(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
+def attention_control_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            row_sums: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The probe's ``control_kernel`` in plain torch, one 512-key tile at a
-    time. Returns (B, H, S, dh) in q's type."""
+    time. Returns (B, H, S, dh) in q's type; fills ``row_sums`` with l if
+    given."""
     qf = q.float()
     shape = q.shape[:-1] + (1,)
     m = torch.full(shape, -1e9, device=q.device)
@@ -49,19 +58,22 @@ def attention_control_plain(q: torch.Tensor, k: torch.Tensor,
         acc = acc + torch.matmul(p.to(v.dtype).float(),
                                  v[..., t0:t0 + TILE, :].float())
         m = m_new
+    if row_sums is not None:
+        row_sums.copy_(l[..., 0])
     return (acc / l.clamp_min(1.0)).to(q.dtype)
 
 
-def attention_control(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
+def attention_control(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      row_sums: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, H, S, 64) q, k, v -> (B, H, S, 64), the contract of
     :func:`attention_control_plain`. CPU tensors take the plain version;
     CUDA tensors launch the kernel, which raises on what it does not take:
     one shape and one type (f32 or bf16) for all three, contiguous, dh = 64,
-    S a multiple of 512."""
+    S a multiple of 512, bf16 base pointers 16-byte aligned; ``row_sums`` a
+    contiguous (B, H, S) f32 tensor on the same device."""
     global CONTROL_LAUNCHES
     if q.device.type == "cpu":
-        return attention_control_plain(q, k, v)
+        return attention_control_plain(q, k, v, row_sums)
     if q.device.type != "cuda":
         raise ValueError(f"attention_control: unsupported device {q.device}")
     if q.ndim != 4 or not (q.shape == k.shape == v.shape):
@@ -79,10 +91,19 @@ def attention_control(q: torch.Tensor, k: torch.Tensor,
                          f"the {TILE}-key tile")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("attention_control: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention_control: bf16 operands need 16-byte-aligned "
+                         "base pointers (TMA)")
+    if row_sums is not None and not (
+            row_sums.shape == q.shape[:-1] and row_sums.dtype == torch.float32
+            and row_sums.device == q.device and row_sums.is_contiguous()):
+        raise ValueError("attention_control: row_sums must be a contiguous "
+                         "(B, H, S) float32 tensor on q's device")
     out = torch.empty_like(q)
     code = _build.lib().twt_attention_control(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], b * h, s, dh, q.device.index or 0,
+        None if row_sums is None else row_sums.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, h, s, dh, q.device.index or 0,
         _build.stream_handle(q.device))
     _build.check(code, "twt_attention_control")
     CONTROL_LAUNCHES += 1

@@ -1,17 +1,24 @@
-"""Do the card checks of K3 and K4 see a fault in their engine? A mutation
-check: each mutant is a copy of the package with one deliberate fault in
-``csrc/mega_common.cuh``, built and put through the card tests of K3 and K4
-(``tests/test_torch_kernels.py -k mega``, the default) or through
-``chip_smoke.py``'s [K3] and [K4] phases at large-v3 width (``--check
-smoke``: the "S" model and pipeline, then both phases); every mutant must
-fail them and the unchanged copy must pass.
+"""Do the card checks of a kernel see a fault in it? A mutation check: each
+mutant is a copy of the package with one deliberate fault in one kernel
+source, built and put through that kernel's card tests
+(``tests/test_torch_kernels.py -k <its selection>``, the default) or through
+its ``chip_smoke.py`` phases (``--check smoke``); every mutant must fail
+them and the unchanged copy must pass the tests of every kernel chosen.
+
+Kernels (``--kernel``): ``mega``, the K3/K4 engine in
+``csrc/mega_common.cuh`` (tests ``-k mega``; smoke: the "S" model and
+pipeline at large-v3 width, then [K3] and [K4]), and ``control``, P1's
+tensor-core route in ``csrc/attention_control.cu`` (tests ``-k
+attention_control``; smoke: [P1]).
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
 the card's name and power limit and, for each copy, whether the tests
-failed and the first failing test. Needs a card and takes a few minutes:
+failed and the first failing test. Needs a card; the ten K3/K4 mutants take
+about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
+    python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
     python -m thewhisper_tpu_torch.tools.mega_mutants --only parity,causal
     python -m thewhisper_tpu_torch.tools.mega_mutants --check smoke
 """
@@ -32,12 +39,23 @@ from thewhisper_tpu_torch.tools import _card
 
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = ROOT / "thewhisper_tpu_torch"
-SOURCE = "csrc/mega_common.cuh"
 WORK = PACKAGE / "build" / "mutants"
 
-# (name, what the fault is, the text replaced, its replacement): each text
-# occurs once in the source.
-MUTANTS = (
+# chip_smoke.py's phases of each kernel and what they need, run in a copy.
+SMOKE_MEGA = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
+              "model, enc, _ = c.phase_s_path(); c.phase_mega(model, enc); "
+              "c.phase_verify(model, enc)")
+SMOKE_CONTROL = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
+                 "c.phase_control(smi)")
+# kernel -> (its source, the -k selection of its card tests, its smoke run).
+KERNELS = {
+    "mega": ("csrc/mega_common.cuh", "mega", SMOKE_MEGA),
+    "control": ("csrc/attention_control.cu", "attention_control", SMOKE_CONTROL),
+}
+
+# The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
+# its replacement); each text occurs once in the source.
+MEGA_MUTANTS = (
     ("rescale", "the combine does not rescale a chunk's partial by e^(m_c - M)",
      "const float e = expf(m[i] - bm);", "const float e = 1.0f;"),
     ("chunk-edge", "a cross-attention item drops the last row of its chunk",
@@ -63,10 +81,36 @@ MUTANTS = (
      "__float2bfloat16(xr + round_bf16(y))", "__float2bfloat16(xr + y)"),
 )
 
+# P1's tensor-core route.
+CONTROL_MUTANTS = (
+    ("m-reset", "m restarts from -1e9 at each 512-key tile",
+     "mn[i] = fmaxf(m[i], tmax[i]);", "mn[i] = fmaxf(-1e9f, tmax[i]);"),
+    ("max-128", "the tile's max is taken over its last 128 keys, not all 512",
+     "row_max(s, tmax);", "tmax[0] = tmax[1] = -INFINITY;\n    row_max(s, tmax);"),
+    ("l-round", "l sums p rounded to bf16",
+     "l[(j >> 1) & 1] += s[j];",
+     "l[(j >> 1) & 1] += __bfloat162float(__float2bfloat16(s[j]));"),
+    ("p-trunc", "p goes to the P V product truncated to bf16, not rounded to nearest",
+     "  to_bf16(s, p);\n",
+     "  for (int e = 0; e < 64; e += 2)\n"
+     "    p[e / 8][(e / 2) % 4] = (__float_as_uint(s[e]) >> 16) |\n"
+     "                            (__float_as_uint(s[e + 1]) & 0xFFFF0000u);\n"),
+    ("k-stage", "pass B reads each score product's K from the next stage",
+     "const uint32_t kb = sm.k(i0);", "const uint32_t kb = sm.k(i0 + 1);"),
+    ("row-down", "consumer 2 writes its rows one row down",
+     "const int row = q0 + wg * 64 + r0 + 8 * i;",
+     "const int row = q0 + wg * 64 + r0 + 8 * i + (wg == 2);"),
+)
 
-def make_copy(name: str, old: Optional[str], new: Optional[str]) -> Path:
+# (kernel, name, fault, old, new) for every mutant.
+MUTANTS = tuple(("mega",) + m for m in MEGA_MUTANTS) + tuple(
+    ("control",) + m for m in CONTROL_MUTANTS)
+
+
+def make_copy(name: str, source: Optional[str], old: Optional[str],
+              new: Optional[str]) -> Path:
     """A copy of the package (without its builds) and the tests under
-    WORK/name, with ``old`` replaced by ``new`` in SOURCE."""
+    WORK/name, with ``old`` replaced by ``new`` in ``source``."""
     dst = WORK / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(PACKAGE, dst / PACKAGE.name,
@@ -75,36 +119,36 @@ def make_copy(name: str, old: Optional[str], new: Optional[str]) -> Path:
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
     if old is not None:
-        src = dst / PACKAGE.name / SOURCE
+        src = dst / PACKAGE.name / source
         text = src.read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"mutant {name}: its text occurs {text.count(old)} "
-                               f"times in {SOURCE}")
+                               f"times in {source}")
         src.write_text(text.replace(old, new))
     return dst
 
 
-# chip_smoke.py's [K3] and [K4] phases and what they need, run in a copy.
-SMOKE = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
-         "model, enc, _ = c.phase_s_path(); c.phase_mega(model, enc); "
-         "c.phase_verify(model, enc)")
-
-
-def run_tests(copy: Path, timeout: int, check: str = "tests") -> dict:
-    """The card tests of K3 and K4 (or the smoke run's [K3] and [K4]
-    phases) on the copy's package (and the repo's other packages); a launch
-    that traps or hangs counts as a failure."""
+def run_check(copy: Path, timeout: int, check: str, kernels: List[str]) -> dict:
+    """The card tests (or the smoke run's phases) of ``kernels`` on the
+    copy's package (and the repo's other packages), one command after the
+    other until one fails; a launch that traps or hangs counts as a
+    failure."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT), os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
-    cmd = ([sys.executable, "-c", SMOKE] if check == "smoke" else
-           [sys.executable, "-m", "pytest", "tests/test_torch_kernels.py",
-            "--noconftest", "-q", "-x", "-k", "mega", "-p", "no:cacheprovider"])
-    try:
-        out = subprocess.run(cmd, cwd=copy, env=env, capture_output=True,
-                             text=True, timeout=timeout)
-        code, text = out.returncode, out.stdout + out.stderr
-    except subprocess.TimeoutExpired:
-        code, text = -1, "timeout"
+    code, text = 0, ""
+    for kernel in kernels:
+        _, select, smoke = KERNELS[kernel]
+        cmd = ([sys.executable, "-c", smoke] if check == "smoke" else
+               [sys.executable, "-m", "pytest", "tests/test_torch_kernels.py",
+                "--noconftest", "-q", "-x", "-k", select, "-p", "no:cacheprovider"])
+        try:
+            out = subprocess.run(cmd, cwd=copy, env=env, capture_output=True,
+                                 text=True, timeout=timeout)
+            code, text = out.returncode, out.stdout + out.stderr
+        except subprocess.TimeoutExpired:
+            code, text = -1, "timeout"
+        if code != 0:
+            break
     first = (re.search(r"FAILED (\S+)", text) or re.search(r"ERROR (\S+)", text)
              or re.search(r"Error: (chip_smoke: check failed: [^\n]*)", text)
              or re.search(r"(\w+Error: [^\n]*)", text))
@@ -115,26 +159,36 @@ def run_tests(copy: Path, timeout: int, check: str = "tests") -> dict:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("all", *KERNELS), default="all",
+                    help="whose mutants (default: all)")
     ap.add_argument("--only", default="",
                     help="comma-separated mutant names (default: all)")
     ap.add_argument("--check", choices=("tests", "smoke"), default="tests",
-                    help="the card tests, or chip_smoke.py's [K3] and [K4]")
+                    help="the card tests, or the kernel's chip_smoke.py phases")
     ap.add_argument("--timeout", type=int, default=300,
                     help="seconds for one copy's build and tests")
     args = ap.parse_args(argv)
     dev = _card.device("cuda")
     only = {n for n in args.only.split(",") if n}
-    runs = [("unchanged", "no fault", None, None)] + [
-        m for m in MUTANTS if not only or m[0] in only]
+    chosen = [m for m in MUTANTS if (args.kernel in ("all", m[0]))
+              and (not only or m[1] in only)]
+    kernels = sorted({m[0] for m in chosen}, key=list(KERNELS).index)
     results = []
-    for name, what, old, new in runs:
-        res = run_tests(make_copy(name, old, new), args.timeout, args.check)
-        results.append({"name": name, "fault": what, **res})
+    res = run_check(make_copy("unchanged", None, None, None), args.timeout,
+                    args.check, kernels)
+    results.append({"name": "unchanged", "fault": "no fault", **res})
+    print(f"[mutants] unchanged: {'failed' if res['failed'] else 'passed'}",
+          file=sys.stderr, flush=True)
+    for kernel, name, what, old, new in chosen:
+        res = run_check(make_copy(name, KERNELS[kernel][0], old, new), args.timeout,
+                        args.check, [kernel])
+        results.append({"name": name, "kernel": kernel, "fault": what, **res})
         print(f"[mutants] {name}: {'failed' if res['failed'] else 'passed'}"
               f" ({res['first_failure']})", file=sys.stderr, flush=True)
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"tool": "mega_mutants", "card": _card.card(dev),
-                      "source": f"thewhisper_tpu_torch/{SOURCE}", "check": args.check,
+                      "sources": [f"thewhisper_tpu_torch/{KERNELS[k][0]}" for k in kernels],
+                      "check": args.check,
                       "control_passed": not results[0]["failed"],
                       "mutants_failed": sum(r["failed"] for r in results[1:]),
                       "mutants": len(results) - 1, "runs": results}))
