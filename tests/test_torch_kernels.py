@@ -16,8 +16,10 @@ these tests fail on broken copies of their engine). The
 probe kernels (P1-P5) at small sizes: the no-exp attention control at
 S = 512 (one block's query rows past S), 1024 and 1536 and at the probe's 20
 heads (``mega_mutants`` checks these tests too against broken copies of
-P1's kernel), the int8 MLP chain at d_model 256, d_ff 1024, the slot
-writes at the probes' own cache shapes.
+P1's kernel), the int8 MLP chain at d_model 256, d_ff 1024 and at the
+probe's 1280 and 5120 (``mega_mutants --kernel mlp`` checks these against
+broken copies of P2/P3's kernel), the slot writes at the probes' own cache
+shapes.
 """
 
 import dataclasses
@@ -461,42 +463,107 @@ def test_attention_control_kernel_rejects_bad_input(cuda_device):
 
 def _mlp_case(device, n_layers=2, d=256, f=1024, seed=0):
     """The probe's operands, random LayerNorm parameters included (a kernel
-    that misreads one would pass with unit scales and zero shifts)."""
+    that misreads one would pass with unit scales and zero shifts), and
+    their pack for the kernel."""
     from thewhisper_tpu_torch.tools.gemv_chain_probe import make_inputs, operands
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     p = make_inputs(n_layers, d, f, g, torch.device("cpu"))
-    return p["x"].to(device), [t.to(device) for t in operands(p)]
+    ops = [t.to(device) for t in operands(p)]
+    return p["x"].to(device), ops, tmc.pack_mlp_weights(ops[6], ops[7])
 
 
-@pytest.mark.parametrize("n_layers", [1, 3])
-def test_mlp_chain_kernel_matches_plain(cuda_device, n_layers):
+def _check_mlp_chain(device, n_layers, d, f):
     """P2 against its plain version within 1e-2 of the largest value (the
     same bf16 rounding points, f32 sums in another order); P3 over every
-    layer in turn equals P2 bit for bit (the same partials summed in the same
-    order)."""
-    x, ops = _mlp_case(cuda_device, n_layers)
+    layer in turn equals P2 bit for bit (every block's rows and sum order
+    are independent of the layer range); a second launch gives the same
+    bits."""
+    x, ops, packed = _mlp_case(device, n_layers, d, f)
     before = tmc.MLP_CHAIN_LAUNCHES, tmc.MLP_LAYER_LAUNCHES
-    chain = tmc.mlp_chain(x, *ops)
+    chain = tmc.mlp_chain(x, *ops, packed=packed)
     y = x
     for l in range(n_layers):
-        y = tmc.mlp_layer(y, l, *ops)
+        y = tmc.mlp_layer(y, l, *ops, packed=packed)
     torch.cuda.synchronize()
     assert (tmc.MLP_CHAIN_LAUNCHES, tmc.MLP_LAYER_LAUNCHES) == (
         before[0] + 1, before[1] + n_layers)
     assert chain.shape == x.shape and chain.dtype == torch.bfloat16
     assert _rel(chain, tmc.mlp_chain_plain(x, *ops)) < 1e-2
     assert torch.equal(y, chain)
-    assert torch.equal(tmc.mlp_chain(x, *ops), chain)       # deterministic
+    assert torch.equal(tmc.mlp_chain(x, *ops, packed=packed), chain)  # deterministic
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+def test_mlp_chain_kernel_matches_plain(cuda_device, n_layers):
+    _check_mlp_chain(cuda_device, n_layers, 256, 1024)
+
+
+def test_mlp_chain_kernel_matches_plain_at_probe_widths(cuda_device):
+    """L = 2 at d_model 1280, d_ff 5120: fc2's 1280 rows over the card's
+    132 blocks leave each a tile of 9 or 10 rows."""
+    _check_mlp_chain(cuda_device, 2, 1280, 5120)
+
+
+def test_mlp_chain_kernel_last_layer_alone(cuda_device):
+    """P3 over the last layer alone (l0 = L - 1) against its plain layer,
+    and bit for bit against P2 over a one-layer stack of that layer."""
+    x, ops, packed = _mlp_case(cuda_device, 3, seed=4)
+    got = tmc.mlp_layer(x, 2, *ops, packed=packed)
+    last = [t[2:] for t in ops]
+    alone = tmc.mlp_chain(x, *last, packed=tmc.pack_mlp_weights(last[6], last[7]))
+    torch.cuda.synchronize()
+    assert _rel(got, tmc.mlp_layer_plain(x, 2, *ops)) < 1e-2
+    assert torch.equal(got, alone)
+
+
+def _mlp_plain_without(x, ops, rounding):
+    """The plain layer 0 with one of its bf16 roundings left out: of GELU's
+    input ("gelu") or of y before the residual ("residual")."""
+    ln_s, ln_b, s1, b1, s2, b2, w1, w2 = ops
+    q = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], ln_s[0], ln_b[0],
+                                       1e-5).to(x.dtype)
+    h = torch.matmul(q.float(), w1[0].float()) * s1[0] + b1[0]
+    h = torch.nn.functional.gelu(h if rounding == "gelu" else h.to(x.dtype),
+                                 approximate="tanh").to(x.dtype)
+    y = torch.matmul(h.float(), w2[0].float()) * s2[0] + b2[0]
+    return (x.float() + (y if rounding == "residual" else y.to(x.dtype).float())).to(x.dtype)
+
+
+@pytest.mark.parametrize("rounding", ["gelu", "residual"])
+def test_mlp_chain_kernel_rounds_as_plain(cuda_device, rounding):
+    """The kernel rounds where the plain version does: at L = 1 and the
+    probe's widths its relative L2 distance from the plain version is at
+    most half that of the plain version with one rounding left out (the
+    CPU emulation of the kernel's order: 2e-4 or less against about 3e-3,
+    tests/test_torch_mlp_schedule.py)."""
+    x, ops, packed = _mlp_case(cuda_device, 1, 1280, 5120, seed=21)
+    plain = tmc.mlp_chain_plain(x, *ops)
+    got = tmc.mlp_chain(x, *ops, packed=packed)
+    torch.cuda.synchronize()
+
+    def l2(a):
+        return ((a.float() - plain.float()).norm() / plain.float().norm()).item()
+
+    assert l2(got) <= 0.5 * l2(_mlp_plain_without(x, ops, rounding))
 
 
 def test_mlp_chain_kernel_rejects_bad_input(cuda_device):
-    x, ops = _mlp_case(cuda_device, 1, d=192, f=512)
+    x, ops, packed = _mlp_case(cuda_device, 1, d=192, f=512)
     with pytest.raises(ValueError, match="multiples"):
-        tmc.mlp_chain(x, *ops)
-    x, ops = _mlp_case(cuda_device, 2)
+        tmc.mlp_chain(x, *ops, packed=packed)
+    x, ops, packed = _mlp_case(cuda_device, 2)
     with pytest.raises(ValueError, match="outside"):
-        tmc.mlp_layer(x, 2, *ops)
+        tmc.mlp_layer(x, 2, *ops, packed=packed)
+    # The kernel reads the packed weights only: a call without them, or
+    # with a pack of other weights (other shapes, or the same shapes in
+    # other storage), is refused.
+    with pytest.raises(ValueError, match="pack_mlp_weights"):
+        tmc.mlp_chain(x, *ops)
+    with pytest.raises(ValueError, match="stale"):
+        tmc.mlp_chain(x, *ops, packed=_mlp_case(cuda_device, 3)[2])
+    with pytest.raises(ValueError, match="stale"):
+        tmc.mlp_layer(x, 0, *ops, packed=_mlp_case(cuda_device, 2, seed=1)[2])
 
 
 @pytest.mark.parametrize("shape,pos", [((448, 1280), 13), ((32, 448, 1280), 14335),

@@ -1,9 +1,8 @@
-// What K3 (mega_step.cu) and K4 (mega_verify.cu) share: bf16 and int8
-// unpacking, warp reductions, the bf16 residual add and tanh GELU, and the
-// decode engine both launch (below). P2/P3 (mlp_chain.cu) use the first
-// part too: the 512-thread block reductions and the first grid barrier.
-// Each including source gets its own copy (an unnamed namespace), so they
-// link into one library.
+// What K3 (mega_step.cu), K4 (mega_verify.cu) and P2/P3 (mlp_chain.cu)
+// share: bf16 and int8 unpacking, warp reductions, tanh GELU, and the
+// decode engine (below): its TMA weight ring, LayerNorm, loads, products,
+// epilogues, grid barrier and launch. Each including source gets its own
+// copy (an unnamed namespace), so they link into one library.
 
 #pragma once
 
@@ -15,8 +14,6 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kDh = 64;
 constexpr float kScale = 0.125f;  // 64 ** -0.5, exact
 constexpr unsigned kFull = 0xffffffffu;
@@ -26,10 +23,6 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float bf16_lo(unsigned int u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned int u) { return __uint_as_float(u & 0xffff0000u); }
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
-// Signed byte i of w as a float.
-__device__ __forceinline__ float s8(unsigned int w, int i) {
-  return static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
-}
 // A value another block wrote in this launch: from L2, never a stale L1 line.
 __device__ __forceinline__ float load_shared_bf16(const bf16* p) {
   return __uint_as_float(static_cast<unsigned int>(__ldcg(reinterpret_cast<const unsigned short*>(p)))
@@ -46,55 +39,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
-}
-
-// Sum (or max) over the block, returned to every thread. `red` holds kWarps floats.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += red[w];
-  return t;
-}
-
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t = fmaxf(t, red[w]);
-  return t;
-}
-
-// Every block of the grid arrives before any leaves; writes made before
-// the barrier are visible after it. bar[0] counts arrivals, bar[1] is the
-// generation; the last block to arrive resets the count and bumps it.
-__device__ void grid_sync(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// x[r] += bf16(y), rounded to bf16 (the residual add of the plain version).
-__device__ __forceinline__ void residual(bf16* x, int r, float y) {
-  x[r] = __float2bfloat16(load_shared_bf16(x + r) + round_bf16(y));
 }
 
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -1089,41 +1033,50 @@ int device_info(int device, int* sms, int* smem_limit) {
   return 0;
 }
 
-// One cooperative launch of mega_kernel<NT> on every SM: the ring as deep
-// as the shared memory left beside act allows (at most kMaxStages), the
-// kernel opened to that much shared memory once a device, the counters
-// zeroed on the stream first.
-template <int NT>
-int launch(Args p, size_t work_size, int device, cudaStream_t stream) {
+// One cooperative launch of a ring kernel (`args`, which point at p among
+// others) on every SM, for K3/K4 and P2/P3 alike: the ring as deep as the
+// shared memory left beside the layout's fixed part (NT product columns, W
+// rows of `pitch`, the attention chunks sc and cc) allows, at least 2 and
+// at most kMaxStages stages, into p.stages; the kernel opened to that much
+// shared memory once a device (`opened`, one array a kernel); `counters`
+// bytes at p.bar zeroed on the stream first.
+inline int ring_launch(const void* kernel, size_t* opened, Args& p, int NT, void** args,
+                       size_t counters, int device, cudaStream_t stream) {
   int sms = 0, limit = 0;
   int code = device_info(device, &sms, &limit);
   if (code) return code;
-  if (p.sc < 1 || p.sc > kMaxChunk || static_cast<long long>(p.sc) * p.sn < p.pos + p.W ||
-      p.cc < 1 || p.cc > kMaxChunk || static_cast<long long>(p.cc) * p.cn < p.T ||
-      work_size < work_bytes(p.L, p.W, p.D, p.F, p.H, p.sn, p.cn, p.A, p.T))
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.pitch = (p.D > p.F ? p.D : p.F) + 8;
   const size_t fixed = layout(NT, p.W, p.pitch, p.sc, p.cc, 0).total;
   if (fixed + 2 * static_cast<size_t>(kStageBytes) > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
   p.stages = static_cast<int>((limit - fixed) / kStageBytes);
   if (p.stages > kMaxStages) p.stages = kMaxStages;
   const size_t smem = layout(NT, p.W, p.pitch, p.sc, p.cc, p.stages).total;
-  static size_t opened[64];
   cudaError_t err;
   if (opened[device] < smem) {
-    err = cudaFuncSetAttribute(mega_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opened[device] = smem;
   }
-  err = cudaMemsetAsync(p.bar, 0, counter_bytes(p.L, p.H), stream);
+  err = cudaMemsetAsync(p.bar, 0, counters, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(mega_kernel<NT>), dim3(sms),
-                                    dim3(kBlockThreads), args, smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(sms), dim3(kBlockThreads), args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3/K4: one launch of mega_kernel<NT>.
+template <int NT>
+int launch(Args p, size_t work_size, int device, cudaStream_t stream) {
+  if (p.sc < 1 || p.sc > kMaxChunk || static_cast<long long>(p.sc) * p.sn < p.pos + p.W ||
+      p.cc < 1 || p.cc > kMaxChunk || static_cast<long long>(p.cc) * p.cn < p.T ||
+      work_size < work_bytes(p.L, p.W, p.D, p.F, p.H, p.sn, p.cn, p.A, p.T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.pitch = (p.D > p.F ? p.D : p.F) + 8;
+  static size_t opened[64];
+  void* args[] = {&p};
+  return ring_launch(reinterpret_cast<const void*>(mega_kernel<NT>), opened, p, NT, args,
+                     counter_bytes(p.L, p.H), device, stream);
 }
 
 // The operands both entry points share, carved out of `work` as work_bytes

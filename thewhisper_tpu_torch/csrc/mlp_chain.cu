@@ -8,198 +8,167 @@
 //   h = bf16(gelu_tanh(bf16((q_in @ W1[l]) * s1[l] + b1[l])));
 //   y = (h @ W2[l]) * s2[l] + b2[l];
 //   x = bf16(x + bf16(y));
-// every product over int8 weights widened to the activation's values, summed
-// in f32. P2 is one launch over [0, L); P3 one launch over [l, l + 1).
+// every product over int8 weights widened exactly, summed in f32. P2 is one
+// launch over [0, L); P3 one launch over [l, l + 1).
 //
 // Bound on the H100: device memory. A layer reads 2 D F int8 weight bytes:
 // 13.1 MB at D 1280, F 5120, and 419.4 MB over 32 layers, 0.125 ms at
 // 3.35 TB/s. Its 4 D F operations are two a byte, far below every compute
-// rate. The second bound is the chain of dependent phases: four grid-wide
-// barriers a layer.
+// rate. The second bound is the chain of dependent phases.
 //
-// Design (simple first): one cooperative launch of one 512-thread block on
-// every SM, with K3's hand-written grid barrier (mega_common.cuh). The
-// weights are read as the probe stores them, (L, in, out) int8: a warp
-// covers 128 output columns, lane j the four bytes 4j .. 4j + 3 of a row,
-// so neighbouring lanes read neighbouring bytes and a warp reads 128 bytes
-// a row. A block item is (128 columns, 128 rows of the contraction); each of
-// its 16 warps sums 8 rows, the block adds the warps' sums in warp order in
-// shared memory and writes one partial a column. After a barrier, one thread
-// a column adds that column's partials in row order and applies the scale,
-// the bias and GELU or the residual. No float atomics: a run is
-// deterministic, and a layer gives the same bits inside the chain and
-// alone. Every block recomputes the LayerNorm of x rather than paying a
-// barrier for it.
+// Design: a second client of the decode engine (mega_common.cuh), which
+// already computes this function in K3's phases 7 and 8, its pieces used
+// unchanged. The weights come packed once by the wrapper into (L, out, in)
+// layout (ops/mlp_chain.py::pack_mlp_weights), so each block owns whole
+// output rows of both matrices: no partial sums and no column-sum pass, two
+// grid barriers a layer (after fc1 + GELU, after fc2). One cooperative
+// launch of one block an SM: the engine's producer warp streams the block's
+// rows of W1[l] and W2[l], layer after layer, through the TMA ring (it takes
+// no part in the barriers, so it runs ahead across them), and 16 consumer
+// warps run the engine's LayerNorm, loads, tensor-core product, epilogues
+// and grid barrier. At each layer the producer also asks L2 for the layer's
+// LayerNorm parameters and its block's scales and biases, about a layer
+// before the consumers read them: otherwise each such read came from device
+// memory on the phase's critical path (P2 0.4754 ms without, 0.4260 with,
+// H100 80GB HBM3, 700 W).
+//
+// A product of one warp an output row (no shared partials, no consumer
+// barrier a tile) measured slower than the engine's: 0.5333 against 0.4781
+// ms, its loops 2.3 and 2.9 us a layer's fc1 and fc2 against 1.1 and 1.7
+// (same card): every warp unpacks the row's bytes and the activations on
+// the CUDA cores, where the tensor cores take 16 rows at once.
+//
+// Every block's rows (row_lo) and every sum's order are independent of the
+// layer range, so L launches of P3 give P2's bits exactly; no float
+// atomics, so a run is deterministic.
 
 #include "mega_common.cuh"
 
+using namespace engine;
+
 namespace {
 
-constexpr int kCols = 128;                       // output columns an item, 4 a lane
-constexpr int kRowsPerWarp = 8;
-constexpr int kChunkRows = kWarps * kRowsPerWarp;  // contraction rows an item
-
-struct Args {
-  bf16* x;                      // (D) residual stream, updated in place
-  const float *ln_s, *ln_b;     // (L, D)
-  const float *s1, *b1;         // (L, F)
-  const float *s2, *b2;         // (L, D)
-  const int8_t *w1, *w2;        // (L, D, F), (L, F, D)
-  bf16* h;                      // (F) scratch: the GELU output
-  float* part;                  // (D F / kChunkRows) scratch: partial sums
-  unsigned int* bar;            // (2) grid barrier
-  int D, F, l0, l1;
+// What the chain reads beside the engine's Args, for layers [l0, l1).
+struct Chain {
+  const int8_t *w1t, *w2t;                   // (L, F, D), (L, D, F) int8, packed
+  const float *ln_s, *ln_b, *s2, *b2;        // (L, D)
+  const float *s1, *b1;                      // (L, F)
+  int l0, l1;
 };
 
-// act = bf16(LayerNorm(x) * g + b): K3's LayerNorm, x read from L2.
-__device__ void layer_norm(const bf16* x, const float* g, const float* b, int D, bf16* act,
-                           float* xf, float* red) {
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float v = load_shared_bf16(x + i);
-    xf[i] = v;
-    s += v;
+// n floats from p on into L2 (the 16-byte-aligned span around them), no wait.
+__device__ __forceinline__ void prefetch_l2(const float* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(15);
+  const uintptr_t e = (reinterpret_cast<uintptr_t>(p + n) + 15) & ~static_cast<uintptr_t>(15);
+  if (e > a)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a),
+                 "r"(static_cast<uint32_t>(e - a))
+                 : "memory");
+}
+
+__global__ void __launch_bounds__(kBlockThreads, 1) mlp_chain_kernel(Args p, Chain c) {
+  extern __shared__ __align__(128) unsigned char mlp_smem[];
+  unsigned char* smem = mlp_smem;
+  const Layout s = layout(1, 1, p.pitch, 0, 0, p.stages);
+  Ring ring{smem + s.ring, smem_addr(smem), smem_addr(smem + 8 * kMaxStages), p.stages, 0,
+            nullptr};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(ring.full + 8 * i, 1);
+      mbar_init(ring.empty + 8 * i, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  const float mean = block_sum(s, red) / D;
-  float s2 = 0.0f;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float d = xf[i] - mean;
-    s2 = fmaf(d, d, s2);
-  }
-  const float rstd = rsqrtf(block_sum(s2, red) / D + 1e-5f);
-  for (int i = threadIdx.x; i < D; i += kThreads)
-    act[i] = __float2bfloat16((xf[i] - mean) * rstd * g[i] + b[i]);
   __syncthreads();
-}
-
-// part[chunk * N + n] = sum over the chunk's kChunkRows rows k of act[k] W[k, n],
-// for the (K, N) int8 row-major W; items go round robin over the blocks.
-__device__ void partials(const int8_t* W, int K, int N, const bf16* act, float* red,
-                         float* part) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = N / kCols, items = groups * (K / kChunkRows);
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int g = item % groups, chunk = item / groups;
-    const int k0 = chunk * kChunkRows + warp * kRowsPerWarp;
-    const unsigned int* w =
-        reinterpret_cast<const unsigned int*>(W + static_cast<size_t>(k0) * N + g * kCols) + lane;
-    unsigned int wr[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) wr[i] = __ldcs(w + static_cast<size_t>(i) * (N / 4));
-    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float x = __bfloat162float(act[k0 + i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = fmaf(s8(wr[i], j), x, a[j]);
-    }
-    reinterpret_cast<float4*>(red)[warp * (kCols / 4) + lane] = make_float4(a[0], a[1], a[2], a[3]);
-    __syncthreads();
-    if (threadIdx.x < kCols) {
-      float s = 0.0f;
-#pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi) s += red[wi * kCols + threadIdx.x];
-      part[static_cast<size_t>(chunk) * N + g * kCols + threadIdx.x] = s;
-    }
-    __syncthreads();
-  }
-}
-
-// The column n's partials of the last product, added in row-chunk order.
-__device__ __forceinline__ float column_sum(const float* part, int chunks, int N, int n) {
-  float s = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < chunks; ++c) s += __ldcg(part + static_cast<size_t>(c) * N + n);
-  return s;
-}
-
-// Shared memory: act (bf16, max(D, F)) | red (kWarps x kCols) | xf (D) | rs (kWarps).
-__host__ __device__ inline size_t smem_bytes(int D, int F) {
-  return 2 * static_cast<size_t>(D > F ? D : F) + 4 * static_cast<size_t>(kWarps * kCols + D + kWarps);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) mlp_chain_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
   const int D = p.D, F = p.F;
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + 2 * static_cast<size_t>(D > F ? D : F));
-  float* xf = red + kWarps * kCols;
-  float* rs = xf + D;
-  const int tid = blockIdx.x * kThreads + threadIdx.x, nthreads = gridDim.x * kThreads;
-
-  for (int l = p.l0; l < p.l1; ++l) {
-    const size_t df = static_cast<size_t>(D) * F;
-    const float *s1 = p.s1 + static_cast<size_t>(l) * F, *b1 = p.b1 + static_cast<size_t>(l) * F;
-    const float *s2 = p.s2 + static_cast<size_t>(l) * D, *b2 = p.b2 + static_cast<size_t>(l) * D;
-    // fc1 over LN(x).
-    layer_norm(p.x, p.ln_s + static_cast<size_t>(l) * D, p.ln_b + static_cast<size_t>(l) * D, D,
-               act, xf, rs);
-    partials(p.w1 + l * df, D, F, act, red, p.part);
-    grid_sync(p.bar);
-    for (int n = tid; n < F; n += nthreads)
-      p.h[n] = __float2bfloat16(
-          gelu_tanh(round_bf16(fmaf(column_sum(p.part, D / kChunkRows, F, n), s1[n], b1[n]))));
-    grid_sync(p.bar);
-    // fc2 over h, into the residual.
-    const uint4* hv = reinterpret_cast<const uint4*>(p.h);
-    for (int i = threadIdx.x; i < F / 8; i += kThreads) reinterpret_cast<uint4*>(act)[i] = __ldcg(hv + i);
-    __syncthreads();
-    partials(p.w2 + l * df, F, D, act, red, p.part);
-    grid_sync(p.bar);
-    for (int n = tid; n < D; n += nthreads)
-      residual(p.x, n, fmaf(column_sum(p.part, F / kChunkRows, D, n), s2[n], b2[n]));
-    if (l + 1 < p.l1) grid_sync(p.bar);
+  const size_t df = static_cast<size_t>(D) * F;
+  if (threadIdx.x >= kConsumers) {
+    // The producer: for each layer, the small vectors into L2, then the
+    // block's rows of W1[l] and of W2[l] into the ring.
+    Producer pr{ring, static_cast<int>(threadIdx.x & 31)};
+    const int f0 = row_lo(blockIdx.x, F), f1 = row_lo(blockIdx.x + 1, F);
+    const int d0 = row_lo(blockIdx.x, D), d1 = row_lo(blockIdx.x + 1, D);
+    for (int l = c.l0; l < c.l1; ++l) {
+      if (pr.lane == 0) {
+        prefetch_l2(c.ln_s + l * D, D);
+        prefetch_l2(c.ln_b + l * D, D);
+        prefetch_l2(c.s1 + l * F + f0, f1 - f0);
+        prefetch_l2(c.b1 + l * F + f0, f1 - f0);
+        prefetch_l2(c.s2 + l * D + d0, d1 - d0);
+        prefetch_l2(c.b2 + l * D + d0, d1 - d0);
+      }
+      pr.tiles(c.w1t + l * df, F, D);
+      pr.tiles(c.w2t + l * df, D, F);
+    }
+    return;
   }
+
+  float* red = reinterpret_cast<float*>(smem + s.red);
+  float* stats = reinterpret_cast<float*>(smem + s.stats);
+  Clock* clock = reinterpret_cast<Clock*>(stats + 2 * kMaxW + 2);  // 8-byte aligned
+  if (p.stamps) {
+    if (threadIdx.x == 0) clock->gemm = clock->waited = clock->mma = 0;
+    ring.clock = clock;
+  }
+  float* wred = reinterpret_cast<float*>(smem + s.wred);
+  bf16* act = reinterpret_cast<bf16*>(smem + s.act);
+  int rbuf = 0;
+  unsigned int target = 0;
+  stamp(p.stamps, p.phases, 0, kStart);
+  for (int l = c.l0; l < c.l1; ++l) {
+    const int k = 2 * (l - c.l0);     // the layer's fc1 phase; k + 1 its fc2
+    ln_rows(p, c.ln_s + l * D, c.ln_b + l * D, act, stats, wred);
+    gemm<1>(p, ring, F, D, act, red, rbuf, {c.s1 + l * F, c.b1 + l * F, nullptr, nullptr}, kGelu,
+            l);
+    grid_barrier(p, target, k, ring.clock);
+    load_rows(p, p.hid, F, act);
+    gemm<1>(p, ring, D, F, act, red, rbuf, {c.s2 + l * D, c.b2 + l * D, nullptr, p.x}, kResidual,
+            l);
+    if (l + 1 < c.l1) grid_barrier(p, target, k + 1, ring.clock);
+  }
+  stamp(p.stamps, p.phases, p.phases - 1, kArrive);
+  stamp(p.stamps, p.phases, p.phases - 1, kLeave);
+  stamp_clock(p, ring.clock, p.phases - 1);
 }
 
 }  // namespace
 
-// Device pointers of contiguous tensors (shapes in Args); x (D) bf16 is
-// updated in place; h holds F bf16, part D F / 128 floats. Needs D and F
-// multiples of 128 and 0 <= l0 < l1 <= L. Returns the CUDA error of the
-// launch (cudaErrorInvalidValue for shapes it does not take,
-// cudaErrorCooperativeLaunchTooLarge if not one block fits an SM).
+// Device pointers of contiguous tensors (shapes in Chain); x (D) bf16 is
+// updated in place; `work` holds 16 + 2 F bytes (the grid barrier's
+// counter, zeroed by the launch, then h); `stamps` null or (2, 2 (l1 - l0),
+// kStamps) u64, phase 2 i the fc1 phase of layer l0 + i and 2 i + 1 its
+// fc2. Needs D and F multiples of 128 and 0 <= l0 < l1 <= L. Returns the
+// CUDA error of the launch (cudaErrorInvalidValue for shapes it does not
+// take).
 extern "C" int twt_mlp_chain(void* x, const void* ln_s, const void* ln_b, const void* s1,
-                             const void* b1, const void* s2, const void* b2, const void* w1,
-                             const void* w2, void* h, void* part, void* barrier, int L, int D,
-                             int F, int l0, int l1, int device, void* stream) {
-  if (D < kCols || F < kCols || D % kCols || F % kCols || l0 < 0 || l0 >= l1 || l1 > L)
+                             const void* b1, const void* s2, const void* b2, const void* w1t,
+                             const void* w2t, void* work, void* stamps, int L, int D, int F,
+                             int l0, int l1, int device, void* stream) {
+  if (D < 128 || F < 128 || D % 128 || F % 128 || l0 < 0 || l0 >= l1 || l1 > L)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  Args p;
+  Args p = {};
+  p.D = D; p.F = F; p.W = 1;
+  p.pitch = (D > F ? D : F) + 8;
   p.x = static_cast<bf16*>(x);
-  p.ln_s = static_cast<const float*>(ln_s);
-  p.ln_b = static_cast<const float*>(ln_b);
-  p.s1 = static_cast<const float*>(s1);
-  p.b1 = static_cast<const float*>(b1);
-  p.s2 = static_cast<const float*>(s2);
-  p.b2 = static_cast<const float*>(b2);
-  p.w1 = static_cast<const int8_t*>(w1);
-  p.w2 = static_cast<const int8_t*>(w2);
-  p.h = static_cast<bf16*>(h);
-  p.part = static_cast<float*>(part);
-  p.bar = static_cast<unsigned int*>(barrier);
-  p.D = D; p.F = F; p.l0 = l0; p.l1 = l1;
-
-  const size_t smem = smem_bytes(D, F);
-  err = cudaFuncSetAttribute(mlp_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_chain_kernel, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // A fresh barrier for every launch, as K3's.
-  err = cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(mlp_chain_kernel), dim3(sms),
-                                    dim3(kThreads), args, smem, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  p.bar = static_cast<unsigned int*>(work);
+  p.hid = reinterpret_cast<bf16*>(static_cast<unsigned char*>(work) + 16);
+  p.stamps = static_cast<unsigned long long*>(stamps);
+  p.phases = 2 * (l1 - l0);
+  Chain c;
+  c.w1t = static_cast<const int8_t*>(w1t);
+  c.w2t = static_cast<const int8_t*>(w2t);
+  c.ln_s = static_cast<const float*>(ln_s);
+  c.ln_b = static_cast<const float*>(ln_b);
+  c.s1 = static_cast<const float*>(s1);
+  c.b1 = static_cast<const float*>(b1);
+  c.s2 = static_cast<const float*>(s2);
+  c.b2 = static_cast<const float*>(b2);
+  c.l0 = l0;
+  c.l1 = l1;
+  static size_t opened[64];
+  void* args[] = {&p, &c};
+  return ring_launch(reinterpret_cast<const void*>(mlp_chain_kernel), opened, p, 1, args, 16,
+                     device, static_cast<cudaStream_t>(stream));
 }

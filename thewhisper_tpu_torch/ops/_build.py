@@ -42,7 +42,7 @@ _SIGNATURES = {
     "twt_mega_step": [_P] * 19 + [_L] + [_P] * 3 + [_I] * 15 + [_P],
     "twt_mega_verify": [_P] * 18 + [_L] + [_P] * 2 + [_I] * 14 + [_P],
     "twt_attention_control": [_P] * 5 + [_I] * 6 + [_P],
-    "twt_mlp_chain": [_P] * 12 + [_I] * 6 + [_P],
+    "twt_mlp_chain": [_P] * 11 + [_I] * 6 + [_P],
     "twt_strided_write": [_P, _P, _L, _L, _L, _I, _P],
 }
 
@@ -136,18 +136,3 @@ def stream_handle(device) -> int:
 
     return torch.cuda.current_stream(device).cuda_stream
 
-
-_barriers = {}
-
-
-def grid_barrier(device):
-    """The (count, generation) pair of the grid barrier that P2/P3's
-    cooperative launch uses on ``device`` (K3 and K4 keep theirs in their
-    scratch). Every launch zeroes it on its stream first; launches share
-    it, so they must not overlap (one stream orders them)."""
-    import torch
-
-    key = device.index or 0
-    if key not in _barriers:
-        _barriers[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _barriers[key]

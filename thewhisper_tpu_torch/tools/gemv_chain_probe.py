@@ -16,6 +16,9 @@ the H100's 3.35 TB/s. Arms:
 - ``layer`` (``--hybrid``): P3, one launch a layer
   (``ops/mlp_chain.py::mlp_layer``), L launches a chain.
 
+The kernels stream the weights in (L, out, in) layout: the probe packs
+them once (``pack_mlp_weights``) before any arm runs.
+
 Times are CUDA events with the card's name and power limit, two ways:
 ``ms``, eager chains, the mean of ``--reps`` after a warm-up (what a
 caller pays: L launches of ``layer`` wait on the host's wrapper); and
@@ -138,14 +141,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p = make_inputs(n_layers, d, f, gen, dev)
     ops = operands(p)
     layers = plain_layers(p)
+    packed = mc.pack_mlp_weights(p["w1"], p["w2"])
 
     arms = {"plain": lambda: plain_chain(p["x"], layers),
-            "chain": lambda: mc.mlp_chain(p["x"], *ops)}
+            "chain": lambda: mc.mlp_chain(p["x"], *ops, packed=packed)}
     if args.hybrid:
         def by_layer():
             x = p["x"]
             for l in range(n_layers):
-                x = mc.mlp_layer(x, l, *ops)
+                x = mc.mlp_layer(x, l, *ops, packed=packed)
             return x
         arms["layer"] = by_layer
 

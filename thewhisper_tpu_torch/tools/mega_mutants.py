@@ -7,18 +7,23 @@ them and the unchanged copy must pass the tests of every kernel chosen.
 
 Kernels (``--kernel``): ``mega``, the K3/K4 engine in
 ``csrc/mega_common.cuh`` (tests ``-k mega``; smoke: the "S" model and
-pipeline at large-v3 width, then [K3] and [K4]), and ``control``, P1's
+pipeline at large-v3 width, then [K3] and [K4]); ``control``, P1's
 tensor-core route in ``csrc/attention_control.cu`` (tests ``-k
-attention_control``; smoke: [P1]).
+attention_control``; smoke: [P1]); and ``mlp``, P2/P3 in
+``csrc/mlp_chain.cu`` (tests ``-k mlp_chain``; smoke: [P2]/[P3]), three of
+whose mutants change the engine's product and epilogues in
+``csrc/mega_common.cuh``, which P2/P3 run.
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
 the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
-about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2:
+about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
+the seven P2/P3 mutants about 2:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
+    python -m thewhisper_tpu_torch.tools.mega_mutants --kernel mlp
     python -m thewhisper_tpu_torch.tools.mega_mutants --only parity,causal
     python -m thewhisper_tpu_torch.tools.mega_mutants --check smoke
 """
@@ -47,10 +52,13 @@ SMOKE_MEGA = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
               "c.phase_verify(model, enc)")
 SMOKE_CONTROL = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
                  "c.phase_control(smi)")
+SMOKE_MLP = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
+             "c.phase_mlp(smi)")
 # kernel -> (its source, the -k selection of its card tests, its smoke run).
 KERNELS = {
     "mega": ("csrc/mega_common.cuh", "mega", SMOKE_MEGA),
     "control": ("csrc/attention_control.cu", "attention_control", SMOKE_CONTROL),
+    "mlp": ("csrc/mlp_chain.cu", "mlp_chain", SMOKE_MLP),
 }
 
 # The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
@@ -102,9 +110,43 @@ CONTROL_MUTANTS = (
      "const int row = q0 + wg * 64 + r0 + 8 * i + (wg == 2);"),
 )
 
-# (kernel, name, fault, old, new) for every mutant.
-MUTANTS = tuple(("mega",) + m for m in MEGA_MUTANTS) + tuple(
-    ("control",) + m for m in CONTROL_MUTANTS)
+# P2/P3: (name, fault, old, new) in csrc/mlp_chain.cu, or (name, fault,
+# old, new, source) elsewhere.
+MLP_MUTANTS = (
+    ("ln-layer0", "layer 0's LayerNorm parameters serve every layer",
+     "ln_rows(p, c.ln_s + l * D, c.ln_b + l * D, act, stats, wred);",
+     "ln_rows(p, c.ln_s, c.ln_b, act, stats, wred);"),
+    ("gelu-round", "GELU's input is not rounded to bf16",
+     "__float2bfloat16(gelu_tanh(round_bf16(y)))", "__float2bfloat16(gelu_tanh(y))",
+     "csrc/mega_common.cuh"),
+    ("no-barrier", "fc2 reads h without the grid barrier after fc1",
+     "    grid_barrier(p, target, k, ring.clock);\n    load_rows(", "    load_rows("),
+    ("residual-base", "fc2's residual adds y to h, its input row, instead of x",
+     "{c.s2 + l * D, c.b2 + l * D, nullptr, p.x}",
+     "{c.s2 + l * D, c.b2 + l * D, nullptr, p.hid}"),
+    ("row-shift-mlp", "block 1 writes its product rows one row down",
+     "const int er = m0 + (threadIdx.x & 15), en",
+     "const int er = m0 + (threadIdx.x & 15) + (blockIdx.x == 1), en",
+     "csrc/mega_common.cuh"),
+    ("producer-short", "the producer skips each fc2 tile's last stage (the ring "
+     "never fills: the launch must trap, not hang)",
+     "pr.tiles(c.w2t + l * df, D, F);", "pr.tiles(c.w2t + l * df, D, F - kKc);"),
+    ("residual-round-mlp", "the residual adds y unrounded",
+     "__float2bfloat16(xr + round_bf16(y))", "__float2bfloat16(xr + y)",
+     "csrc/mega_common.cuh"),
+)
+
+
+def _with_source(kernel, mutants):
+    """(kernel, source, name, fault, old, new) of each mutant, the source
+    its own or its kernel's."""
+    return tuple((kernel, m[4] if len(m) > 4 else KERNELS[kernel][0], *m[:4])
+                 for m in mutants)
+
+
+# (kernel, source, name, fault, old, new) for every mutant.
+MUTANTS = (_with_source("mega", MEGA_MUTANTS) + _with_source("control", CONTROL_MUTANTS)
+           + _with_source("mlp", MLP_MUTANTS))
 
 
 def make_copy(name: str, source: Optional[str], old: Optional[str],
@@ -171,7 +213,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     dev = _card.device("cuda")
     only = {n for n in args.only.split(",") if n}
     chosen = [m for m in MUTANTS if (args.kernel in ("all", m[0]))
-              and (not only or m[1] in only)]
+              and (not only or m[2] in only)]
     kernels = sorted({m[0] for m in chosen}, key=list(KERNELS).index)
     results = []
     res = run_check(make_copy("unchanged", None, None, None), args.timeout,
@@ -179,15 +221,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     results.append({"name": "unchanged", "fault": "no fault", **res})
     print(f"[mutants] unchanged: {'failed' if res['failed'] else 'passed'}",
           file=sys.stderr, flush=True)
-    for kernel, name, what, old, new in chosen:
-        res = run_check(make_copy(name, KERNELS[kernel][0], old, new), args.timeout,
+    for kernel, source, name, what, old, new in chosen:
+        res = run_check(make_copy(name, source, old, new), args.timeout,
                         args.check, [kernel])
         results.append({"name": name, "kernel": kernel, "fault": what, **res})
         print(f"[mutants] {name}: {'failed' if res['failed'] else 'passed'}"
               f" ({res['first_failure']})", file=sys.stderr, flush=True)
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"tool": "mega_mutants", "card": _card.card(dev),
-                      "sources": [f"thewhisper_tpu_torch/{KERNELS[k][0]}" for k in kernels],
+                      "sources": sorted({f"thewhisper_tpu_torch/{m[1]}" for m in chosen}),
                       "check": args.check,
                       "control_passed": not results[0]["failed"],
                       "mutants_failed": sum(r["failed"] for r in results[1:]),
