@@ -71,22 +71,34 @@ is false. Phases, each of which raises on failure:
     L = 32 at most 0.55 ms, P3 over 32 distinct layers at most 0.70 ms,
     P3 on one layer replayed from L2 beside them), GB/s, the pack's time
     and the phase stamps of one P2 launch.
-12. [P4]/[P5] The row and column cache writes, bit-exact, every other slot
-    unchanged, timed beside torch's in-place writes. P2-P5's times are
-    device times from CUDA-graph replays: a wrapper's host work (20-80 us
-    a call) is more than these kernels take on the card.
+12. [P4]/[P5] The row and column cache writes, bit-exact with host and
+    device slots, every other slot unchanged; 16 writes of each replayed
+    from a CUDA graph at slots refilled on the card; the P5 -> P4 -> P4
+    relay of programmatic launches, eager and from a graph. Times from
+    CUDA graphs in turns: the launch floor (an empty kernel, with and
+    without PDL), each kernel beside the torch in-place write and
+    ``index_copy_`` (P4 at most 1.1x the torch write, P5 L2-resident at
+    most 1.1x both), P5 L2-resident and HBM-cold beside its sector floor.
+    P2-P5's times are device times from CUDA-graph replays: a wrapper's
+    host work (10-80 us a call) is more than these kernels take on the
+    card.
 13. [probes] The probes' path: each probe entry point
     (``thewhisper_tpu_torch.tools``) runs on the card, with the launch counts
     of its kernels read around it.
 
-Times come from CUDA events; every number printed is measured in the run.
-The kernels' JSON line gives each kernel's launches on its path, its error
-against the plain version, its time, the plain version's, the bound (the
+Times come from CUDA events; every time printed is measured in the run,
+and the bounds are computed from the run's shapes. The kernels' JSON line
+gives each kernel's launches on its path, its error against the plain
+version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the peak rate for their
 type) and, where one PyTorch call computes the same function, that call's
 time (and, for K3 and K4, ``graph_ms``, the device time from a CUDA
 graph; for P2 the pack's time and its phase stamps, for P3 the
-L2-resident time of one layer replayed). The last lines are the kernels' JSON line, the ``nvidia-smi`` name and
+L2-resident time of one layer replayed; for P4 and P5 the measured
+launch floors; for P5 ``l2_resident_ms``, its ``ms``, ``cold_ms``, the
+HBM-cold time, and ``sector_floor_ms``, a second bound computed as
+``bound_ms`` is, from the 32-byte sector each 2-byte store dirties). The
+last lines are the kernels' JSON line, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}`` (``count`` is 1: the
 run uses one card, whatever the machine shows).
 """
@@ -148,6 +160,7 @@ from thewhisper_tpu_torch.tools._card import (
     BF16_FLOPS,
     F32_FLOPS,
     HBM_BYTES_PER_S,
+    capture,
     card,
     cuda_ms,
     graph_ms,
@@ -1238,58 +1251,223 @@ def phase_mlp(smi: str):
              "library_ms": None, "l2_resident_ms": l2_ms})
 
 
-def phase_cache_writes():
+# [P4]/[P5]'s requirement: from CUDA graphs timed in turns in one phase,
+# each kernel at most this times the torch in-place write (and P5 at most
+# this times ``index_copy_``); the 10% is for the noise of microsecond
+# timings.
+CACHE_WRITE_MAX_RATIO = 1.1
+# P5 HBM-cold: 16 slots 15 columns apart (the probe's T = 228 holds no 16
+# slots 16 apart), one write a slot: 16 x 5.24 MB of sectors, against the
+# 50 MB L2.
+COLD_SLOTS = tuple(15 * i for i in range(16))
+
+
+def graph_turns(fns: dict, rounds: int = 5, calls: int = 16, iters: int = 10) -> dict:
+    """Device ms a call of each of ``fns`` (name -> fn): each captured once
+    as ``calls`` calls in a CUDA graph, then its replays timed with CUDA
+    events in ``rounds`` rounds of turns (the order reversed every other
+    round); the median of its rounds. Arguments a fn reads when it is
+    called are fixed at capture; a device slot is read at replay."""
+    graphs = {name: capture(fn, calls) for name, fn in fns.items()}
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            times[name].append(cuda_ms(graphs[name].replay, iters) / calls)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def cycling(values):
+    """A function returning ``values`` in turn, one a call."""
+    state = {"i": -1}
+
+    def take():
+        state["i"] = (state["i"] + 1) % len(values)
+        return values[state["i"]]
+    return take
+
+
+def eager(fn) -> float:
+    """Device ms a call of ``fn`` called eagerly (the host's launch cost
+    included): the median of three runs of 100 calls."""
+    return float(np.median([cuda_ms(fn, iters=100) for _ in range(3)]))
+
+
+def slot_tensor(pos: int, dev) -> torch.Tensor:
+    return torch.tensor([pos], dtype=torch.int32, device=dev)
+
+
+def check_replayed_slots(dev, g) -> None:
+    """(c) 16 P4 writes and 16 P5 writes captured reading ``slots[i]``; the
+    slots refilled on the card after capture; the replay must put each row
+    and column at its new slot, bit for bit, and nothing elsewhere."""
+    rows, cols = (torch.randn(16, 1280, generator=g, device=dev).to(torch.bfloat16),
+                  torch.randn(16, 128, 1280, 1, generator=g, device=dev).to(torch.bfloat16))
+    for name, cache, n_slots in (("P4", torch.zeros(448, 1280, dtype=torch.bfloat16, device=dev), 448),
+                                 ("P5", torch.zeros(128, 1280, 228, dtype=torch.bfloat16, device=dev), 228)):
+        slots = torch.arange(16, dtype=torch.int32, device=dev)
+        views = slots.split(1)
+
+        def writes():
+            for i in range(16):
+                if name == "P4":
+                    cw.write_row(cache, views[i], rows[i])
+                else:
+                    cw.write_column(cache, cols[i], views[i])
+        graph = capture(writes)
+        new = torch.randperm(n_slots, generator=g, device=dev)[:16]
+        slots.copy_(new.to(torch.int32))
+        cache.zero_()
+        graph.replay()
+        ref = torch.zeros_like(cache)
+        for i, pos in enumerate(new.tolist()):
+            if name == "P4":
+                cw.write_row_plain(ref, pos, rows[i])
+            else:
+                cw.write_column_plain(ref, cols[i], pos)
+        torch.cuda.synchronize()
+        check(torch.equal(cache, ref), f"{name} graph replayed at slots refilled on the card")
+    print("[P4]/[P5] device slots: 16 writes captured, the slots refilled on the "
+          "card, the replay bit-exact at the new slots, nothing elsewhere", flush=True)
+
+
+def check_relay(dev, g) -> None:
+    """(d) PDL ordering: P5 writes column 7 of a (128, 1280, 256) cache A,
+    then P4 copies row j of A's (R F, 256) view, a row crossing column 7,
+    into slot k of B, then P4 copies B's row k into slot k of C; 16 rounds
+    with a fresh column and another j each. Eager (the launches queued
+    behind a 5 ms sleep kernel, so the card runs them back to back) and
+    from a CUDA graph; A, B and C must equal the plain versions bit for
+    bit. A kernel that touched memory before ``griddepcontrol.wait`` would
+    read a column or a row before its predecessor wrote it."""
+    a0 = torch.randn(128, 1280, 256, generator=g, device=dev).to(torch.bfloat16)
+    cols = torch.randn(16, 128, 1280, 1, generator=g, device=dev).to(torch.bfloat16)
+    rf = 128 * 1280
+    js = [rf - 1 - k * (rf // 16) for k in range(16)]
+
+    def relay(a, b, c, column, row):
+        for k in range(16):
+            column(a, cols[k], 7)
+            row(b, k, a.view(rf, 256)[js[k]])
+            row(c, k, b[k])
+    want = [a0.clone(), torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+            torch.zeros(16, 256, dtype=torch.bfloat16, device=dev)]
+    relay(*want, cw.write_column_plain, cw.write_row_plain)
+    got = [a0.clone(), torch.zeros_like(want[1]), torch.zeros_like(want[2])]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    relay(*got, cw.write_column, cw.write_row)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "P5 -> P4 -> P4 relay, eager")
+    got = [a0.clone(), torch.zeros_like(want[1]), torch.zeros_like(want[2])]
+    graph = capture(lambda: relay(*got, cw.write_column, cw.write_row))
+    got[0].copy_(a0)
+    got[1].zero_()
+    got[2].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "P5 -> P4 -> P4 relay, graph")
+    print("[P4]/[P5] relay P5 -> P4 -> P4 (16 rounds), eager and from a CUDA graph: "
+          "bit-exact", flush=True)
+
+
+def phase_cache_writes(smi: str):
     """[P4]/[P5] The slot writes at the probes' shapes against their plain
-    versions, bit for bit, every other slot unchanged; device times (CUDA
-    graph replays) beside the plain (torch in-place) write and
-    ``index_copy_``, and the eager kernel call. Returns the kernels-line
-    entries of P4 and P5."""
+    versions, bit for bit, every other slot unchanged, with host and device
+    slots; the device-slot replay (``check_replayed_slots``) and the PDL
+    relay (``check_relay``). Device times from CUDA graphs timed in turns:
+    the launch floor (an empty kernel in a 16-node graph, with and without
+    PDL), each kernel beside the torch in-place write (the plain version,
+    one PyTorch call) and ``index_copy_``; P5 L2-resident (16 writes to one
+    column, ``l2_resident_ms``, the ``ms`` of its entry) and HBM-cold (16
+    device slots 15 columns apart, ``cold_ms``), beside its sector floor
+    (R F 32-byte sectors over 3.35 TB/s); eager kernel calls beside.
+    Asserts ``CACHE_WRITE_MAX_RATIO``. Returns the kernels-line entries of
+    P4 and P5."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(13)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    entries = []
+    floors = graph_turns({"plain launch": lambda: cw.empty_launch(dev, False),
+                          "PDL": lambda: cw.empty_launch(dev, True)})
+    floor, floor_pdl = floors["plain launch"], floors["PDL"]
+    eager_floors = [eager(lambda pdl=pdl: cw.empty_launch(dev, pdl)) for pdl in (False, True)]
+    print(f"[P4]/[P5] launch floor, an empty kernel in a 16-node CUDA graph: "
+          f"{floor * 1e3:.3f} us, with PDL {floor_pdl * 1e3:.3f} us; eager "
+          f"{eager_floors[0] * 1e3:.2f} us, with PDL {eager_floors[1] * 1e3:.2f} us; "
+          f"{smi}", flush=True)
+    floor_keys = {"launch_floor_ms": floor, "launch_floor_pdl_ms": floor_pdl}
+
     for shape, pos in (((448, 1280), 13), ((32 * 448, 1280), 9000)):
         cache, row = rand(*shape), rand(1, shape[1])
-        got = cw.write_row(cache.clone(), pos, row)
-        ref = cw.write_row_plain(cache.clone(), pos, row)
         keep = torch.arange(shape[0], device=dev) != pos
-        exact = torch.equal(got, ref) and torch.equal(got[keep], cache[keep])
-        check(exact, f"P4 at {shape}, row {pos}")
-        slot = torch.tensor([pos], device=dev)
-        ms = graph_ms(lambda: cw.write_row(cache, pos, row))
-        plain_ms = graph_ms(lambda: cw.write_row_plain(cache, pos, row))
-        library_ms = graph_ms(lambda: cache.index_copy_(0, slot, row))
-        eager_ms = cuda_ms(lambda: cw.write_row(cache, pos, row), iters=100)
-        print(f"[P4] {shape}: bit-exact, other rows unchanged; kernel "
-              f"{ms * 1e3:.2f} us  torch in-place {plain_ms * 1e3:.2f} us  "
-              f"index_copy_ {library_ms * 1e3:.2f} us (CUDA graph); eager "
-              f"kernel call {eager_ms * 1e3:.2f} us", flush=True)
-    entries.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                    **bound(2 * nbytes(row), 0, BF16_FLOPS),
-                    "library_ms": library_ms})
+        slot = slot_tensor(pos, dev)
+        for given in (pos, slot):
+            got = cw.write_row(cache.clone(), given, row)
+            ref = cw.write_row_plain(cache.clone(), pos, row)
+            exact = torch.equal(got, ref) and torch.equal(got[keep], cache[keep])
+            check(exact, f"P4 at {shape}, row {pos} ({type(given).__name__} slot)")
+        index = torch.tensor([pos], device=dev)
+        t = graph_turns({"kernel": lambda: cw.write_row(cache, pos, row),
+                         "device slot": lambda: cw.write_row(cache, slot, row),
+                         "torch": lambda: cw.write_row_plain(cache, pos, row),
+                         "index_copy_": lambda: cache.index_copy_(0, index, row)})
+        eager_ms = eager(lambda: cw.write_row(cache, pos, row))
+        print(f"[P4] {shape}: bit-exact with host and device slots, other rows "
+              f"unchanged; kernel {t['kernel'] * 1e3:.3f} us (device slot "
+              f"{t['device slot'] * 1e3:.3f})  torch in-place {t['torch'] * 1e3:.3f} us  "
+              f"index_copy_ {t['index_copy_'] * 1e3:.3f} us (CUDA graphs in turns; "
+              f"{t['kernel'] / floor_pdl:.2f}x the PDL launch floor); eager kernel "
+              f"call {eager_ms * 1e3:.2f} us; {smi}", flush=True)
+        check(t["kernel"] <= CACHE_WRITE_MAX_RATIO * t["torch"],
+              f"P4 {t['kernel']} ms at {shape} (requirement: at most "
+              f"{CACHE_WRITE_MAX_RATIO}x the torch in-place write, {t['torch']})")
+    p4 = {"max_abs_err": 0.0, "ms": t["kernel"], "plain_ms": t["torch"],
+          **bound(2 * nbytes(row), 0, BF16_FLOPS), "library_ms": t["index_copy_"],
+          **floor_keys, "device_slot_ms": t["device slot"], "eager_ms": eager_ms}
 
     cache, col, pos = rand(128, 1280, 228), rand(128, 1280, 1), 7
-    got = cw.write_column(cache.clone(), col, pos)
-    ref = cw.write_column_plain(cache.clone(), col, pos)
     keep = torch.arange(228, device=dev) != pos
-    check(torch.equal(got, ref) and torch.equal(got[:, :, keep], cache[:, :, keep]),
-          "P5 column write")
-    slot = torch.tensor([pos], device=dev)
-    ms = graph_ms(lambda: cw.write_column(cache, col, pos))
-    plain_ms = graph_ms(lambda: cw.write_column_plain(cache, col, pos))
-    library_ms = graph_ms(lambda: cache.index_copy_(2, slot, col))
-    eager_ms = cuda_ms(lambda: cw.write_column(cache, col, pos), iters=100)
-    print(f"[P5] (128, 1280, 228): bit-exact, other slots unchanged; kernel "
-          f"{ms * 1e3:.2f} us  torch in-place {plain_ms * 1e3:.2f} us  "
-          f"index_copy_ {library_ms * 1e3:.2f} us (CUDA graph); eager kernel "
-          f"call {eager_ms * 1e3:.2f} us", flush=True)
-    entries.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                    **bound(2 * nbytes(col), 0, BF16_FLOPS),
-                    "library_ms": library_ms})
-    return entries
+    slot = slot_tensor(pos, dev)
+    for given in (pos, slot):
+        got = cw.write_column(cache.clone(), col, given)
+        ref = cw.write_column_plain(cache.clone(), col, pos)
+        check(torch.equal(got, ref) and torch.equal(got[:, :, keep], cache[:, :, keep]),
+              f"P5 column write ({type(given).__name__} slot)")
+    index = torch.tensor([pos], device=dev)
+    kernel_cold = cycling(torch.tensor(COLD_SLOTS, dtype=torch.int32, device=dev).split(1))
+    torch_cold = cycling(COLD_SLOTS)
+    t = graph_turns({
+        "l2 kernel": lambda: cw.write_column(cache, col, slot),
+        "cold kernel": lambda: cw.write_column(cache, col, kernel_cold()),
+        "l2 torch": lambda: cw.write_column_plain(cache, col, pos),
+        "cold torch": lambda: cw.write_column_plain(cache, col, torch_cold()),
+        "l2 index_copy_": lambda: cache.index_copy_(2, index, col)})
+    eager_ms = eager(lambda: cw.write_column(cache, col, slot))
+    sector_floor = bound(128 * 1280 * 32, 0, BF16_FLOPS)["bound_ms"]
+    l2, cold_ms = t["l2 kernel"], t["cold kernel"]
+    print(f"[P5] (128, 1280, 228): bit-exact with host and device slots, other "
+          f"slots unchanged; kernel (device slot) l2_resident {l2 * 1e3:.3f} us  "
+          f"torch in-place {t['l2 torch'] * 1e3:.3f} us  index_copy_ "
+          f"{t['l2 index_copy_'] * 1e3:.3f} us; HBM-cold (16 slots 15 apart) kernel "
+          f"{cold_ms * 1e3:.3f} us  torch in-place {t['cold torch'] * 1e3:.3f} us; "
+          f"sector floor {sector_floor * 1e3:.3f} us (+ PDL launch floor "
+          f"{(sector_floor + floor_pdl) * 1e3:.3f}; cold is "
+          f"{cold_ms / (sector_floor + floor_pdl):.2f}x that) (CUDA graphs in turns); "
+          f"eager kernel call {eager_ms * 1e3:.2f} us; {smi}", flush=True)
+    for name in ("torch", "index_copy_"):
+        check(l2 <= CACHE_WRITE_MAX_RATIO * t[f"l2 {name}"],
+              f"P5 L2-resident {l2} ms (requirement: at most {CACHE_WRITE_MAX_RATIO}x "
+              f"{name}, {t[f'l2 {name}']})")
+    p5 = {"max_abs_err": 0.0, "ms": l2, "plain_ms": t["l2 torch"],
+          **bound(2 * nbytes(col), 0, BF16_FLOPS), "library_ms": t["l2 index_copy_"],
+          **floor_keys, "cold_ms": cold_ms, "l2_resident_ms": l2,
+          "sector_floor_ms": sector_floor, "plain_cold_ms": t["cold torch"],
+          "eager_ms": eager_ms}
+    check_replayed_slots(dev, g)
+    check_relay(dev, g)
+    return p4, p5
 
 
 # The probe entry points as the smoke run drives them, each with the counts
@@ -1348,7 +1526,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     p1 = phase_control(smi)
     p2, p3 = phase_mlp(smi)
-    p4, p5 = phase_cache_writes()
+    p4, p5 = phase_cache_writes(smi)
     probe_launches = phase_probes()
     kernels = [
         {"name": "logmel", "route": "cuda",

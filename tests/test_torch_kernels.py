@@ -19,10 +19,18 @@ heads (``mega_mutants`` checks these tests too against broken copies of
 P1's kernel), the int8 MLP chain at d_model 256, d_ff 1024 and at the
 probe's 1280 and 5120 (``mega_mutants --kernel mlp`` checks these against
 broken copies of P2/P3's kernel), the slot writes at the probes' own cache
-shapes.
+shapes and at every Whisper width, with host and device slots, replayed
+from CUDA graphs at slots refilled on the card, in a P5 -> P4 -> P4 relay
+that checks the programmatic launches' ordering, and a device slot outside
+the cache trapping in a child process (``mega_mutants --kernel cache``
+checks these against broken copies of ``csrc/cache_write.cu``).
 """
 
 import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +46,7 @@ from thewhisper_tpu_torch.ops import attention_control as tac
 from thewhisper_tpu_torch.ops import cache_write as tcw
 from thewhisper_tpu_torch.ops import mega_step as tm
 from thewhisper_tpu_torch.ops import mlp_chain as tmc
+from thewhisper_tpu_torch.tools._card import capture
 
 from _torch_tiny import cuda_device  # noqa: F401
 
@@ -57,7 +66,7 @@ def test_build_reports_resources(cuda_device):
     lib = _build.lib()
     for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step",
                  "twt_mega_verify", "twt_attention_control", "twt_mlp_chain",
-                 "twt_strided_write"):
+                 "twt_write_row", "twt_write_column", "twt_empty_launch"):
         assert hasattr(lib, name)
     if _build.build_log is not None:
         print(_build.build_log)
@@ -595,3 +604,183 @@ def test_write_column_kernel_equals_plain(cuda_device, pos):
     assert torch.equal(got, ref)
     with pytest.raises(ValueError, match="outside"):
         tcw.write_column(cache, col, 228)
+
+
+WHISPER_WIDTHS = (384, 512, 768, 1024, 1280)
+
+
+def _slot(pos, kind, device):
+    return pos if kind == "host" else torch.tensor([pos], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("kind", ["host", "device"])
+@pytest.mark.parametrize("d", WHISPER_WIDTHS)
+def test_write_row_kernel_every_whisper_width(cuda_device, d, kind):
+    """Every 16-byte chunk of the row lands, at a host or a device slot,
+    and nothing else changes (slot 300 of layer 1 of a (2, 448, D) cache)."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    cache = torch.randn(2, 448, d, generator=g).to(cuda_device, torch.bfloat16)
+    row = torch.randn(d, generator=g).to(cuda_device, torch.bfloat16)
+    ref = tcw.write_row_plain(cache.clone(), 748, row)
+    before = tcw.ROW_LAUNCHES
+    got = tcw.write_row(cache, _slot(748, kind, cuda_device), row)
+    torch.cuda.synchronize()
+    assert tcw.ROW_LAUNCHES == before + 1 and got.data_ptr() == cache.data_ptr()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("pos", [0, 7, 227])
+def test_write_column_kernel_device_slot(cuda_device, pos):
+    g = torch.Generator(device="cpu").manual_seed(pos + 1)
+    cache = torch.randn(128, 1280, 228, generator=g).to(cuda_device, torch.bfloat16)
+    col = torch.randn(128, 1280, 1, generator=g).to(cuda_device, torch.bfloat16)
+    ref = tcw.write_column_plain(cache.clone(), col, pos)
+    before = tcw.COLUMN_LAUNCHES
+    got = tcw.write_column(cache, col, _slot(pos, "device", cuda_device))
+    torch.cuda.synchronize()
+    assert tcw.COLUMN_LAUNCHES == before + 1 and got.data_ptr() == cache.data_ptr()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kernel", ["write_row", "write_column"])
+def test_write_row_and_write_column_read_the_slot_at_replay(cuda_device, kernel):
+    """16 writes captured in a CUDA graph, each reading slots[i]; the slots
+    refilled on the card after capture; the replay writes at the new slots."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if kernel == "write_row":
+        cache = torch.zeros(448, 1280, dtype=torch.bfloat16, device=cuda_device)
+        src = torch.randn(16, 1280, generator=g).to(cuda_device, torch.bfloat16)
+        write, plain, n = tcw.write_row, tcw.write_row_plain, 448
+    else:
+        cache = torch.zeros(128, 1280, 228, dtype=torch.bfloat16, device=cuda_device)
+        src = torch.randn(16, 128, 1280, 1, generator=g).to(cuda_device, torch.bfloat16)
+        n = 228
+
+        def write(c, pos, x):
+            return tcw.write_column(c, x, pos)
+
+        def plain(c, pos, x):
+            return tcw.write_column_plain(c, x, pos)
+    slots = torch.arange(16, dtype=torch.int32, device=cuda_device)
+    views = slots.split(1)
+    graph = capture(lambda: [write(cache, views[i], src[i]) for i in range(16)])
+    new = torch.randperm(n, generator=g)[:16]
+    slots.copy_(new.to(cuda_device, torch.int32))
+    cache.zero_()
+    graph.replay()
+    ref = torch.zeros_like(cache)
+    for i, pos in enumerate(new.tolist()):
+        plain(ref, pos, src[i])
+    torch.cuda.synchronize()
+    assert torch.equal(cache, ref)
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+def test_write_row_relay_after_write_column(cuda_device, mode):
+    """Programmatic launches keep their order: P5 writes column 7 of A,
+    P4 copies row j of A's (R F, 256) view (a row crossing column 7) into
+    slot k of B, P4 copies B's row k into slot k of C; 16 rounds. Eager,
+    the launches queue behind a sleep kernel so the card runs them back to
+    back. A kernel that read before ``griddepcontrol.wait`` would copy a
+    row before its predecessor wrote it."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    a0 = torch.randn(128, 1280, 256, generator=g).to(cuda_device, torch.bfloat16)
+    cols = torch.randn(16, 128, 1280, 1, generator=g).to(cuda_device, torch.bfloat16)
+    rf = 128 * 1280
+    js = [rf - 1 - k * (rf // 16) for k in range(16)]
+
+    def relay(a, b, c, column, row):
+        for k in range(16):
+            column(a, cols[k], 7)
+            row(b, k, a.view(rf, 256)[js[k]])
+            row(c, k, b[k])
+
+    def fresh():
+        return [a0.clone(), torch.zeros(16, 256, dtype=torch.bfloat16, device=cuda_device),
+                torch.zeros(16, 256, dtype=torch.bfloat16, device=cuda_device)]
+    want, got = fresh(), fresh()
+    relay(*want, tcw.write_column_plain, tcw.write_row_plain)
+    torch.cuda.synchronize()
+    if mode == "eager":
+        torch.cuda._sleep(10_000_000)
+        relay(*got, tcw.write_column, tcw.write_row)
+    else:
+        graph = capture(lambda: relay(*got, tcw.write_column, tcw.write_row))
+        got[0].copy_(a0)
+        got[1].zero_()
+        got[2].zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_write_row_and_write_column_refuse_bad_input(cuda_device):
+    before = (tcw.ROW_LAUNCHES, tcw.COLUMN_LAUNCHES)
+    cache = torch.zeros(4, 100, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcw.write_row(cache, 1, torch.zeros(100, dtype=torch.bfloat16, device=cuda_device))
+    cache = torch.zeros(4, 256, dtype=torch.bfloat16, device=cuda_device)
+    buf = torch.zeros(512, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        tcw.write_row(cache, 1, buf[1:257])
+    row = buf[:256]
+    for bad in (torch.tensor([1], device=cuda_device),
+                torch.tensor([1], dtype=torch.int32),
+                torch.tensor([1, 2], dtype=torch.int32, device=cuda_device)):
+        with pytest.raises(ValueError, match="slot tensor"):
+            tcw.write_row(cache, bad, row)
+    cache = torch.zeros(2, 64, 16, dtype=torch.bfloat16, device=cuda_device)
+    col = torch.zeros(2, 64, 1, dtype=torch.bfloat16, device=cuda_device)
+    for bad in (torch.tensor([1], device=cuda_device), torch.tensor([1], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="slot tensor"):
+            tcw.write_column(cache, col, bad)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcw.write_column(torch.zeros(1, 4, 16, dtype=torch.bfloat16, device=cuda_device),
+                         torch.zeros(1, 4, 1, dtype=torch.bfloat16, device=cuda_device), 0)
+    assert (tcw.ROW_LAUNCHES, tcw.COLUMN_LAUNCHES) == before
+
+
+_TRAP_CHILD = """
+import sys, torch
+from thewhisper_tpu_torch.ops import cache_write as cw
+dev = torch.device("cuda", 0)
+kernel, pos = sys.argv[1], int(sys.argv[2])
+n = 64 * 256
+buf = torch.zeros(3 * n, dtype=torch.bfloat16, device=dev)   # guard, cache, guard
+row = torch.ones(256, dtype=torch.bfloat16, device=dev)
+col = torch.ones(16, 16, 1, dtype=torch.bfloat16, device=dev)
+if kernel == "write_row":
+    cache = buf[n:2 * n].view(64, 256)
+    write = lambda slot: cw.write_row(cache, slot, row)
+else:
+    cache = buf[n:2 * n].view(16, 16, 64)
+    write = lambda slot: cw.write_column(cache, col, slot)
+write(torch.tensor([5], dtype=torch.int32, device=dev))
+want = buf.clone()
+torch.cuda.synchronize()
+print("in range: written", bool(want[n:2 * n].any()), flush=True)
+write(torch.tensor([pos], dtype=torch.int32, device=dev))
+try:
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("trapped:", str(err).splitlines()[0], flush=True)
+    sys.exit(3)
+print("no trap; memory changed:", not torch.equal(buf, want), flush=True)
+"""
+
+
+@pytest.mark.parametrize("kernel,pos", [("write_row", 64), ("write_row", -1),
+                                        ("write_column", 64), ("write_column", -7)])
+def test_write_row_and_write_column_device_slot_outside_traps(cuda_device, kernel, pos):
+    """A device slot outside the cache traps in the kernel, before any
+    thread stores: the child's next synchronise fails (a trap ends the CUDA
+    context, so it runs in its own process). The cache sits between two
+    guards; a kernel without the range check writes into one and the child
+    exits 0."""
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(_TRAP_CHILD), kernel,
+                           str(pos)], cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert "in range: written True" in proc.stdout, proc.stdout + proc.stderr
+    assert proc.returncode == 3 and "trapped:" in proc.stdout, proc.stdout + proc.stderr

@@ -9,7 +9,9 @@ live in ``tools/``, which is not a package, so they are imported by path:
   ``control_kernel`` (``tools/attention_probe.py:82-107``), whose kernel is
   built inside the probe's ``main``;
 - P4/P5: the plain writes against ``jax.lax.dynamic_update_slice``, the
-  probes' own XLA arms.
+  probes' own XLA arms, with host slots and with one-element int32 tensor
+  slots against a traced slot passed as the TPU kernels take it, and the
+  16-write loop on a tensor index against ``fori_loop``'s device index.
 
 Then each probe entry point runs with ``--device cpu`` and prints its JSON
 line. The kernels themselves need the card: ``tests/test_torch_kernels.py``
@@ -223,6 +225,78 @@ def test_write_column_plain_equals_dynamic_update_slice(shape, pos):
     assert got.data_ptr() == ct.data_ptr()
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+def _slot32(pos: int) -> torch.Tensor:
+    return torch.tensor([pos], dtype=torch.int32)
+
+
+@jax.jit
+def _dus_row(flat, row, pos):
+    """The TPU probe's write with a traced slot, passed as ``write_row_b``
+    passes it (``tools/mega_caps_probe.py:78``)."""
+    p = jnp.reshape(pos, (1,)).astype(jnp.int32)
+    return jax.lax.dynamic_update_slice(flat, row, (p[0], 0))
+
+
+@jax.jit
+def _dus_column(cache, col, pos):
+    """``pallas_write``'s slot, a (1,) int32 array (``tools/cache_write_probe.py:143``)."""
+    p = jnp.reshape(pos, (1,)).astype(jnp.int32)
+    return jax.lax.dynamic_update_slice(cache, col, (0, 0, p[0]))
+
+
+@pytest.mark.parametrize("rows,pos", [((448, 1280), 13), ((4, 448, 128), 1000),
+                                      ((16, 64), 15), ((16, 64), 0)])
+def test_write_row_tensor_slot_equals_traced_dynamic_update_slice(rows, pos):
+    rng = np.random.default_rng(pos + 2)
+    cache = rng.standard_normal(rows).astype(np.float32)
+    row = rng.standard_normal((1, rows[-1])).astype(np.float32)
+    cj, ct = _bf16(cache)
+    rj, rt = _bf16(row)
+    want = _dus_row(cj.reshape(-1, rows[-1]), rj, jnp.int32(pos)).reshape(rows)
+    got = cw.write_row(ct, _slot32(pos), rt)
+    assert got.data_ptr() == ct.data_ptr()
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("shape,pos", [((8, 40, 228), 7), ((3, 8, 16), 0),
+                                       ((3, 8, 16), 15), ((2, 16, 228), 227)])
+def test_write_column_tensor_slot_equals_traced_dynamic_update_slice(shape, pos):
+    rng = np.random.default_rng(pos + 3)
+    cache = rng.standard_normal(shape).astype(np.float32)
+    col = rng.standard_normal(shape[:2] + (1,)).astype(np.float32)
+    cj, ct = _bf16(cache)
+    colj, colt = _bf16(col)
+    want = _dus_column(cj, colj, jnp.int32(pos))
+    got = cw.write_column(ct, colt, _slot32(pos))
+    assert got.data_ptr() == ct.data_ptr()
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_write_row_loop_on_a_tensor_index_equals_fori_loop():
+    """The TPU probe's 16 writes in a ``fori_loop`` with the device loop
+    index as the slot (``tools/mega_caps_probe.py:99-103``) against 16
+    writes whose slot is element i of an int32 tensor."""
+    rng = np.random.default_rng(8)
+    rows = rng.standard_normal((16, 256)).astype(np.float32)
+    rj, rt = _bf16(rows)
+
+    @jax.jit
+    def loop_writes(cache):
+        def body(i, c):
+            return _dus_row(c, jax.lax.dynamic_slice(rj, (i, 0), (1, 256)), i)
+        return jax.lax.fori_loop(0, 16, body, cache)
+
+    cj = loop_writes(jnp.zeros((64, 256), jnp.bfloat16))
+    index = torch.arange(16, dtype=torch.int32).split(1)
+    ct = torch.zeros(64, 256, dtype=torch.bfloat16)
+    for i in range(16):
+        cw.write_row(ct, index[i], rt[i])
+    np.testing.assert_array_equal(ct.float().numpy(),
+                                  np.asarray(cj.astype(jnp.float32)))
 
 
 # --- the probe entry points -------------------------------------------------

@@ -43,7 +43,9 @@ _SIGNATURES = {
     "twt_mega_verify": [_P] * 18 + [_L] + [_P] * 2 + [_I] * 14 + [_P],
     "twt_attention_control": [_P] * 5 + [_I] * 6 + [_P],
     "twt_mlp_chain": [_P] * 11 + [_I] * 6 + [_P],
-    "twt_strided_write": [_P, _P, _L, _L, _L, _I, _P],
+    "twt_write_row": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "twt_write_column": [_P, _P, _P] + [_I] * 6 + [_P],
+    "twt_empty_launch": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -60,11 +60,11 @@ def cuda_ms(fn: Callable[[], object], iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn: Callable[[], object], calls: int = 16, iters: int = 10) -> float:
-    """Device time of one call of ``fn`` in ms: ``calls`` calls captured in
-    one CUDA graph after a warm-up call, the graph replayed ``iters`` times
-    and timed with CUDA events. Arguments ``fn`` reads when it is called
-    (a slot, a layer) are fixed at capture."""
+def capture(fn: Callable[[], object], calls: int = 1) -> torch.cuda.CUDAGraph:
+    """``calls`` calls of ``fn`` captured in one CUDA graph, after a warm-up
+    call on a side stream. Arguments ``fn`` reads when it is called (a slot,
+    a layer) are fixed at capture; a tensor a kernel reads is read at
+    replay."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -74,4 +74,11 @@ def graph_ms(fn: Callable[[], object], calls: int = 16, iters: int = 10) -> floa
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return cuda_ms(graph.replay, iters) / calls
+    return graph
+
+
+def graph_ms(fn: Callable[[], object], calls: int = 16, iters: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: ``calls`` calls captured in
+    one CUDA graph (``capture``), the graph replayed ``iters`` times and
+    timed with CUDA events."""
+    return cuda_ms(capture(fn, calls).replay, iters) / calls

@@ -7,7 +7,9 @@ L = 4, B = 32, H = 20, DH = 64, T = 228 (74.7 MB); a write sets column
 ``pos`` from an (L B, H DH, 1) column, the slot moving each write. Arms,
 each timed per write with CUDA events, with the card's name and power limit:
 
-- ``kernel``: P5 (``ops/cache_write.py::write_column``), in place;
+- ``kernel``: P5 (``ops/cache_write.py::write_column``), in place, the
+  slot a one-element int32 tensor on the card, as ``pallas_write`` takes
+  it (so the graph replay reads it from the device);
 - ``where``: ``torch.where(iota == pos, col, cache)``, the full rewrite the
   TPU engine made;
 - ``index_copy``: ``cache.index_copy_(2, pos, col)``, in place;
@@ -63,6 +65,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if dev.type == "cuda":
         iota = torch.arange(t, device=dev)[None, None, :]
         slots = 4 + torch.arange(128, device=dev)      # index_copy_'s, on the card
+        slots32 = slots.int().split(1)                 # the kernel's
         step = {"i": 0}
 
         def next_pos():
@@ -76,7 +79,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         def slice_write():
             cache[:, :, next_pos()] = col[:, :, 0]
 
-        arms = {"kernel": lambda: cw.write_column(cache, col, next_pos()),
+        arms = {"kernel": lambda: cw.write_column(cache, col, slots32[next_pos() - 4]),
                 "where": lambda: torch.where(iota == next_pos(), col, cache),
                 "index_copy": index_copy, "slice": slice_write}
         result["us_per_write"] = {k: _card.cuda_ms(fn, ITERS) * 1e3

@@ -9,7 +9,10 @@ CUDA events, with the card's name and power limit:
 
 - ``write_row``: P4 into a (448, 1280) bf16 cache, the slot moving each
   write; ``write_row_big``: P4 into the (32 x 448, 1280) cache (36.7 MB) of
-  32 layers; ``loop16``: 16 P4 writes into slots 0..15 of the small cache.
+  32 layers; ``loop16``: 16 P4 writes into slots 0..15 of the small cache,
+  write i reading its slot from element i of a device int32 tensor, as the
+  TPU probe's ``fori_loop`` passes its device index (so the graph replay
+  reads the slots from the device too).
 - ``torch_row``: ``cache[:, pos] = rows``, one row in each of the 32
   layers of the (32, 448, 1280) cache (the TPU probe's XLA fallback A).
 - ``torch_where``: the full ``torch.where(iota == pos, rows, cache)``
@@ -19,7 +22,7 @@ Each arm is timed eager (``us_per_call``: the host's launch cost included,
 which for a write this small is most of it) and replayed from a CUDA graph
 (``graph_us_per_call``: the card's own time). It checks the TPU probe's two
 results first: one write lands in its row and leaves every other row zero,
-and so do 16 writes in a loop. Prints one JSON line. ``--device cpu`` runs the checks alone with the plain version, on a
+and so do 16 writes in a loop at device slots. Prints one JSON line. ``--device cpu`` runs the checks alone with the plain version, on a
 (16, 128) cache.
 
     python -m thewhisper_tpu_torch.tools.mega_caps_probe
@@ -59,9 +62,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     others = torch.cat([got[:13], got[14:]])
     one_ok = bool(torch.equal(got[13], row[0]) and not others.any())
     rows = rand(16, d)
+    # Slot i of the loop is element i of a device tensor, one view a write.
+    index = torch.arange(16, dtype=torch.int32, device=dev).split(1)
     got = torch.zeros(s, d, dtype=torch.bfloat16, device=dev)
     for i in range(16):
-        cw.write_row(got, i, rows[i])
+        cw.write_row(got, index[i], rows[i])
     loop_ok = bool(torch.equal(got[:16], rows) and not got[16:].any())
     if not (one_ok and loop_ok):
         raise RuntimeError(f"mega_caps_probe: row write {one_ok}, loop of 16 "
@@ -84,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         def loop16():
             for i in range(16):
-                cw.write_row(small, i, rows[i])
+                cw.write_row(small, index[i], rows[i])
 
         def torch_row():
             cache3[:, next_pos(s)] = big_rows

@@ -9,21 +9,24 @@ Kernels (``--kernel``): ``mega``, the K3/K4 engine in
 ``csrc/mega_common.cuh`` (tests ``-k mega``; smoke: the "S" model and
 pipeline at large-v3 width, then [K3] and [K4]); ``control``, P1's
 tensor-core route in ``csrc/attention_control.cu`` (tests ``-k
-attention_control``; smoke: [P1]); and ``mlp``, P2/P3 in
+attention_control``; smoke: [P1]); ``mlp``, P2/P3 in
 ``csrc/mlp_chain.cu`` (tests ``-k mlp_chain``; smoke: [P2]/[P3]), three of
 whose mutants change the engine's product and epilogues in
-``csrc/mega_common.cuh``, which P2/P3 run.
+``csrc/mega_common.cuh``, which P2/P3 run; and ``cache``, P4/P5 in
+``csrc/cache_write.cu`` (tests ``-k "write_row or write_column"``; smoke:
+[P4]/[P5]).
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
 the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
-the seven P2/P3 mutants about 2:
+the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel mlp
+    python -m thewhisper_tpu_torch.tools.mega_mutants --kernel cache
     python -m thewhisper_tpu_torch.tools.mega_mutants --only parity,causal
     python -m thewhisper_tpu_torch.tools.mega_mutants --check smoke
 """
@@ -54,11 +57,14 @@ SMOKE_CONTROL = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(
                  "c.phase_control(smi)")
 SMOKE_MLP = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
              "c.phase_mlp(smi)")
+SMOKE_CACHE = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
+               "c.phase_cache_writes(smi)")
 # kernel -> (its source, the -k selection of its card tests, its smoke run).
 KERNELS = {
     "mega": ("csrc/mega_common.cuh", "mega", SMOKE_MEGA),
     "control": ("csrc/attention_control.cu", "attention_control", SMOKE_CONTROL),
     "mlp": ("csrc/mlp_chain.cu", "mlp_chain", SMOKE_MLP),
+    "cache": ("csrc/cache_write.cu", "write_row or write_column", SMOKE_CACHE),
 }
 
 # The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
@@ -137,6 +143,24 @@ MLP_MUTANTS = (
 )
 
 
+# P4/P5 (the relay test must see the row kernel reading before its wait;
+# the trap test, a device slot outside the cache written).
+CACHE_MUTANTS = (
+    ("no-wait", "the row kernel reads its row and slot without griddepcontrol.wait",
+     "  pdl_trigger();\n  pdl_wait();\n  // The row's load first",
+     "  pdl_trigger();\n  // The row's load first"),
+    ("last-chunk", "the row's last 16-byte chunk is not stored",
+     "  dst[c] = v;", "  if (c + 1 < blockDim.x) dst[c] = v;"),
+    ("slot-zero", "a device slot is ignored in favour of slot 0",
+     "const int s = slot != nullptr ? *slot : pos;",
+     "const int s = slot != nullptr ? 0 : pos;"),
+    ("stride", "P5 steps T - 1 elements from one column value to the next",
+     "const int stride = t;", "const int stride = t - 1;"),
+    ("no-guard", "a slot outside the cache is not trapped",
+     "  if (s < 0 || s >= limit) __trap();\n", ""),
+)
+
+
 def _with_source(kernel, mutants):
     """(kernel, source, name, fault, old, new) of each mutant, the source
     its own or its kernel's."""
@@ -146,7 +170,7 @@ def _with_source(kernel, mutants):
 
 # (kernel, source, name, fault, old, new) for every mutant.
 MUTANTS = (_with_source("mega", MEGA_MUTANTS) + _with_source("control", CONTROL_MUTANTS)
-           + _with_source("mlp", MLP_MUTANTS))
+           + _with_source("mlp", MLP_MUTANTS) + _with_source("cache", CACHE_MUTANTS))
 
 
 def make_copy(name: str, source: Optional[str], old: Optional[str],
