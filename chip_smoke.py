@@ -12,7 +12,8 @@ is false. Phases, each of which raises on failure:
 2. Build: ``csrc/*.cu`` compiled by nvcc for sm_90a (``ops/_build.py``).
 3. K1, the log-mel kernel, against its plain PyTorch version, timed beside
    the ``torch.stft`` route (which it must beat at B = 4 x 30 s).
-4. K2, the encoder attention kernel, against its plain PyTorch version; the
+4. K2, the encoder attention kernel, against its plain PyTorch version at
+   30 s (S = 1500) and 10 s (S = 500, B = 1, 3 and 4) windows; the
    bf16 route timed at B = 1, 4 and 32 beside
    ``scaled_dot_product_attention`` (at B = 4 it must beat the plain version
    and stay within 1.5x of the library call).
@@ -31,6 +32,17 @@ is false. Phases, each of which raises on failure:
    encoder's relative L2 drift from an f32 copy with the plain attention.
    [turbo S] Then the same model quantized as ``"int8-all"`` with int8
    cross K/V: the 20 s WAV at batch 1, every decode step one K3 launch.
+   [STREAM] That engine under the streaming pipeline (10 s windows, the
+   neural VAD, cross-tick reuse on and off): 30 s of speech and
+   near-silence in 0.05 s chunks; every tick one K1 and a K2 a layer, the
+   greedy ticks K3, the buffer within the window; tick walls. A third arm
+   decodes three tokens a tick and must commit words, ordered and none
+   after the stream's clock.
+   [SERVER] The same engine behind the REST server the entry point
+   builds: three sessions at once over stdlib HTTP (every response 200, a
+   coalesced batch above 1, K1 and K2 launched; the walls of the
+   ``process`` calls that transcribed apart from those that did not),
+   then one session alone, equal to the streaming pipeline fed directly.
 6. [S] The "S" main path at the full width of large-v3 (32 + 32 layers,
    d_model 1280, 20 heads, d_ff 5120, vocab 51866): random bf16 weights,
    biases and LayerNorm parameters,
@@ -44,6 +56,8 @@ is false. Phases, each of which raises on failure:
    on the production cross K/V (the W8A8 encoder with K2, T = 1500): at
    L = 32 for cache lengths 5, 68 and 228, at L = 4 (turbo's depth) and at
    L = 1 over eight steps, the best of which must agree to f32 noise; at
+   L = 4 and 32 over a 10 s window's cross K/V (T = 500, a streaming
+   tick's); at
    every depth the kernel's distance from the same function computed in f32
    at most 1.5 times the bf16 plain version's. Times of both at each, the
    kernel eager and from a CUDA graph, and the phase stamps of one L = 32
@@ -105,14 +119,18 @@ run uses one card, whatever the machine shows).
 
 from __future__ import annotations
 
+import base64
 import copy
 import dataclasses
+import http.client
 import json
 import math
 import tempfile
+import threading
 import time
 import wave
 from pathlib import Path
+from urllib.parse import quote
 
 import numpy as np
 import torch
@@ -124,7 +142,12 @@ from thewhisper_tpu_torch.audio.features import (
     log_mel_spectrogram_plain,
     mel_filter_bank,
 )
-from thewhisper_tpu_torch.config import ARCH_PRESETS, SAMPLE_RATE, GenerationOptions
+from thewhisper_tpu_torch.config import (
+    ARCH_PRESETS,
+    SAMPLE_RATE,
+    GenerationOptions,
+    ServerConfig,
+)
 from thewhisper_tpu_torch.engine import WhisperEngine
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
 from thewhisper_tpu_torch.models.quant import (
@@ -150,6 +173,13 @@ from thewhisper_tpu_torch.ops import cache_write as cw
 from thewhisper_tpu_torch.ops import mega_step as mega
 from thewhisper_tpu_torch.ops import mlp_chain as mlp
 from thewhisper_tpu_torch.pipeline import ASRPipeline
+from thewhisper_tpu_torch.server.launch import serve_pipeline
+from thewhisper_tpu_torch.streaming import LocalWhisperBackend, StreamingPipeline
+from thewhisper_tpu_torch.streaming.batching import BatchedTranscriber
+from thewhisper_tpu_torch.streaming.pipeline import (
+    GIBBERISH_THRESHOLD,
+    compression_ratio,
+)
 from thewhisper_tpu_torch.tools import (
     attention_probe,
     cache_write_probe,
@@ -307,7 +337,9 @@ def sdpa_attention(q, k, v):
 
 def phase_attention() -> dict:
     """K2 at B = 4, H = 20, dh = 64, S in {1500, 500} and one case with
-    valid_len < S, f32 and bf16, and bf16 at B = 1 and 32. Bounds: f32 max
+    valid_len < S, f32 and bf16; bf16 at B = 1 and 32, and at S = 500 (a
+    10 s window) at B = 1 and 3, the batches of a lone stream and of three
+    coalesced server sessions. Bounds: f32 max
     abs err 1e-4 (the same f32 math, summed in another order); bf16 max abs
     err relative to the output's max 2e-2 (both versions round the
     probabilities to bf16 before the value product, the kernel unnormalized
@@ -320,7 +352,8 @@ def phase_attention() -> dict:
     main_shape = None
     cases = [(dtype, 4, s, valid_len) for dtype in (torch.float32, torch.bfloat16)
              for s, valid_len in ((1500, None), (500, None), (1500, 1111))]
-    cases += [(torch.bfloat16, 1, 1500, None), (torch.bfloat16, 32, 1500, None)]
+    cases += [(torch.bfloat16, b, s, None)
+              for b, s in ((1, 1500), (32, 1500), (1, 500), (3, 500))]
     for dtype, b, s, valid_len in cases:
         q, k, v = (torch.randn(b, s, 20, 64, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
@@ -526,12 +559,12 @@ def encoder_drift(model, featurizer) -> None:
           f"attention, 30 s window: relative L2 {rel:.3e}", flush=True)
 
 
-def phase_turbo_s(model) -> None:
+def phase_turbo_s(model) -> WhisperEngine:
     """[turbo S] The turbo model quantized in place as ``"int8-all"`` (int8
     decoder and table, W8A8 encoder), ``WhisperEngine(cross_kv_int8=True)``:
     the 20 s WAV at batch 1 with word timestamps, twice, each with K3's
     count zeroed just before. Every decode step must be one K3 launch
-    (``mega_pays`` at batch 1 for any depth)."""
+    (``mega_pays`` at batch 1 for any depth). Returns the engine."""
     quantize_params(model, components=("decoder",))
     quantize_params(model, components=("encoder",), activation_int8=True)
     engine = WhisperEngine(model, cross_kv_int8=True)
@@ -559,6 +592,326 @@ def phase_turbo_s(model) -> None:
             print(f"[turbo S] call {run}: {len(r20['chunks'])} words, {steps} "
                   f"decode steps, K3 launches {launches}", flush=True)
     engine._generate = generate
+    return engine
+
+
+def percentiles(ms) -> str:
+    p50, p95 = np.percentile(ms, [50, 95])
+    return f"p50 {p50:.1f} ms, p95 {p95:.1f} ms, max {max(ms):.1f} ms"
+
+
+def speech_and_silence(seconds: int, seed: int) -> np.ndarray:
+    """5 s of ``synth_audio`` speech alternating with 5 s of near-silence
+    (the neural VAD passes the first and gates the second)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        synth_audio(5, seed + i) if i % 2 == 0
+        else (0.0005 * rng.standard_normal(5 * SAMPLE_RATE)).astype(np.float32)
+        for i in range(seconds // 5)])
+
+
+def phase_stream(engine: WhisperEngine, smi: str) -> None:
+    """[STREAM] One turbo "S" session: ``StreamingPipeline`` over
+    ``LocalWhisperBackend(ASRPipeline(engine, chunk_length_s=10))`` with
+    the default (neural) VAD, fed 30 s of speech and near-silence in
+    0.05 s chunks, not in real time; with cross-tick reuse (the backend's
+    default), then without. Each tick featurizes once (K1) and encodes a
+    10 s window (K2 in each encoder layer); a greedy tick (every tick
+    without reuse, the first with it) decodes through K3, a drafted one
+    through the plain verify (K4 serves no alignment). ``max_new_tokens``
+    64, as ``GEN_KW``: the random model's text then repeats itself and the
+    gibberish gate empties the ticks. A third arm, with reuse, decodes
+    ``WORD_TOKENS`` a tick, which keeps the text under the gate: it must
+    commit words, so the commits, trims and word dedup run at full width
+    and the order and clock checks hold real words. First the W8A8
+    encoder's wall on 10 s windows at B = 1 and 3 (a lone stream's tick,
+    three coalesced sessions') and on one 30 s window (the same rows as
+    B = 3 at 10 s), then B = 1 at 10 s again (whether the first reading
+    held a one-time cost), host clock, median of 5."""
+    # Built outside inference mode: the log-mel table cache keys on the
+    # filter bank's version counter, which an inference tensor lacks.
+    featurizers = {s: ASRPipeline(engine, chunk_length_s=s).featurizer
+                   for s in (10, 30)}
+    with torch.inference_mode():
+        for b, seconds in ((1, 10), (3, 10), (1, 30), (1, 10)):
+            mel = featurizers[seconds]([synth_audio(seconds, seed=70 + i)
+                                        for i in range(b)])
+            encoder_forward(engine.model, mel)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                encoder_forward(engine.model, mel)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"[STREAM] W8A8 encoder with K2, B={b} x {seconds} s, median of 5: "
+                  f"{sorted(times)[2]:.2f} ms; {smi}", flush=True)
+    for reuse in (True, False):
+        stream_session(engine, reuse, smi, GEN_KW["max_new_tokens"])
+    stream_session(engine, True, smi, WORD_TOKENS)
+
+
+# Tokens a tick in [STREAM]'s word arm.
+WORD_TOKENS = 3
+
+
+def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
+                   max_new: int) -> None:
+    n_enc = engine.arch.encoder_layers
+    pipe = ASRPipeline(engine, chunk_length_s=10, reuse_previous_tokens=reuse)
+    backend = LocalWhisperBackend(pipe, chunk_length_s=10,
+                                  max_new_tokens=max_new)
+    raw, results = [], []
+    backend.asr_pipeline = lambda *a, **k: raw.append(pipe(*a, **k)) or raw[-1]
+    generate = engine._generate
+    engine._generate = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
+    sp = StreamingPipeline(backend=backend, chunk_length_s=10)
+    check(type(sp.vad_model).__name__ == "NeuralVAD", "default VAD not neural")
+    audio = speech_and_silence(30, seed=50)
+    step = int(0.05 * SAMPLE_RATE)
+    chunks = [audio[i: i + step] for i in range(0, len(audio), step)]
+    ticks, committed, max_buffered = [], [], 0
+    logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
+    mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = 0
+    try:
+        for chunk in chunks:
+            before = (logmel.LOGMEL_LAUNCHES, attn.ATTN_LAUNCHES,
+                      mega.MEGA_LAUNCHES, sp.stats["chunks_processed"])
+            t0 = time.perf_counter()
+            c, _ = sp(chunk)
+            wall = (time.perf_counter() - t0) * 1e3
+            committed.extend(c)
+            max_buffered = max(max_buffered, len(sp._buffer))
+            if sp.stats["chunks_processed"] > before[3]:
+                ticks.append({"ms": wall, "k1": logmel.LOGMEL_LAUNCHES - before[0],
+                              "k2": attn.ATTN_LAUNCHES - before[1],
+                              "k3": mega.MEGA_LAUNCHES - before[2],
+                              "engine_ms": results[-1].decode_time_s * 1e3,
+                              "res": results[-1], "out": raw[-1]})
+    finally:
+        engine._generate = generate
+    tag = f"reuse {'on' if reuse else 'off'}, {max_new} tokens"
+    check(len(ticks) == len(results) == len(raw), "one engine call a tick")
+    if max_new == WORD_TOKENS:
+        check(len(committed) > 0, f"{tag}: no word committed")
+    check(0 < sp.stats["chunks_processed"] < len(chunks),
+          f"chunks_processed {sp.stats['chunks_processed']} of {len(chunks)}")
+    check(max_buffered <= sp.window_size * SAMPLE_RATE,
+          f"buffer held {max_buffered} samples, window {sp.window_size} s")
+    starts = [w["start"] for w in committed]
+    check(all(a <= b for a, b in zip(starts, starts[1:])),
+          "committed starts out of order")
+    check(all(t <= sp.current_time for t in starts),
+          "a committed word starts after the stream's clock")
+    for i, t in enumerate(ticks):
+        check(t["k1"] == 1 and t["k2"] == n_enc,
+              f"{tag}, tick {i}: K1 {t['k1']} / K2 {t['k2']} launches, "
+              f"want 1 / {n_enc}")
+        res = t["res"]
+        check(bool(np.isfinite(res.token_logprobs).all()
+                   and np.isfinite(res.align).all()), f"tick {i} not finite")
+        steps = min(int(res.num_generated[0]), max_new - 1)
+        greedy = res.spec_rounds is None
+        check(greedy or reuse, f"{tag}, tick {i} decoded speculatively")
+        check(t["k3"] == (steps if greedy else 0),
+              f"{tag}, tick {i}: K3 launches {t['k3']}, {steps} steps, "
+              f"greedy {greedy}")
+    check(ticks[0]["res"].spec_rounds is None and ticks[0]["k3"] > 0,
+          "the first tick did not decode through K3")
+    check(mega.MEGA_VERIFY_LAUNCHES == 0, "K4 launched on an alignment tick")
+    gated = [compression_ratio(t["out"]["text"]) > GIBBERISH_THRESHOLD
+             for t in ticks]
+    worded = sum(bool(t["out"]["chunks"]) and not g
+                 for t, g in zip(ticks, gated))
+    drafted = [t for t in ticks if t["res"].spec_rounds is not None]
+    per_round = (sum(int(t["res"].num_generated[0]) - 1 for t in drafted)
+                 / max(1, sum(t["res"].spec_rounds for t in drafted)))
+    print(f"[STREAM] turbo S, {tag}, 10 s windows, 30 s in {len(chunks)} "
+          f"chunks of 0.05 s: {len(ticks)} ticks ({len(ticks) - len(drafted)} "
+          f"greedy, {len(drafted)} drafted from the previous tick at "
+          f"{per_round:.2f} tokens a verify round), {worded} with words, "
+          f"{sum(gated)} emptied by the gibberish gate, {len(committed)} "
+          f"words committed; buffer at most {max_buffered / SAMPLE_RATE:.2f} "
+          f"s; launches K1 {logmel.LOGMEL_LAUNCHES}, K2 {attn.ATTN_LAUNCHES}, "
+          f"K3 {mega.MEGA_LAUNCHES}, K4 {mega.MEGA_VERIFY_LAUNCHES}", flush=True)
+    walls = [t["ms"] for t in ticks]
+    print(f"[STREAM] {tag}, tick wall (host clock, the call that "
+          f"transcribed): {percentiles(walls)}; first (greedy, K3) "
+          f"{walls[0]:.1f} ms; drafted ticks "
+          f"{percentiles([t['ms'] for t in drafted]) if drafted else 'none'}; "
+          f"of each tick the engine call (audio to the host copy of tokens "
+          f"and alignment) {percentiles([t['engine_ms'] for t in ticks])}; "
+          f"{smi}", flush=True)
+
+
+class Session:
+    """One server session over a keep-alive stdlib connection; ``manager``
+    is the server's ``SessionManager``, read in process to tell the
+    ``process`` calls that transcribed from those that found no tick."""
+
+    def __init__(self, port: int, manager):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        self.sid = self.post("/session/create/")["session_id"]
+        self.manager = manager
+
+    def transcribed(self) -> int:
+        """The session's ticks so far (its ``chunks_processed``)."""
+        return self.manager.stats()["per_session"][self.sid]["chunks_processed"]
+
+    def request(self, method: str, path: str) -> dict:
+        self.conn.request(method, path)
+        r = self.conn.getresponse()
+        body = json.loads(r.read())
+        check(r.status == 200, f"{method} {path.split('?')[0]}: {r.status} {body}")
+        return body
+
+    def post(self, path: str) -> dict:
+        return self.request("POST", path)
+
+    def stream(self, chunks, barrier=None):
+        """add_chunk + process per chunk; returns the words of each process
+        call and its wall in ms, the walls of the calls that transcribed
+        (a tick) apart from those that did not."""
+        ticks, walls = [], {"tick": [], "no tick": []}
+        for chunk in chunks:
+            b64 = base64.b64encode(chunk.astype(np.float32).tobytes()).decode()
+            self.post(f"/session/{self.sid}/add_chunk?audio_data={quote(b64)}")
+            if barrier is not None:
+                barrier.wait(timeout=300)
+            before = self.transcribed()
+            t0 = time.perf_counter()
+            out = self.post(f"/session/{self.sid}/process")
+            wall = (time.perf_counter() - t0) * 1e3
+            walls["tick" if self.transcribed() > before else "no tick"].append(wall)
+            ticks.append([out["words"], out["uncommited_words"]])
+        return ticks, walls
+
+    def end(self) -> None:
+        self.post(f"/session/{self.sid}/end")
+        self.conn.close()
+
+
+def phase_server(engine: WhisperEngine, smi: str) -> None:
+    """[SERVER] The objects ``python -m thewhisper_tpu_torch.server`` builds
+    (``server.launch.serve_pipeline``: kernels built and every batch size
+    warmed, ``BatchedTranscriber`` with ``max_batch`` 4, ``SessionManager``,
+    ``StreamingServer``) over ``ASRPipeline(engine, chunk_length_s=10,
+    reuse_previous_tokens=True)``, on 127.0.0.1, port 0. Three sessions at
+    once over stdlib HTTP (30 chunks of 0.1 s each, a barrier before each
+    ``process``), ``/stats``, ``/health``, ``end``: every response 200, a
+    coalesced batch above 1, K1 and K2 launched. Then one session alone,
+    whose words must equal a ``StreamingPipeline``'s over a fresh
+    transcriber fed the same chunks directly."""
+    max_new = GEN_KW["max_new_tokens"]
+
+    def recorded(asr):
+        """(buffers, texts) of each ``transcribe_batch`` call of ``asr``."""
+        calls, batch = [], asr.transcribe_batch
+
+        def call(audios, **kwargs):
+            out = batch(audios, **kwargs)
+            calls.append(([np.array(a) for a in audios],
+                          [r["text"] for r in out]))
+            return out
+
+        asr.transcribe_batch = call
+        return calls
+
+    asr = ASRPipeline(engine, chunk_length_s=10, reuse_previous_tokens=True)
+    calls = recorded(asr)
+    t0 = time.perf_counter()
+    server, transcriber = serve_pipeline(
+        asr, ServerConfig(host="127.0.0.1", port=0), max_batch=4,
+        max_new_tokens=max_new)
+    print(f"[SERVER] built and warmed (batches "
+          f"{[len(a) for a, _ in calls]}) in "
+          f"{time.perf_counter() - t0:.2f} s; {smi}", flush=True)
+    base = synth_audio(3, seed=60)
+    rng = np.random.default_rng(61)
+    step = int(0.1 * SAMPLE_RATE)
+    # One utterance with a little noise of its own a session: the VAD
+    # flushes at the same chunks, so the sessions' ticks meet in a batch.
+    streams = [np.split(
+        (base + 0.005 * rng.standard_normal(len(base))).astype(np.float32),
+        len(base) // step) for _ in range(3)]
+    server.start_background()
+    try:
+        calls.clear()
+        logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = mega.MEGA_LAUNCHES = 0
+        barrier = threading.Barrier(3)
+        walls, errors = {"tick": [], "no tick": []}, []
+
+        def drive(chunks):
+            try:
+                session = Session(server.port, server.manager)
+                _, w = session.stream(chunks, barrier)
+                for k, v in w.items():
+                    walls[k].extend(v)
+                session.request("GET", "/stats")
+                health = session.request("GET", "/health")
+                check(health["backend"] == "cuda", f"/health: {health}")
+                session.end()
+            except Exception as e:  # re-raised below
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=drive, args=(s,)) for s in streams]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "a session thread hung")
+        if errors:
+            raise errors[0]
+        launches = {"logmel": logmel.LOGMEL_LAUNCHES,
+                    "encoder_attention": attn.ATTN_LAUNCHES,
+                    "mega_step": mega.MEGA_LAUNCHES}
+        sizes = [len(a) for a, _ in calls]
+        check(max(sizes) > 1, f"no coalesced batch: sizes {sizes}")
+        check(launches["logmel"] > 0 and launches["encoder_attention"] > 0,
+              f"kernel launches on the server path {launches}")
+        check(len(walls["tick"]) == sum(sizes),
+              f"{len(walls['tick'])} process calls transcribed, "
+              f"{sum(sizes)} buffers transcribed")
+        print(f"[SERVER] three sessions, 30 x 0.1 s each: every response 200, "
+              f"batches {sizes}, launches {launches}; process wall (host "
+              f"clock, stdlib HTTP) of the {len(walls['tick'])} calls that "
+              f"transcribed {percentiles(walls['tick'])}, of the "
+              f"{len(walls['no tick'])} that found no tick "
+              f"{percentiles(walls['no tick'])}; {smi}", flush=True)
+        asr._prev_gen_tokens = None
+        calls.clear()
+        session = Session(server.port, server.manager)
+        served, _ = session.stream(streams[0])
+        session.end()
+        served_calls = list(calls)
+    finally:
+        server.shutdown()
+        transcriber.close()
+    direct_asr = ASRPipeline(engine, chunk_length_s=10,
+                             reuse_previous_tokens=True)
+    direct_calls = recorded(direct_asr)
+    direct_bt = BatchedTranscriber(direct_asr, max_new_tokens=max_new)
+    try:
+        sp = StreamingPipeline(backend=direct_bt.backend(), chunk_length_s=10)
+        direct = [sp(c) for c in streams[0]]
+    finally:
+        direct_bt.close()
+    # The buffers the engine saw and its texts as well as the words: with
+    # random weights the gibberish gate may empty every tick's words.
+    check(len(served_calls) == len(direct_calls) > 0
+          and all(len(a) == len(b) == 1 and np.array_equal(a[0], b[0])
+                  and t == u
+                  for (a, t), (b, u) in zip(served_calls, direct_calls)),
+          "the served session's buffers or texts differ from the direct "
+          "pipeline's")
+    check(json.loads(json.dumps(direct)) == served,
+          "the served session's words differ from the direct pipeline's")
+    n_words = sum(len(c) + len(a) for c, a in served)
+    print(f"[SERVER] one session alone: its {len(served_calls)} buffers, "
+          f"texts and words equal a StreamingPipeline's fed the same chunks "
+          f"directly ({n_words} words over {len(served)} process calls)",
+          flush=True)
 
 
 def phase_small_reference() -> None:
@@ -600,9 +953,10 @@ def phase_small_reference() -> None:
 
 def phase_s_path():
     """The "S" main path at large-v3 width. Returns (model, the W8A8
-    encoder's output on one 30 s window, with K2, as the pipeline computes
-    it, K3 launches of the batch-1 call). [K3] and [K4] take their cross K/V
-    from that output: the production cross K/V."""
+    encoder's outputs, with K2, as the pipeline computes them, on one 30 s
+    window and on one 10 s window (a streaming tick's), K3 launches of the
+    batch-1 call). [K3] and [K4] take their cross K/V from those outputs:
+    the production cross K/V."""
     dev = torch.device("cuda", 0)
     arch = dataclasses.replace(
         ARCH_PRESETS["large-v3"],
@@ -619,15 +973,20 @@ def phase_s_path():
           f"init {time.perf_counter() - t0:.2f} s", flush=True)
     mel = LogMelFeaturizer(n_mels=arch.n_mels, device=dev)(
         synth_audio(30, seed=3))
+    mel10 = LogMelFeaturizer(n_mels=arch.n_mels, chunk_length_s=10,
+                             device=dev)(synth_audio(10, seed=3))
     with torch.inference_mode():
         enc_bf16 = encoder_forward(model, mel)
     quantize_params(model, components=("decoder",))
     quantize_params(model, components=("encoder",), activation_int8=True)
     with torch.inference_mode():
         enc = encoder_forward(model, mel)
+        enc10 = encoder_forward(model, mel10)
         diff = enc.float() - enc_bf16.float()
         rel = (diff.norm() / enc_bf16.float().norm()).item()
-    check(bool(torch.isfinite(enc).all()), "W8A8 encoder output not finite")
+    check(bool(torch.isfinite(enc).all() and torch.isfinite(enc10).all())
+          and enc10.shape[1] == 500,
+          f"W8A8 encoder output not finite or 10 s shape {tuple(enc10.shape)}")
     print(f"[S] W8A8 encoder vs bf16 encoder, 30 s window: relative L2 err "
           f"{rel:.3e}, max abs err {diff.abs().max().item():.3e}", flush=True)
     del enc_bf16, diff
@@ -683,7 +1042,7 @@ def phase_s_path():
                    and np.isfinite(res.align).all()), "S result not finite")
     print(f"[S] 20 s: {len(r20['chunks'])} words, {steps} K3 steps; batch: "
           f"{[len(r['chunks']) for r in rb]} words", flush=True)
-    return model, enc, k3_batch1
+    return model, {30: enc, 10: enc10}, k3_batch1
 
 
 def first_row_ratio(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -700,10 +1059,14 @@ def first_row_ratio(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((g - r).abs() / bound).max().item()
 
 
-# K3's cases: (decoder layers, cache length, positions). Cache lengths are
-# the prompt's 4 plus max_new 1, 64 and 224; the last position is S - 1.
-K3_CASES = ((32, 5, (4,)), (32, 68, (4, 40, 67)), (32, 228, (4, 150, 227)),
-            (4, 68, (4, 67)), (1, 68, (4, 11, 20, 33, 40, 52, 60, 67)))
+# K3's cases: (decoder layers, cache length, positions, window in s). Cache
+# lengths are the prompt's 4 plus max_new 1, 64 and 224; the last position
+# is S - 1. A 30 s window gives T = 1500 cross positions; a 10 s window (a
+# streaming tick's) T = 500, at turbo's depth and at large-v3's.
+K3_CASES = ((32, 5, (4,), 30), (32, 68, (4, 40, 67), 30),
+            (32, 228, (4, 150, 227), 30), (4, 68, (4, 67), 30),
+            (1, 68, (4, 11, 20, 33, 40, 52, 60, 67), 30),
+            (4, 68, (4, 40, 67), 10), (32, 68, (4, 40, 67), 10))
 # Kernel and plain step round at the same points, but their f32 sums run
 # in another order, so now and then one value rounds to the other bf16
 # neighbour, and that difference spreads through every later rounding. On
@@ -801,11 +1164,12 @@ def stamp_table(tag: str, stamps: torch.Tensor, n_layers: int,
             "final_us": final_us, "total_us": total, "phases": phases}
 
 
-def phase_mega(model, enc) -> dict:
+def phase_mega(model, encs) -> dict:
     """K3 against its plain version on the S model's packed operands
-    (random biases and LayerNorm parameters), the cross K/V of a 30 s
-    window through the W8A8 encoder with K2 and random bf16 self K/V, on
-    the first L layers for each of ``K3_CASES``. Checks: the f32-referenced
+    (random biases and LayerNorm parameters), the cross K/V of a 30 s or a
+    10 s window through the W8A8 encoder with K2 (``encs``, by window) and
+    random bf16 self K/V, on the first L layers for each of ``K3_CASES``.
+    Checks: the f32-referenced
     bound (``F32_RATIO``) on the logits, the alignment and every layer's
     fresh k/v row; at L = 1 ``K3_ONE_LAYER_REL`` and ``K3_EXACT`` for the
     best step; layer 0's fresh k/v row to ``first_row_ratio``; every other
@@ -815,18 +1179,18 @@ def phase_mega(model, enc) -> dict:
     arch, mp = model.arch, model.mega
     dev = model.device
     g = torch.Generator(device=dev).manual_seed(7)
-    main, times = None, {}
+    main = None
     with torch.inference_mode():
-        ck, cv = compute_cross_kv(model, enc)
-        ck, cv = quantize_kv(ck), quantize_kv(cv)
-        for depth, s_len, positions in K3_CASES:
+        cross = {w: tuple(map(quantize_kv, compute_cross_kv(model, enc)))
+                 for w, enc in encs.items()}
+        for depth, s_len, positions, window in K3_CASES:
             arch_l = dataclasses.replace(arch, decoder_layers=depth)
-            mp_l, ck_l, cv_l = _layers(mp, ck, cv, depth)
+            mp_l, ck_l, cv_l = _layers(mp, *cross[window], depth)
             base = make_cache(arch_l, 1, s_len, ck_l, cv_l,
                               dtype=torch.bfloat16)
             for t in (base.self_k, base.self_v):
                 t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
-            where = f"L={depth} S={s_len}"
+            where = f"L={depth} S={s_len} T={ck_l.q.shape[-2]}"
             rels = []
             for pos in positions:
                 x = embed_tokens(model, torch.tensor([[100 + pos]], device=dev),
@@ -851,7 +1215,7 @@ def phase_mega(model, enc) -> dict:
                 keep = torch.arange(s_len, device=dev) != pos
                 same = all(torch.equal(got[:, :, :, keep], ref_[:, :, :, keep])
                            for c in caches for got, ref_ in zip(c[:2], base[:2]))
-                print(f"[K3] {where:>11} pos={pos:>3d}: logits max abs err "
+                print(f"[K3] {where:>18} pos={pos:>3d}: logits max abs err "
                       f"{err:.3e} (rel {rel:.3e}); distance from f32 over the "
                       f"plain version's: "
                       f"{', '.join(f'{k} {v:.3f}' for k, v in ratios.items())};"
@@ -873,11 +1237,10 @@ def phase_mega(model, enc) -> dict:
             plain_ms = cuda_ms(
                 lambda: mega.mega_step_plain(mp_l, x, pos, caches[1], arch_l),
                 iters=5)
-            times[depth, s_len] = (ms, dev_ms)
-            print(f"[K3] {where:>11}: kernel {ms:.4f} ms eager, {dev_ms:.4f} ms "
+            print(f"[K3] {where:>18}: kernel {ms:.4f} ms eager, {dev_ms:.4f} ms "
                   f"on the device (CUDA graph)  plain {plain_ms:.4f} ms per step",
                   flush=True)
-            if (depth, s_len) == (32, 68):      # the main path's step
+            if (depth, s_len, window) == (32, 68, 30):  # the main path's step
                 stamps = mega.stamps_tensor(depth, dev)
                 mega.mega_step(mp_l, x, pos, caches[0], arch_l, stamps=stamps)
                 torch.cuda.synchronize()
@@ -1514,15 +1877,17 @@ def main() -> None:
     k1 = phase_logmel()
     k2 = phase_attention()
     launches, turbo = phase_main_path()
-    phase_turbo_s(turbo)
-    del turbo
+    turbo_s = phase_turbo_s(turbo)
+    phase_stream(turbo_s, smi)
+    phase_server(turbo_s, smi)
+    del turbo, turbo_s
     torch.cuda.empty_cache()
     phase_small_reference()
-    model, enc, k3_launches = phase_s_path()
-    k3 = phase_mega(model, enc)
-    k4 = phase_verify(model, enc)
+    model, encs, k3_launches = phase_s_path()
+    k3 = phase_mega(model, encs)
+    k4 = phase_verify(model, encs[30])
     k4_launches = phase_spec(model)
-    del model, enc
+    del model, encs
     torch.cuda.empty_cache()
     p1 = phase_control(smi)
     p2, p3 = phase_mlp(smi)

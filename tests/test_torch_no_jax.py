@@ -38,13 +38,18 @@ def test_every_port_module_imports_without_jax():
         "print(' '.join(names))\n")
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 27
+    assert len(names) >= 41
     assert "thewhisper_tpu_torch.engine.speculative" in names
     assert "thewhisper_tpu_torch.ops.mega_step" in names
+    # Importing the server's __main__ (walked like every other module)
+    # must start nothing: its main() runs only under the __main__ check.
     for name in ("config", "align", "text", "ops.mlp_chain",
                  "ops.attention_control", "ops.cache_write",
                  "tools.gemv_chain_probe", "tools.attention_probe",
-                 "tools.mega_caps_probe", "tools.cache_write_probe"):
+                 "tools.mega_caps_probe", "tools.cache_write_probe",
+                 "streaming.pipeline", "streaming.vad", "streaming.ring",
+                 "streaming.streams", "streaming.batching", "server.http",
+                 "server.launch", "server.__main__", "run_streaming"):
         assert f"thewhisper_tpu_torch.{name}" in names
 
 

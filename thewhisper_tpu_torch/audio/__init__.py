@@ -4,4 +4,4 @@ from thewhisper_tpu_torch.audio.features import (  # noqa: F401
     log_mel_spectrogram,
     mel_filter_bank,
 )
-from thewhisper_tpu_torch.audio.io import load_audio, resample  # noqa: F401
+from thewhisper_tpu_torch.audio.io import load_audio, resample, wav_bytes  # noqa: F401

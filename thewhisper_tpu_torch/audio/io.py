@@ -4,7 +4,8 @@ Counterpart of ``thewhisper_tpu/audio/io.py::load_audio`` for the formats
 the port reads: PCM 8/16/24/32-bit and IEEE float WAV through ``wave``
 (float WAV, which ``wave`` refuses, through a small RIFF chunk walk), mixed
 down to mono and resampled with scipy's polyphase filter (numpy linear
-interpolation where scipy is missing).
+interpolation where scipy is missing). ``wav_bytes`` encodes audio as
+16-bit PCM WAV for the remote streaming backends.
 """
 
 from __future__ import annotations
@@ -94,3 +95,19 @@ def load_audio(path_or_bytes: Union[str, bytes], sr: int = 16000) -> np.ndarray:
             data = f.read()
     x, rate = _read_wav(data)
     return resample(x.mean(axis=1), rate, sr)
+
+
+def wav_bytes(audio: np.ndarray, sr: int = 16000) -> bytes:
+    """Encode mono float audio as 16-bit PCM WAV bytes (for HTTP backends).
+
+    Mirrors ``RemoteAPIBackend._audio_to_wav_bytes``
+    (reference ``streaming_pipeline.py:94-113``).
+    """
+    buf = io.BytesIO()
+    pcm = (np.clip(audio.astype(np.float32), -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sr)
+        wf.writeframes(pcm.tobytes())
+    return buf.getvalue()

@@ -3,14 +3,14 @@ generation options and the audio front end's constants (the port's own
 copy of thewhisper_tpu's ``config.py``; the values are the same, and
 ``tests/test_torch_host.py`` holds them equal field for field).
 
-The streaming and server settings of the JAX module come with the port of
-streaming and the server. Every consumer in the port reads an arch by its
-attributes, so a JAX ``WhisperArch`` works wherever this one does.
+Every consumer in the port reads an arch by its attributes, so a JAX
+``WhisperArch`` works wherever this one does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -134,6 +134,49 @@ class GenerationOptions:
     return_timestamps: bool = False  # word timestamps via DTW alignment
     temperature: float = 0.0
     seed: int = 0                    # generator seed when temperature > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingConfig:
+    """Streaming state-machine constants (reference streaming_pipeline.py):
+    the defaults of ``streaming.pipeline`` (``StreamingPipeline``, the
+    local backend, the gibberish gate and the open-end clamp), of
+    ``BatchedTranscriber`` and of the server's ``SessionManager``."""
+
+    sample_rate: int = 16000
+    chunk_length_s: float = 10.0
+    min_process_chunk_s: float = 0.5
+    # window = chunk_length - 1 (reference :479)
+    use_vad: bool = True
+    vad_threshold: float = 0.1
+    vad_no_speech_chunks: int = 1
+    vad_prepend_chunks: int = 3
+    language: str = "en"
+    max_new_tokens: int = 128
+    gibberish_threshold: float = 2.2   # zlib compression-ratio filter (:41-43)
+    max_word_duration: float = 1.0     # clamp for open-ended words (:416-426)
+
+    @property
+    def window_size_s(self) -> float:
+        return self.chunk_length_s - 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """REST server config (env parity with reference ``examples/server.py``)."""
+
+    host: str = "127.0.0.1"
+    port: int = 8800
+    chunk_length_s: int = 10
+    pidfile: str = "/tmp/asr_streaming_server.pid"
+
+    @staticmethod
+    def from_env() -> "ServerConfig":
+        return ServerConfig(
+            host=os.getenv("ASR_STREAMING_HOST", "127.0.0.1"),
+            port=int(os.getenv("ASR_STREAMING_PORT", "8800")),
+            chunk_length_s=int(os.getenv("CHUNK_SECONDS", "10")),
+        )
 
 
 # Audio front-end constants (HF WhisperFeatureExtractor parity).

@@ -1,0 +1,116 @@
+"""Build and run the REST streaming server (the port's counterpart of
+``examples/server.py``). Start it with::
+
+    ASR_MODEL=/path/to/checkpoint python -m thewhisper_tpu_torch.server
+
+Environment (the same variables as the JAX example and the reference):
+    ASR_STREAMING_HOST (default 127.0.0.1), ASR_STREAMING_PORT (default 8800)
+    CHUNK_SECONDS (default 10)
+    ASR_BACKEND_TYPE: "whisper" for the remote Triton gateway; anything
+        else (default) serves the local engine
+    TRITON_URL / TRITON_AUTH_TOKEN / TRITON_MODEL_NAME / TRITON_LANG_ID
+    ASR_MODEL: HF checkpoint directory for the local engine (read with the
+        ``safetensors`` package)
+    ASR_MODEL_SIZE (None/"XL", "XL32", "S"), ASR_DRAFT, ASR_REUSE_PREV
+        (default 1), ASR_WARMUP (default 1; 0 skips the warm-up)
+
+ASR_LATENCY_BUCKETS is not ported (ROADMAP Queue 1 item 4): setting it
+raises ``NotImplementedError`` rather than serving without it.
+
+Every session has its own state machine; the decode requests of all
+sessions are batched into single engine calls on the card (or on the CPU
+when ``build_server`` is asked for it).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from thewhisper_tpu_torch.config import SAMPLE_RATE, ServerConfig
+from thewhisper_tpu_torch.server.http import SessionManager, StreamingServer
+from thewhisper_tpu_torch.streaming.batching import BatchedTranscriber
+
+
+def warm_up(asr, chunk_length_s: float, max_new_tokens: int = 128,
+            max_batch: int = 8) -> None:
+    """One ``transcribe_batch`` of a full rolling window at each batch size
+    the coalescer can form, 1 to ``max_batch``: the kernels are built and
+    run (batch 1 takes K3 where the engine packed it), and the caching
+    allocator holds the blocks of each size, before the first request."""
+    one = np.zeros(int((chunk_length_s - 1) * SAMPLE_RATE), np.float32)
+    gk = {"max_new_tokens": max_new_tokens, "language": "en"}
+    for nb in range(1, max_batch + 1):
+        asr.transcribe_batch([one] * nb, return_timestamps="word",
+                             generate_kwargs=dict(gk))
+
+
+def serve_pipeline(asr, config: ServerConfig, warmup: bool = True,
+                   max_batch: int = 8, max_new_tokens: int = 128,
+                   ) -> Tuple[StreamingServer, BatchedTranscriber]:
+    """A server whose sessions share ``asr`` (a port ``ASRPipeline``)
+    through one :class:`BatchedTranscriber`. On the card the kernels are
+    built here, before the worker thread takes a request. The caller
+    starts the server and closes the transcriber."""
+    device = asr.engine.device
+    if device.type == "cuda":
+        from thewhisper_tpu_torch.ops import _build
+
+        _build.lib()
+    if warmup:
+        warm_up(asr, config.chunk_length_s, max_new_tokens, max_batch)
+    transcriber = BatchedTranscriber(asr, max_batch=max_batch,
+                                     max_new_tokens=max_new_tokens)
+    manager = SessionManager(transcriber.backend,
+                             chunk_length_s=config.chunk_length_s,
+                             backend_type=device.type)
+    return StreamingServer(manager, config), transcriber
+
+
+def build_server(device="cuda", config: Optional[ServerConfig] = None,
+                 ) -> Tuple[StreamingServer, Optional[BatchedTranscriber]]:
+    """The server ``python -m thewhisper_tpu_torch.server`` runs, built from
+    the environment; the transcriber is None for the remote backend."""
+    config = config or ServerConfig.from_env()
+    if os.getenv("ASR_BACKEND_TYPE", "cuda").lower() == "whisper":
+        from thewhisper_tpu_torch.streaming.pipeline import (
+            RemoteAPITimestampsBackend,
+        )
+
+        manager = SessionManager(RemoteAPITimestampsBackend.from_env,
+                                 chunk_length_s=config.chunk_length_s,
+                                 backend_type="whisper")
+        return StreamingServer(manager, config), None
+    if os.getenv("ASR_LATENCY_BUCKETS", "").strip():
+        raise NotImplementedError(
+            "ASR_LATENCY_BUCKETS (sub-chunk encoder buckets) is not ported "
+            "yet (ROADMAP Queue 1 item 4)")
+    model = os.getenv("ASR_MODEL")
+    if not model:
+        raise SystemExit("set ASR_MODEL to an HF checkpoint directory")
+    from thewhisper_tpu_torch.pipeline import ASRPipeline
+
+    # ASR_REUSE_PREV defaults on: the previous tick's tokens draft each
+    # re-decode. Rows associate by batch position, so a change in the
+    # coalesced batch only costs verify misses, never content.
+    asr = ASRPipeline(
+        model, chunk_length_s=config.chunk_length_s,
+        model_size=os.getenv("ASR_MODEL_SIZE") or None,
+        draft=os.getenv("ASR_DRAFT") or None,
+        reuse_previous_tokens=os.getenv("ASR_REUSE_PREV", "1") == "1",
+        device=device)
+    return serve_pipeline(asr, config,
+                          warmup=os.getenv("ASR_WARMUP", "1") != "0")
+
+
+def main() -> None:
+    server, transcriber = build_server()
+    print(f"Server started on {server.config.host}:{server.port} "
+          f"(backend {server.manager.backend_type})", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        if transcriber is not None:
+            transcriber.close()
