@@ -32,7 +32,8 @@ is false. Phases, each of which raises on failure:
    encoder's relative L2 drift from an f32 copy with the plain attention.
    [turbo S] Then the same model quantized as ``"int8-all"`` with int8
    cross K/V: the 20 s WAV at batch 1, every decode step one K3 launch.
-   [STREAM] That engine under the streaming pipeline (10 s windows, the
+   [STREAM] That engine under the streaming pipeline (featurizers built
+   under ``torch.inference_mode``; 10 s windows, the
    neural VAD, cross-tick reuse on and off): 30 s of speech and
    near-silence in 0.05 s chunks; every tick one K1 and a K2 a layer, the
    greedy ticks K3, the buffer within the window; tick walls. A third arm
@@ -99,6 +100,15 @@ is false. Phases, each of which raises on failure:
 13. [probes] The probes' path: each probe entry point
     (``thewhisper_tpu_torch.tools``) runs on the card, with the launch counts
     of its kernels read around it.
+14. [TRAIN] The training path: K2 with its residual (lse), K2-dkv and
+    K2-dq (the TPU library flash attention's save_residuals forward and its
+    two backward kernels) against their plain versions at B = 8 x S = 500,
+    B = 4 x S = 1500 and B = 1 x S = 1500 with valid_len 1100, f32 and
+    bf16, timed beside ``scaled_dot_product_attention``'s forward and
+    backward; then fine-tuning and distillation at large-v3-turbo's full
+    width (``phase_train``: arms A, B and C, the checkpoint round trip
+    through the stdlib safetensors writer and reader, a distilled
+    layer-skip student), every training step's launches counted.
 
 Times come from CUDA events; every time printed is measured in the run,
 and the bounds are computed from the run's shapes. The kernels' JSON line
@@ -144,12 +154,16 @@ from thewhisper_tpu_torch.audio.features import (
 )
 from thewhisper_tpu_torch.config import (
     ARCH_PRESETS,
+    LANGUAGES,
     SAMPLE_RATE,
     GenerationOptions,
     ServerConfig,
+    SpecialTokens,
 )
 from thewhisper_tpu_torch.engine import WhisperEngine
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
+from thewhisper_tpu_torch.models.checkpoint import save_hf_checkpoint
+from thewhisper_tpu_torch.models.load import load_checkpoint
 from thewhisper_tpu_torch.models.quant import (
     QuantizedKV,
     quantize_kv,
@@ -180,6 +194,7 @@ from thewhisper_tpu_torch.streaming.pipeline import (
     GIBBERISH_THRESHOLD,
     compression_ratio,
 )
+from thewhisper_tpu_torch.training import distill, train
 from thewhisper_tpu_torch.tools import (
     attention_probe,
     cache_write_probe,
@@ -628,11 +643,15 @@ def phase_stream(engine: WhisperEngine, smi: str) -> None:
     three coalesced sessions') and on one 30 s window (the same rows as
     B = 3 at 10 s), then B = 1 at 10 s again (whether the first reading
     held a one-time cost), host clock, median of 5."""
-    # Built outside inference mode: the log-mel table cache keys on the
-    # filter bank's version counter, which an inference tensor lacks.
-    featurizers = {s: ASRPipeline(engine, chunk_length_s=s).featurizer
-                   for s in (10, 30)}
+    # Built under inference mode, as a caller inside it builds them: the
+    # log-mel table cache keys an inference filter bank without a version
+    # counter (it has none), so K1 takes them.
     with torch.inference_mode():
+        featurizers = {s: ASRPipeline(engine, chunk_length_s=s).featurizer
+                       for s in (10, 30)}
+        check(featurizers[10].mel_fb.is_inference(), "featurizer not built "
+              "under inference mode")
+        k1_before = logmel.LOGMEL_LAUNCHES
         for b, seconds in ((1, 10), (3, 10), (1, 30), (1, 10)):
             mel = featurizers[seconds]([synth_audio(seconds, seed=70 + i)
                                         for i in range(b)])
@@ -646,6 +665,8 @@ def phase_stream(engine: WhisperEngine, smi: str) -> None:
                 times.append((time.perf_counter() - t0) * 1e3)
             print(f"[STREAM] W8A8 encoder with K2, B={b} x {seconds} s, median of 5: "
                   f"{sorted(times)[2]:.2f} ms; {smi}", flush=True)
+    check(logmel.LOGMEL_LAUNCHES == k1_before + 4,
+          "the featurizers built in inference mode did not run K1")
     for reuse in (True, False):
         stream_session(engine, reuse, smi, GEN_KW["max_new_tokens"])
     stream_session(engine, True, smi, WORD_TOKENS)
@@ -1864,6 +1885,374 @@ def phase_probes() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [TRAIN] fine-tuning and draft distillation at turbo's full width
+
+
+TRAIN_TOKENS = 128          # run_finetune.py's --max-tokens
+# The backward kernels' cases: (B, S, valid_len), H = 20, f32 and bf16.
+BWD_CASES = ((8, 500, None), (4, 1500, None), (1, 1500, 1100))
+
+
+def phase_attention_backward(smi: str) -> dict:
+    """K2 with lse (K2-fwd-res), K2-dkv and K2-dq against their plain
+    versions at ``BWD_CASES``, f32 and bf16. Bounds: lse to 1e-4 absolute
+    of ``attention_lse_plain`` (the logsumexp of the scaled scores; the
+    kernels sum exp2 in the log2 domain); the output bit-equal to the
+    inference launch's; f32 gradients to 1e-4 relative L2 of the plain
+    backward on the same out and lse (f32 sums in another order); bf16
+    gradients at most ``F32_RATIO`` times the plain bf16 backward's
+    distance from the f32 gradients of the same inputs (both round P and
+    dS to bf16). Times from CUDA events; ``scaled_dot_product_attention``'s
+    forward (on inputs that require grad, so it keeps its residuals) and
+    backward on the same inputs as yardsticks. Returns the kernels-line
+    entries at arm A's shape (B = 8, S = 500, f32)."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        for b, s, valid_len in BWD_CASES:
+            q, k, v, do = (torch.randn(b, s, 20, 64, generator=g, device=dev)
+                           .to(dtype) for _ in range(4))
+            valid = valid_len or s
+            out, lse = attn.encoder_attention_residuals(q, k, v, valid_len)
+            got = attn.encoder_attention_backward(q, k, v, out, lse, do, valid_len)
+            torch.cuda.synchronize()
+            lse_err = (lse - attn.attention_lse_plain(q, k, valid_len)).abs().max().item()
+            check(lse_err <= 1e-4, f"K2 lse err {lse_err}")
+            check(torch.equal(out, attn.encoder_attention(q, k, v, valid_len)),
+                  "K2 with lse wrote another output than without")
+            plain = attn.encoder_attention_backward_plain(q, k, v, out, lse, do,
+                                                          valid_len)
+            if valid < s:
+                check(not got[1][:, valid:].any() and not got[2][:, valid:].any(),
+                      "dK/dV of masked keys not zero")
+            if dtype == torch.float32:
+                errs = [l2_rel(x, r).item() for x, r in zip(got, plain)]
+                check(max(errs) <= 1e-4, f"K2 backward f32 rel L2 {errs}")
+                shown = "rel L2 dq/dk/dv " + " ".join(f"{e:.2e}" for e in errs)
+            else:
+                f = [x.float() for x in (q, k, v, do)]
+                out32, lse32 = attn.encoder_attention_residuals(*f[:3], valid_len)
+                ref = attn.encoder_attention_backward_plain(*f[:3], out32, lse32,
+                                                            f[3], valid_len)
+                errs = [f32_ratio(x, p, r) for x, p, r in zip(got, plain, ref)]
+                check(max(errs) <= F32_RATIO, f"K2 backward bf16 ratios {errs}")
+                shown = ("distance from f32 over the plain bf16's, dq/dk/dv "
+                         + " ".join(f"{e:.3f}" for e in errs))
+                del f, out32, lse32, ref
+            di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            fwd_ms = cuda_ms(lambda: attn.encoder_attention_residuals(q, k, v, valid_len))
+            dkv_ms = cuda_ms(lambda: attn.launch_backward_dkv(q, k, v, do, lse, di, valid))
+            dq_ms = cuda_ms(lambda: attn.launch_backward_dq(q, k, v, do, lse, di, valid))
+            plain_ms = cuda_ms(lambda: attn.encoder_attention_backward_plain(
+                q, k, v, out, lse, do, valid_len), iters=3)
+            pairs = b * 20 * s * valid * 64       # (query, key, dim) triples
+            io = nbytes(q, k, v, do, lse, di)
+            bounds = {"fwd_res": bound(nbytes(q, k, v, out, lse), 4 * pairs, peak),
+                      "dkv": bound(io + nbytes(*got[1:]), 8 * pairs, peak),
+                      "dq": bound(io + nbytes(got[0]), 6 * pairs, peak)}
+            line = (f"[TRAIN] K2 backward {str(dtype)[6:]:>8} B={b} S={s} "
+                    f"valid={valid_len}: lse max abs err {lse_err:.2e}, {shown}; "
+                    f"fwd-res {fwd_ms:.4f} ms, dkv {dkv_ms:.4f} ms, dq "
+                    f"{dq_ms:.4f} ms (bounds " + ", ".join(
+                        f"{x['bound_ms']:.4f}" for x in bounds.values())
+                    + f" ms), plain backward {plain_ms:.4f} ms; "
+                    f"{14 * pairs / (dkv_ms + dq_ms) / 1e9:.1f} TFLOP/s backward")
+            lib_fwd = lib_bwd = None
+            if valid_len is None:
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                lib_fwd = cuda_ms(lambda: sdpa_attention(*leaves))
+                lib_out = sdpa_attention(*leaves)
+                lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True))
+                line += (f"; scaled_dot_product_attention forward {lib_fwd:.4f}"
+                         f" ms, backward {lib_bwd:.4f} ms")
+                del leaves, lib_out
+            print(f"{line}; {smi}", flush=True)
+            if (dtype, b, s, valid_len) == (torch.float32, 8, 500, None):
+                errs = [(x - r).abs().max().item() for x, r in zip(got, plain)]
+                main = {
+                    "fwd_res": {"max_abs_err": lse_err, "ms": fwd_ms,
+                                "plain_ms": cuda_ms(lambda: attn.encoder_attention_plain(
+                                    q, k, v, valid_len), iters=3),
+                                **bounds["fwd_res"], "library_ms": lib_fwd},
+                    "dkv": {"max_abs_err": max(errs[1:]), "ms": dkv_ms,
+                            "plain_ms": plain_ms, **bounds["dkv"],
+                            "library_ms": lib_bwd},
+                    "dq": {"max_abs_err": errs[0], "ms": dq_ms, "plain_ms": plain_ms,
+                           **bounds["dq"], "library_ms": lib_bwd},
+                }
+            del q, k, v, do, out, lse, got, plain, di
+            torch.cuda.empty_cache()
+    return main
+
+
+def train_batch(arch, b: int, seconds: int, seed: int) -> dict:
+    """A synthetic fine-tuning batch as ``run_finetune.py`` builds one:
+    seeded WAVs through K1 (a featurizer of ``seconds``), and token rows of
+    the English transcribe prompt, 60-123 random text ids and EOT, padded
+    with EOT to ``TRAIN_TOKENS``; the loss mask covers the text and EOT."""
+    dev = torch.device("cuda", 0)
+    sp = SpecialTokens.for_vocab(arch.vocab_size)
+    prompt = [sp.sot, sp.language_id("en", LANGUAGES[: sp.n_languages]),
+              sp.transcribe, sp.no_timestamps]
+    rng = np.random.default_rng(seed)
+    tokens = np.full((b, TRAIN_TOKENS), sp.eot, np.int64)
+    mask = np.zeros((b, TRAIN_TOKENS), np.float32)
+    for i in range(b):
+        ids = prompt + list(rng.integers(0, sp.eot, rng.integers(60, 124))) + [sp.eot]
+        tokens[i, : len(ids)] = ids
+        mask[i, len(prompt): len(ids)] = 1.0
+    featurizer = LogMelFeaturizer(n_mels=arch.n_mels, chunk_length_s=seconds,
+                                  device=dev)
+    mel = featurizer(np.stack([synth_audio(seconds, seed=seed * 100 + i)
+                               for i in range(b)]))
+    return {"mel": mel, **train.place_batch({"tokens": tokens, "loss_mask": mask}, dev)}
+
+
+def grad_group(name: str) -> str:
+    if name.startswith("encoder.layers.") and ".attn." in name:
+        return "encoder attention"
+    if name.startswith("encoder.layers.") and ".fc" in name:
+        return "encoder MLP"
+    if name.startswith("decoder.layers."):
+        return "decoder"
+    if name.endswith("_emb"):
+        return "embeddings"
+    return "rest"         # the conv stem and the LayerNorms of the encoder
+
+
+def grads(model, batch, **kw):
+    """(loss, {name: gradient}) of one ``train.loss_fn`` backward."""
+    model.zero_grad(set_to_none=True)
+    loss = train.loss_fn(model, batch, **kw)
+    loss.backward()
+    out = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), out
+
+
+def group_l2(got: dict, ref: dict, plain: dict = None) -> dict:
+    """Relative L2 distance of ``got`` from ``ref`` by ``grad_group``; with
+    ``plain``, that distance over ``plain``'s (``F32_RATIO``'s rule)."""
+    num, den, alt = {}, {}, {}
+    for n, r in ref.items():
+        grp = grad_group(n)
+        num[grp] = num.get(grp, 0.0) + (got[n].float() - r.float()).square().sum().item()
+        den[grp] = den.get(grp, 0.0) + r.float().square().sum().item()
+        if plain is not None:
+            alt[grp] = alt.get(grp, 0.0) + (plain[n].float() - r.float()).square().sum().item()
+    if plain is None:
+        return {grp: math.sqrt(num[grp] / den[grp]) for grp in num}
+    return {grp: math.sqrt(num[grp] / alt[grp]) for grp in num}
+
+
+def shown(d: dict, fmt: str = ".2e") -> str:
+    return ", ".join(f"{k} {v:{fmt}}" for k, v in d.items())
+
+
+def zero_train_counts() -> None:
+    attn.ATTN_LAUNCHES = attn.ATTN_RES_LAUNCHES = 0
+    attn.ATTN_BWD_DKV_LAUNCHES = attn.ATTN_BWD_DQ_LAUNCHES = 0
+
+
+def train_counts() -> dict:
+    return {"encoder_attention": attn.ATTN_LAUNCHES,
+            "encoder_attention_fwd_res": attn.ATTN_RES_LAUNCHES,
+            "encoder_attention_bwd_dkv": attn.ATTN_BWD_DKV_LAUNCHES,
+            "encoder_attention_bwd_dq": attn.ATTN_BWD_DQ_LAUNCHES}
+
+
+def train_steps(tag: str, state, step, batch, n: int, layers: int, remat: bool,
+                smi: str):
+    """``n`` steps on one batch, the counts zeroed just before: every step
+    launches K2 with lse once a layer (twice with remat), each backward
+    kernel once a layer and no inference K2; the loss falls every step.
+    Returns (state, counts)."""
+    zero_train_counts()
+    losses, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = train_counts()
+    want = {"encoder_attention": 0,
+            "encoder_attention_fwd_res": n * layers * (2 if remat else 1),
+            "encoder_attention_bwd_dkv": n * layers,
+            "encoder_attention_bwd_dq": n * layers}
+    check(counts == want, f"{tag}: launches {counts}, want {want}")
+    check(all(math.isfinite(x) for x in losses)
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"{tag}: the loss did not fall every step: {losses}")
+    print(f"[TRAIN] {tag}: {n} AdamW steps, loss "
+          f"{' -> '.join(f'{x:.5f}' for x in losses)}; step wall p50 "
+          f"{float(np.median(walls)):.1f} ms (each {', '.join(f'{w:.1f}' for w in walls)})"
+          f"; launches a step: K2 with lse {counts['encoder_attention_fwd_res'] // n}, "
+          f"dkv {counts['encoder_attention_bwd_dkv'] // n}, dq "
+          f"{counts['encoder_attention_bwd_dq'] // n}; {smi}", flush=True)
+    return state, counts
+
+
+class Depth:
+    """The model with its encoder cut to its first ``depth`` layers inside
+    the ``with`` block."""
+
+    def __init__(self, model, depth: int):
+        self.enc, self.depth = model.encoder, depth
+
+    def __enter__(self):
+        self.layers = self.enc.layers
+        self.enc.layers = torch.nn.ModuleList(self.layers[: self.depth])
+
+    def __exit__(self, *exc):
+        self.enc.layers = self.layers
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_train(smi: str) -> dict:
+    """[TRAIN] The training path at large-v3-turbo's full width (random f32
+    weights from a seeded generator, synthetic batches of ``train_batch``).
+
+    Arm A, ``run_finetune.py``'s defaults: 10 s windows (the position table
+    cut to 500 rows), batch 8, 128 tokens, f32, no remat. One step's
+    gradients with the kernels against the same step with the plain
+    attention under autograd (relative L2 by group at most 1e-4), then four
+    AdamW steps (lr 1e-5, weight decay 0.01) whose loss must fall every
+    step. The weights then go through ``save_hf_checkpoint`` (the stdlib
+    writer) and back through ``load_checkpoint`` (the stdlib reader where
+    ``safetensors`` is absent): every tensor bit-equal, and one greedy 10 s
+    window the same tokens from both models.
+    Arm C: bf16 compute over those f32 weights at arm A's shapes: each
+    group's gradient distance from the f32 gradients at most ``F32_RATIO``
+    times that of the same bf16 step with the plain attention; one step.
+    Distillation: a two-layer layer-skip student of a fresh turbo model
+    (``run_distill.py``'s defaults: lr 1e-4, temperature 1), three steps on
+    arm A's batch: the KL falls and greedy agreement rises or holds. (From
+    arm A's briefly fine-tuned weights, Adam's first steps at lr 1e-4 move
+    the student's argmax erratically: agreement 0.3838 -> 0.0000 on the
+    card while the KL fell.)
+    Arm B: 30 s windows, batch 4, ``remat=True``, on that fresh model:
+    at encoder depth 4, gradients with remat equal those without to 1e-5
+    and the kernels' those of the plain attention to 1e-4 (at depth 32 the
+    plain attention's probabilities would take about 23 GB); then two steps
+    at depth 32 whose loss falls.
+    Returns the counts of arm A's four steps."""
+    dev = torch.device("cuda", 0)
+    turbo = ARCH_PRESETS["large-v3-turbo"]
+    arch = dataclasses.replace(turbo, max_source_positions=500,
+                               alignment_heads=((2, 4), (3, 3)))
+    layers = arch.encoder_layers
+    model = init_params(arch, torch.Generator(device=dev).manual_seed(12),
+                        device=dev).requires_grad_(True)
+    batch = train_batch(arch, 8, 10, seed=3)
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, g_k = grads(model, batch)
+    loss_p, g_p = grads(model, batch, attention=attn.encoder_attention_plain)
+    dist = group_l2(g_k, g_p)
+    print(f"[TRAIN] arm A (B=8 x 10 s, f32): loss {loss_k:.6f} with the kernels, "
+          f"{loss_p:.6f} with the plain attention; gradients, relative L2 by "
+          f"group: {shown(dist)}", flush=True)
+    check(max(dist.values()) <= 1e-4, f"arm A kernel vs plain gradients {dist}")
+    del g_k, g_p
+    state, tx = train.init_train_state(model)
+    state, counts = train_steps("arm A (B=8 x 10 s, f32)", state,
+                                train.make_train_step(tx), batch, 4, layers,
+                                False, smi)
+    print(f"[TRAIN] arm A peak device memory {peak_gib():.2f} GiB", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_hf_checkpoint(model, arch, tmp, chunk_length_s=10)
+        t1 = time.perf_counter()
+        loaded, _ = load_checkpoint(tmp, chunk_length_s=10)
+        t2 = time.perf_counter()
+    sd, ref = loaded.state_dict(), model.state_dict()
+    check(sd.keys() == ref.keys() and all(torch.equal(sd[n], ref[n]) for n in sd),
+          "checkpoint round trip not bit-equal")
+    opts = GenerationOptions(language="en", max_new_tokens=32)
+    audio = synth_audio(10, seed=7)[None]
+    tokens = [WhisperEngine(m).transcribe_audio(audio, opts).tokens
+              for m in (model, loaded)]
+    check(np.array_equal(*tokens), "reloaded checkpoint decodes other tokens")
+    print(f"[TRAIN] checkpoint of arm A: written in {t1 - t0:.2f} s, read "
+          f"back with the stdlib reader in {t2 - t1:.2f} s; {len(sd)} tensors "
+          f"bit-equal; "
+          f"a greedy 10 s window {tokens[0].shape[1]} tokens, identical", flush=True)
+    del loaded, sd, ref
+
+    torch.cuda.reset_peak_memory_stats()
+    _, g32 = grads(model, batch)
+    loss16, g16 = grads(model, batch, compute_dtype=torch.bfloat16)
+    _, g16p = grads(model, batch, compute_dtype=torch.bfloat16,
+                    attention=attn.encoder_attention_plain)
+    ratio = group_l2(g16, g32, g16p)
+    print(f"[TRAIN] arm C (bf16 compute, f32 weights, B=8 x 10 s): loss "
+          f"{loss16:.6f}; distance from the f32 gradients over the plain "
+          f"attention's, by group: {shown(ratio, '.3f')}; distance from f32: "
+          f"{shown(group_l2(g16, g32))}", flush=True)
+    check(max(ratio.values()) <= F32_RATIO, f"arm C ratios {ratio}")
+    del g32, g16, g16p
+    zero_train_counts()
+    state, loss = train.make_train_step(tx, compute_dtype=torch.bfloat16)(state, batch)
+    check(math.isfinite(loss.item()) and train_counts()["encoder_attention_bwd_dq"]
+          == layers, "arm C step")
+    print(f"[TRAIN] arm C step: loss {loss.item():.6f}; peak device memory "
+          f"{peak_gib():.2f} GiB", flush=True)
+
+    del model, state, tx
+    torch.cuda.empty_cache()
+
+    model = init_params(turbo, torch.Generator(device=dev).manual_seed(13),
+                        device=dev).requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    student = make_layer_skip_draft(model, 2)
+    agree0 = distill.greedy_agreement(student, model, batch).item()
+    dstate, dtx = distill.init_distill_state(student)
+    step = distill.make_distill_step(dtx, temperature=1.0)
+    kls = []
+    for _ in range(3):
+        dstate, kl = step(dstate, model, batch)
+        kls.append(kl.item())
+    agree1 = distill.greedy_agreement(dstate.student, model, batch).item()
+    print(f"[TRAIN] distillation (2-layer layer-skip student, B=8 x 10 s): KL "
+          f"{' -> '.join(f'{x:.5f}' for x in kls)}; greedy agreement "
+          f"{agree0:.4f} -> {agree1:.4f}; peak device memory {peak_gib():.2f} GiB",
+          flush=True)
+    check(kls[-1] < kls[0] and agree1 >= agree0, "distillation did not improve")
+    del student, dstate, dtx, batch
+    torch.cuda.empty_cache()
+
+    batch = train_batch(turbo, 4, 30, seed=4)
+    torch.cuda.reset_peak_memory_stats()
+    with Depth(model, 4):
+        _, g0 = grads(model, batch)
+        _, g1 = grads(model, batch, remat=True)
+        _, gp = grads(model, batch, attention=attn.encoder_attention_plain)
+    remat_d, plain_d = group_l2(g1, g0), group_l2(g0, gp)
+    print(f"[TRAIN] arm B at encoder depth 4 (B=4 x 30 s): remat vs not, "
+          f"relative L2 by group: {shown(remat_d)}; kernels vs plain: "
+          f"{shown(plain_d)}", flush=True)
+    check(max(remat_d.values()) <= 1e-5, f"arm B remat gradients {remat_d}")
+    check(max(plain_d.values()) <= 1e-4, f"arm B kernel vs plain {plain_d}")
+    del g0, g1, gp
+    torch.cuda.reset_peak_memory_stats()
+    state, tx = train.init_train_state(model)
+    train_steps("arm B (B=4 x 30 s, f32, remat)", state,
+                train.make_train_step(tx, remat=True), batch, 2, layers, True, smi)
+    print(f"[TRAIN] arm B peak device memory {peak_gib():.2f} GiB", flush=True)
+    del model, state, tx, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
 def result_line(kind: str) -> str:
     """The last line. ``count`` is the number of cards the run used: one,
     whatever ``torch.cuda.device_count()`` shows."""
@@ -1893,6 +2282,8 @@ def main() -> None:
     p2, p3 = phase_mlp(smi)
     p4, p5 = phase_cache_writes(smi)
     probe_launches = phase_probes()
+    k2_bwd = phase_attention_backward(smi)
+    train_launches = phase_train(smi)
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",
@@ -1930,6 +2321,18 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/cache_write.cu",
          "replaces": "tools/cache_write_probe.py:127",
          "launches": probe_launches["write_column"], **p5},
+        {"name": "encoder_attention_fwd_res", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/encoder_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:234",
+         "launches": train_launches["encoder_attention_fwd_res"], **k2_bwd["fwd_res"]},
+        {"name": "encoder_attention_bwd_dkv", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/encoder_attention_bwd.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+         "launches": train_launches["encoder_attention_bwd_dkv"], **k2_bwd["dkv"]},
+        {"name": "encoder_attention_bwd_dq", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/encoder_attention_bwd.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+         "launches": train_launches["encoder_attention_bwd_dq"], **k2_bwd["dq"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

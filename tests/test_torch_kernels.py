@@ -23,7 +23,11 @@ shapes and at every Whisper width, with host and device slots, replayed
 from CUDA graphs at slots refilled on the card, in a P5 -> P4 -> P4 relay
 that checks the programmatic launches' ordering, and a device slot outside
 the cache trapping in a child process (``mega_mutants --kernel cache``
-checks these against broken copies of ``csrc/cache_write.cu``).
+checks these against broken copies of ``csrc/cache_write.cu``). K2's lse
+and its backward kernels at S = 1, a ragged 77 (with valid_len 30), 500
+and 1500 (valid_len 1100), f32 and bf16, and through autograd
+(``mega_mutants --kernel attn_bwd`` checks these against broken copies of
+``csrc/encoder_attention_bwd.cu`` and of K2's lse store).
 """
 
 import dataclasses
@@ -64,7 +68,8 @@ def _sig(batch, seconds, seed=0):
 def test_build_reports_resources(cuda_device):
     """The library builds (or loads) and exports every entry point."""
     lib = _build.lib()
-    for name in ("twt_logmel", "twt_encoder_attention", "twt_mega_step",
+    for name in ("twt_logmel", "twt_encoder_attention", "twt_attention_bwd_dkv",
+                 "twt_attention_bwd_dq", "twt_mega_step",
                  "twt_mega_verify", "twt_attention_control", "twt_mlp_chain",
                  "twt_write_row", "twt_write_column", "twt_empty_launch"):
         assert hasattr(lib, name)
@@ -198,6 +203,103 @@ def test_attention_kernel_rejects_bad_input(cuda_device):
     z = torch.zeros(1, 16, 2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="valid_len"):
         ta.encoder_attention(z, z, z, valid_len=0)
+
+
+def _l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,valid_len", [
+    (1, 77, None), (2, 77, 30), (2, 500, None), (1, 1500, 1100)])
+def test_attention_backward_kernels_match_plain(cuda_device, dtype, b, s, valid_len):
+    """K2 with lse, then K2-dkv and K2-dq, against the plain versions on the
+    same out and lse. f32: lse to 1e-5 absolute, gradients to 1e-4
+    relative L2 (the same f32 sums in another order). bf16: each
+    gradient's distance from the f32 gradients of the same inputs at most
+    1.5x the plain bf16 version's (both round P and dS to bf16); dK and dV
+    of keys >= valid_len exactly zero."""
+    q, k, v = _qkv(b, s, 4, dtype, cuda_device, seed=7)
+    do = _qkv(b, s, 4, dtype, cuda_device, seed=8)[0]
+    counts = (ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES, ta.ATTN_BWD_DQ_LAUNCHES)
+    out, lse = ta.encoder_attention_residuals(q, k, v, valid_len)
+    got = ta.encoder_attention_backward(q, k, v, out, lse, do, valid_len)
+    torch.cuda.synchronize()
+    assert (ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES,
+            ta.ATTN_BWD_DQ_LAUNCHES) == tuple(c + 1 for c in counts)
+    assert lse.shape == (b, 4, s) and lse.dtype == torch.float32
+    ref_lse = ta.attention_lse_plain(q, k, valid_len)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5 if dtype == torch.float32
+                               else 1e-4, rtol=0)
+    torch.testing.assert_close(out, ta.encoder_attention(q, k, v, valid_len),
+                               rtol=0, atol=0)
+    plain = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
+    for g in got:
+        assert g.shape == q.shape and g.dtype == dtype and g.is_contiguous()
+    if valid_len is not None:
+        assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()
+    if dtype == torch.float32:
+        for name, g, r in zip("qkv", got, plain):
+            assert _l2(g, r) <= 1e-4, name
+        return
+    f = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = ta.encoder_attention_residuals(*f[:3], valid_len)
+    ref = ta.encoder_attention_backward_plain(*f[:3], out32, lse32, f[3], valid_len)
+    for name, g, p, r in zip("qkv", got, plain, ref):
+        assert _l2(g, r) <= 1.5 * _l2(p, r), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernels_one_key(cuda_device, dtype):
+    """S = 1: each query attends its one key with weight 1, so lse is the
+    scaled score, dV = dO, and dQ and dK vanish up to the rounding of
+    dO v^T - di (which a relative bound cannot hold)."""
+    q, k, v = _qkv(2, 1, 4, dtype, cuda_device, seed=9)
+    do = _qkv(2, 1, 4, dtype, cuda_device, seed=10)[0]
+    out, lse = ta.encoder_attention_residuals(q, k, v)
+    dq, dk, dv = ta.encoder_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    scores = (q.float() * k.float()).sum(-1).transpose(1, 2) * 0.125
+    torch.testing.assert_close(lse, scores, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dv.float(), do.float(), atol=0,
+                               rtol=1e-5 if dtype == torch.float32 else 1e-2)
+    assert dq.float().abs().max() <= 1e-3 and dk.float().abs().max() <= 1e-3
+
+
+def test_encoder_attention_autograd_on_the_card(cuda_device):
+    """Under grad, ``encoder_attention`` on strided views launches K2 with
+    lse once and each backward kernel once; its gradient equals autograd
+    of the plain version to 1e-4 relative L2 (f32)."""
+    x = torch.randn(2, 300, 3 * 20 * 64, device=cuda_device)
+    grads = []
+    counts = (ta.ATTN_LAUNCHES, ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES,
+              ta.ATTN_BWD_DQ_LAUNCHES)
+    for fn in (ta.encoder_attention, ta.encoder_attention_plain):
+        leaf = x.clone().requires_grad_(True)
+        q, k, v = (t.view(2, 300, 20, 64) for t in leaf.chunk(3, dim=-1))
+        fn(q, k, v).square().sum().backward()
+        grads.append(leaf.grad)
+    torch.cuda.synchronize()
+    assert (ta.ATTN_LAUNCHES, ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES,
+            ta.ATTN_BWD_DQ_LAUNCHES) == (counts[0], *(c + 1 for c in counts[1:]))
+    assert _l2(*grads) <= 1e-4
+
+
+def test_attention_backward_rejects_bad_input(cuda_device):
+    q = torch.zeros(1, 16, 2, 64, device=cuda_device)
+    lse = torch.zeros(1, 2, 16, device=cuda_device)
+    wide = torch.zeros(1, 16, 2, 128, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="head dim must be contiguous"):
+        ta.encoder_attention_backward(wide, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="head dim must be contiguous"):
+        ta.encoder_attention_backward(q, q, q, q, lse, wide)
+    small = torch.zeros(1, 16, 2, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 32"):
+        ta.encoder_attention_backward(small, small, small, small, lse, small)
+    with pytest.raises(ValueError, match="lse"):
+        ta.encoder_attention_backward(q, q, q, q, lse[:, :, :8], q)
+    with pytest.raises(ValueError, match="valid_len"):
+        ta.encoder_attention_backward(q, q, q, q, lse, q, valid_len=17)
 
 
 K3_ARCH = WhisperArch(

@@ -201,3 +201,20 @@ def test_tables_are_made_once():
     again = logmel._mel_tables(fb)[0]
     assert again is not w
     torch.testing.assert_close(again, 0.5 * w, rtol=0, atol=0)
+
+
+def test_tables_of_a_featurizer_built_in_inference_mode():
+    """A featurizer built under ``torch.inference_mode`` holds an inference
+    filter bank, which has no version counter: its tables are made once and
+    kept; a normal filter bank changed in place still gets new ones."""
+    with torch.inference_mode():
+        feat = tf.LogMelFeaturizer(n_mels=80, chunk_length_s=1, device="cpu")
+    assert feat.mel_fb.is_inference()
+    w = logmel._mel_tables(feat.mel_fb)[0]
+    assert logmel._mel_tables(feat.mel_fb)[0] is w
+    x = np.random.default_rng(0).standard_normal(16000).astype(np.float32)
+    torch.testing.assert_close(feat(x), feat(x), rtol=0, atol=0)
+    fb = feat.mel_fb.clone()                       # a normal tensor
+    w = logmel._mel_tables(fb)[0]
+    fb.mul_(2.0)
+    torch.testing.assert_close(logmel._mel_tables(fb)[0], 2 * w, rtol=0, atol=0)

@@ -38,7 +38,7 @@ def test_every_port_module_imports_without_jax():
         "print(' '.join(names))\n")
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 41
+    assert len(names) >= 47
     assert "thewhisper_tpu_torch.engine.speculative" in names
     assert "thewhisper_tpu_torch.ops.mega_step" in names
     # Importing the server's __main__ (walked like every other module)
@@ -49,7 +49,9 @@ def test_every_port_module_imports_without_jax():
                  "tools.mega_caps_probe", "tools.cache_write_probe",
                  "streaming.pipeline", "streaming.vad", "streaming.ring",
                  "streaming.streams", "streaming.batching", "server.http",
-                 "server.launch", "server.__main__", "run_streaming"):
+                 "server.launch", "server.__main__", "run_streaming",
+                 "training", "training.train", "training.distill",
+                 "models.checkpoint", "run_finetune", "run_distill"):
         assert f"thewhisper_tpu_torch.{name}" in names
 
 

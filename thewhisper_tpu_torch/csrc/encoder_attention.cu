@@ -37,6 +37,16 @@
 // softmax overlaps another's products. The epilogue divides by the row sum
 // and stores bf16, rows >= S skipped.
 //
+// Residuals for the backward (csrc/encoder_attention_bwd.cu), the TPU
+// library's save_residuals forward (_flash_attention_fwd, which keeps the
+// row sum l and row max m): with a non-null `lse`, both routes also write
+// the natural-log log-sum-exp of each row's scaled scores,
+// lse = ln(sum_j exp(q . k_j / sqrt(dh))) over keys < valid_len, as f32
+// (B, H, S), rows >= S skipped. The kernels keep scores in the log2
+// domain, so the epilogue writes (m log2 + log2 l) ln 2 from the running
+// max and sum it already holds; the backward multiplies by log2 e again.
+// A null `lse` writes nothing else (the inference launch).
+//
 // f32 (the "XL32" size and the f32 references, which need f32 results,
 // so no TF32): on the CUDA cores, whose 67 TFLOP/s f32 rate is its ceiling.
 // One block per (batch x head, tile of 128 queries); 256 threads, two per
@@ -59,6 +69,7 @@ constexpr int kThreads = 2 * kBlockQ;
 constexpr int kHalf = kDh / 2;        // dims per thread
 constexpr int kChunks = kHalf / 4;    // float4 chunks per thread
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -66,7 +77,8 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 encoder_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ out, int S, int H,
+                         const T* __restrict__ v, T* __restrict__ out,
+                         float* __restrict__ lse, int S, int H,
                          long long q_sb, long long q_ss, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh,
@@ -155,6 +167,9 @@ encoder_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!active) return;
   const float inv = 1.0f / l;
+  // m is in the log2 domain of the scaled scores.
+  if (lse != nullptr && half == 0)
+    lse[static_cast<long long>(blockIdx.y) * S + qi] = (m + log2f(l)) * kLn2;
   T* op = out + ((static_cast<long long>(b) * S + qi) * H + h) * kDh;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
@@ -227,8 +242,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map, int q_perm, int k_perm,
-                            int v_perm, __nv_bfloat16* __restrict__ out, int S, int H,
-                            int valid_len, float scale_log2) {
+                            int v_perm, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int S, int H, int valid_len,
+                            float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -337,6 +353,9 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       const int row = q0 + wg * 64 + r0 + 8 * i;
       if (row >= S) continue;
       const float inv = 1.0f / l[i];
+      // m holds raw scores: m scale log2 e is the row max in the log2 domain.
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[static_cast<long long>(bh) * S + row] = (m[i] * scale_log2 + log2f(l[i])) * kLn2;
       __nv_bfloat16* op = out + (static_cast<long long>(b) * S + row) * H * kDh +
                           static_cast<long long>(h) * kDh;
 #pragma unroll
@@ -352,11 +371,12 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16. Strides are in elements. 1 <= valid_len <= S.
+// lse: null, or f32 (B, H, S) for the rows' log-sum-exp (see above).
 // bf16 needs 16-byte-aligned base pointers and strides (TMA).
 // Returns cudaGetLastError() (cudaErrorInvalidValue for dh != 64, a
 // misaligned bf16 operand or a tensor map the driver refuses).
 extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v, void* out,
-                                     int dtype, int B, int S, int H, int dh,
+                                     void* lse, int dtype, int B, int S, int H, int dh,
                                      long long q_sb, long long q_ss, long long q_sh,
                                      long long k_sb, long long k_ss, long long k_sh,
                                      long long v_sb, long long v_ss, long long v_sh,
@@ -384,13 +404,14 @@ extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v
     // 64 ** -0.5 (exact) times log2(e): scores go straight to ex2.
     encoder_attention_tc_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
         maps[0], maps[1], maps[2], perms[0], perms[1], perms[2],
-        static_cast<__nv_bfloat16*>(out), S, H, valid_len, 0.125f * kLog2e);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, valid_len,
+        0.125f * kLog2e);
   } else {
     const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
     const float scale = 0.125f;  // 64 ** -0.5, exact
     encoder_attention_kernel<float><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), S, H,
+        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), S, H,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, valid_len, scale);
   }
   return static_cast<int>(cudaGetLastError());

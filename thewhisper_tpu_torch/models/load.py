@@ -5,12 +5,17 @@ Three sources, one target naming:
 
 - an HF Whisper checkpoint directory (``config.json``,
   ``generation_config.json``, ``model.safetensors`` or a sharded index),
-  :func:`load_checkpoint`; ``safetensors`` is imported only there;
+  :func:`load_checkpoint`, read by :func:`read_safetensors` with the
+  standard library (no ``safetensors`` package needed);
 - an HF state dict, :func:`params_from_hf_state_dict`;
 - the JAX package's parameter pytree as numpy, :func:`params_from_jax`
   (stacked (L, in, out) linears, (out, in, 3) convs, the fused decoder
   ``qkv_w``/``qkv_b`` an engine may have made, and the int8 leaves of an
   "S" engine, carried across exactly).
+
+:func:`jax_tree_from_model` is the inverse of the last: a float model (or
+its gradients) as the JAX layout's numpy tree, which the checkpoint writer
+and the training tests read.
 
 Flexible chunk lengths (< 30 s) truncate or linearly interpolate the
 encoder position table, as the JAX loader does.
@@ -203,6 +208,63 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
         dtype=dtype, device=device, quantized=quantized)
 
 
+_ATTN_LEAVES = {"q_w": "q.weight", "q_b": "q.bias", "k_w": "k.weight",
+                "v_w": "v.weight", "v_b": "v.bias", "o_w": "out.weight",
+                "o_b": "out.bias"}
+_MLP_LEAVES = {"fc1_w": "fc1.weight", "fc1_b": "fc1.bias",
+               "fc2_w": "fc2.weight", "fc2_b": "fc2.bias"}
+
+
+def jax_tree_from_model(model: Whisper, grads: bool = False) -> Dict[str, Any]:
+    """A float, unfused model's weights (or, with ``grads``, their
+    gradients, zeros where there is none) as JAX's parameter tree of numpy
+    f32 arrays: layers stacked on a leading axis, linear weights (in, out),
+    the decoder-only tree of a draft (no ``"encoder"``) as JAX's
+    ``save_draft`` writes it."""
+    def leaf(name: str) -> np.ndarray:
+        p = model.get_parameter(name)
+        t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grads else p
+        x = t.detach().float().cpu().numpy()
+        # Linear weights, the only 2-D "weight"s, are (in, out) in JAX.
+        return np.ascontiguousarray(x.T) if p.ndim == 2 and name.endswith(
+            "weight") else x
+
+    def stacked(side: str, n: int, name: str) -> np.ndarray:
+        return np.stack([leaf(f"{side}.layers.{i}.{name}") for i in range(n)])
+
+    def ln(side: str, n: Optional[int], name: str) -> Dict[str, np.ndarray]:
+        get = ((lambda k: leaf(f"{side}.{name}.{k}")) if n is None
+               else (lambda k: stacked(side, n, f"{name}.{k}")))
+        return {"scale": get("weight"), "bias": get("bias")}
+
+    def layers(side: str, n: int, attns: Dict[str, str], lns) -> Dict[str, Any]:
+        tree = {key: {leaf_: stacked(side, n, f"{mod}.{name}")
+                      for leaf_, name in _ATTN_LEAVES.items()}
+                for key, mod in attns.items()}
+        tree.update({name: ln(side, n, name) for name in lns})
+        tree["mlp"] = {k: stacked(side, n, name) for k, name in _MLP_LEAVES.items()}
+        return tree
+
+    arch = model.arch
+    tree: Dict[str, Any] = {"decoder": {
+        "token_emb": leaf("decoder.token_emb"),
+        "pos_emb": leaf("decoder.pos_emb"),
+        "layers": layers("decoder", arch.decoder_layers,
+                         {"self": "self_attn", "cross": "cross_attn"},
+                         ("ln1", "ln_cross", "ln2")),
+        "ln_post": ln("decoder", None, "ln_post")}}
+    if model.encoder is not None:
+        tree["encoder"] = {
+            **{conv: {"w": leaf(f"encoder.{conv}.weight"),
+                      "b": leaf(f"encoder.{conv}.bias")}
+               for conv in ("conv1", "conv2")},
+            "pos_emb": leaf("encoder.pos_emb"),
+            "layers": layers("encoder", arch.encoder_layers, {"attn": "attn"},
+                             ("ln1", "ln2")),
+            "ln_post": ln("encoder", None, "ln_post")}
+    return tree
+
+
 def _int8(x: Any) -> np.ndarray:
     x = np.asarray(x)
     if x.dtype != np.int8:
@@ -212,13 +274,37 @@ def _int8(x: Any) -> np.ndarray:
     return x
 
 
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+              "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+              "BOOL": torch.bool}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file's tensors on the CPU, read with the standard
+    library: an 8-byte little-endian header length, a JSON header mapping
+    each name to its dtype, shape and byte offsets into the rest of the
+    file, then the raw little-endian buffers. The tensors share one buffer
+    the size of the file."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        f.readinto(data)
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _ST_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        count = (end - start) // dtype.itemsize
+        flat = (torch.frombuffer(data, dtype=dtype, count=count, offset=start)
+                if count else torch.empty(0, dtype=dtype))
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
 def _read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
-    try:
-        from safetensors.torch import load_file
-    except ImportError as e:
-        raise ImportError(
-            "load_checkpoint reads model.safetensors and needs the "
-            "safetensors package") from e
     index_path = os.path.join(path, "model.safetensors.index.json")
     single_path = os.path.join(path, "model.safetensors")
     if os.path.exists(index_path):
@@ -226,10 +312,10 @@ def _read_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
             shards = sorted(set(json.load(f)["weight_map"].values()))
         state: Dict[str, torch.Tensor] = {}
         for shard in shards:
-            state.update(load_file(os.path.join(path, shard)))
+            state.update(read_safetensors(os.path.join(path, shard)))
         return state
     if os.path.exists(single_path):
-        return load_file(single_path)
+        return read_safetensors(single_path)
     raise FileNotFoundError(f"no model.safetensors[.index.json] in {path}")
 
 

@@ -8,6 +8,10 @@ The module tree holds the weights in PyTorch's layout (``nn.Linear`` keeps
   the K2 kernel (``ops.attention.encoder_attention``) on CUDA tensors, and
   the final LayerNorm. S = 1500 runs unpadded: the kernel masks the ragged
   tile, so the TPU's pad-to-512 and segment ids have no counterpart.
+- :func:`decoder_train_forward`: the teacher-forced decoder over a whole
+  token sequence (training), causal self-attention and cross-attention in
+  plain torch, as in JAX (neither takes K2: one is masked, the other has
+  Sq != Sk).
 - :func:`compute_cross_kv`, :func:`decoder_prefill`, :func:`decoder_step`,
   :func:`decoder_verify`: the decoder over a (L, B, H, S, dh) cache
   written in place (the GPU's layout; the TPU's feature-major
@@ -26,6 +30,14 @@ through the same functions: its linears are ``Int8Linear`` or
 K/V may be ``QuantizedKV`` (int8 with the scales folded out of the
 products, as JAX's ``_cross_and_mlp`` does). :func:`fuse_self_qkv` turns
 each decoder layer's self q/k/v into one projection.
+
+Training (``training/``): :func:`encoder_forward` and
+:func:`decoder_train_forward` take a ``compute_dtype`` apart from the
+weights' type, as JAX's do: f32 master weights under a bf16 compute type
+are cast to it by every linear, conv and embedding (:func:`_linear`),
+while LayerNorm and the logits stay f32; and ``remat=True`` recomputes
+each layer in the backward (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models.quant import (
@@ -76,6 +89,24 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none" if x.dtype == torch.float32 else "tanh")
 
 
+def _linear(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)``; a float ``nn.Linear`` whose weight has another type than
+    x is cast to x's type first (JAX's ``_linear``: f32 master weights under
+    a bf16 compute type). Quantized linears run as they are."""
+    if type(mod) is nn.Linear and mod.weight.dtype != x.dtype:
+        bias = None if mod.bias is None else mod.bias.to(x.dtype)
+        return F.linear(x, mod.weight.to(x.dtype), bias)
+    return mod(x)
+
+
+def _conv(mod: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)`` with the weight and bias cast to x's type."""
+    if mod.weight.dtype != x.dtype:
+        return F.conv1d(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype),
+                        mod.stride, mod.padding)
+    return mod(x)
+
+
 class Attention(nn.Module):
     """Whisper attention projections; k has no bias."""
 
@@ -90,7 +121,7 @@ class Attention(nn.Module):
     def heads(self, proj: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) -> (B, S, H, dh) view of a projection."""
         b, s, d = x.shape
-        return proj(x).view(b, s, self.n_heads, d // self.n_heads)
+        return _linear(proj, x).view(b, s, self.n_heads, d // self.n_heads)
 
 
 class EncoderLayer(nn.Module):
@@ -107,8 +138,8 @@ class EncoderLayer(nn.Module):
         at = self.attn
         a = attention(at.heads(at.q, a_in), at.heads(at.k, a_in),
                       at.heads(at.v, a_in))
-        x = x + at.out(a.reshape(x.shape))
-        return x + self.fc2(_gelu(self.fc1(self.ln2(x))))
+        x = x + _linear(at.out, a.reshape(x.shape))
+        return x + _linear(self.fc2, _gelu(_linear(self.fc1, self.ln2(x))))
 
 
 class AudioEncoder(nn.Module):
@@ -124,18 +155,21 @@ class AudioEncoder(nn.Module):
         self.ln_post = LayerNorm(d, **kw)
 
     def forward(self, mel: torch.Tensor,
-                attention: AttentionFn = encoder_attention) -> torch.Tensor:
-        x = mel.to(self.conv1.weight.dtype)
-        x = _gelu(self.conv1(x))
-        x = _gelu(self.conv2(x)).transpose(1, 2)              # (B, T, d)
+                attention: AttentionFn = encoder_attention,
+                compute_dtype: Optional[torch.dtype] = None,
+                remat: bool = False) -> torch.Tensor:
+        x = mel.to(compute_dtype or self.conv1.weight.dtype)
+        x = _gelu(_conv(self.conv1, x))
+        x = _gelu(_conv(self.conv2, x)).transpose(1, 2)       # (B, T, d)
         t, n_pos = x.shape[1], self.pos_emb.shape[0]
         if t > n_pos:
             raise ValueError(
                 f"mel input produces {t} encoder positions but the loaded "
                 f"position table has {n_pos}")
-        x = x + self.pos_emb[:t]
+        x = x + self.pos_emb[:t].to(x.dtype)
         for layer in self.layers:
-            x = layer(x, attention)
+            x = (checkpoint(layer, x, attention, use_reentrant=False) if remat
+                 else layer(x, attention))
         return self.ln_post(x)
 
 
@@ -209,7 +243,9 @@ def model_from_state(state: Mapping[str, object], arch: WhisperArch,
     path of each quantized linear or table to its ``models.quant`` class;
     each value takes the type the module declares (int8 weights, f32
     scales, ``dtype`` for the rest). A state without ``encoder.*`` keys
-    gives a decoder-only model (``encoder`` None), as a draft is."""
+    gives a decoder-only model (``encoder`` None), as a draft is. Every
+    parameter is frozen (``training.train.init_train_state`` unfreezes a
+    model to fine-tune)."""
     enc_pos = state.get("encoder.pos_emb")
     with torch.device("meta"):
         model = Whisper(arch, dtype=dtype, n_source_positions=(
@@ -230,13 +266,18 @@ def model_from_state(state: Mapping[str, object], arch: WhisperArch,
 
 
 def encoder_forward(model: Whisper, mel: torch.Tensor,
-                    attention: AttentionFn = encoder_attention) -> torch.Tensor:
+                    attention: AttentionFn = encoder_attention,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    remat: bool = False) -> torch.Tensor:
     """(B, n_mels, T_mel) features -> (B, T_mel // 2, d) encoder states.
 
     ``attention`` is the encoder's attention function: the kernel wrapper by
     default; ``ops.attention.encoder_attention_plain`` gives the plain
-    version on any device (to hold the kernel path against it)."""
-    return model.encoder(mel, attention)
+    version on any device (to hold the kernel path against it).
+    ``compute_dtype`` (default: the weights' type) is the activations'
+    type; ``remat`` recomputes each layer in the backward pass instead of
+    keeping its internals (JAX's ``jax.checkpoint`` on the layer body)."""
+    return model.encoder(mel, attention, compute_dtype, remat)
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +385,7 @@ def _self_qkv(layer: DecoderLayer, x: torch.Tensor):
     qkv = getattr(sa, "qkv", None)
     if qkv is not None:
         b, s, _ = q_in.shape
-        out = qkv(q_in).view(b, s, 3, sa.n_heads, -1)
+        out = _linear(qkv, q_in).view(b, s, 3, sa.n_heads, -1)
         return tuple(out[:, :, i].transpose(1, 2) for i in range(3))
     return tuple(sa.heads(p, q_in).transpose(1, 2) for p in (sa.q, sa.k, sa.v))
 
@@ -370,11 +411,13 @@ def _cross_and_mlp(x, layer: DecoderLayer, cross_k, cross_v, sel):
 
 
 def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding logits in f32 (exact products of the working type)."""
+    """Tied-embedding logits in f32: exact products of x's type (an f32
+    master table under a bf16 compute type is rounded to bf16 first, as
+    JAX's ``_logits`` casts it)."""
     emb = model.decoder.token_emb
     if isinstance(emb, Int8Embedding):
         return emb.logits(x)
-    return torch.matmul(x.float(), emb.float().t())
+    return torch.matmul(x.float(), emb.to(x.dtype).float().t())
 
 
 def _lookup(model: Whisper, tokens: torch.Tensor) -> torch.Tensor:
@@ -520,6 +563,42 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
         align = align + al
     x = dec.ln_post(x)
     return _logits(model, x), cache, align
+
+
+def _decoder_train_layer(layer: DecoderLayer, x: torch.Tensor,
+                         enc_out: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    """One decoder layer over a whole sequence: causal self-attention,
+    cross-attention to ``enc_out``, the MLP."""
+    q, k, v = _self_qkv(layer, x)
+    a, _ = _attend(q, k, v, causal)
+    x = x + _linear(layer.self_attn.out, _merge_heads(a))
+    ca = layer.cross_attn
+    cq = ca.heads(ca.q, layer.ln_cross(x)).transpose(1, 2)
+    ck, cv = (ca.heads(p, enc_out).transpose(1, 2) for p in (ca.k, ca.v))
+    c, _ = _attend(cq, ck, cv)
+    x = x + _linear(ca.out, _merge_heads(c))
+    return x + _linear(layer.fc2, _gelu(_linear(layer.fc1, layer.ln2(x))))
+
+
+def decoder_train_forward(model: Whisper, tokens: torch.Tensor,
+                          enc_out: torch.Tensor,
+                          compute_dtype: Optional[torch.dtype] = None,
+                          remat: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder over (B, S) tokens at positions [0, S)
+    against (B, T, d) encoder states (JAX's ``decoder_train_forward``):
+    returns f32 logits (B, S, V). ``compute_dtype`` and ``remat`` as in
+    :func:`encoder_forward`."""
+    dec = model.decoder
+    dtype = compute_dtype or model.dtype
+    s = tokens.shape[1]
+    x = _lookup(model, tokens).to(dtype) + dec.pos_emb[:s].to(dtype)
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    enc_out = enc_out.to(dtype)
+    for layer in dec.layers:
+        x = (checkpoint(_decoder_train_layer, layer, x, enc_out, causal,
+                        use_reentrant=False) if remat
+             else _decoder_train_layer(layer, x, enc_out, causal))
+    return _logits(model, dec.ln_post(x))
 
 
 # ---------------------------------------------------------------------------

@@ -156,7 +156,10 @@ def mel_splits(first: np.ndarray, count: np.ndarray) -> np.ndarray:
 class _PerTensor:
     """Tables derived from a tensor's values, made once per tensor (and
     again after an in-place change): the kernel's span tables from the
-    filter bank. Keyed by ``id``; an entry goes when its tensor does."""
+    filter bank. Keyed by ``id``; an entry goes when its tensor does. An
+    inference tensor (made under ``torch.inference_mode``) has no version
+    counter; it cannot be changed outside inference mode, so it is keyed
+    without one."""
 
     def __init__(self, make):
         self._make = make
@@ -164,10 +167,11 @@ class _PerTensor:
 
     def __call__(self, t: torch.Tensor):
         key = id(t)
+        version = None if t.is_inference() else t._version
         hit = self._cache.get(key)
-        if hit is None or hit[0]() is not t or hit[1] != t._version:
+        if hit is None or hit[0]() is not t or hit[1] != version:
             ref = weakref.ref(t, lambda _, k=key: self._cache.pop(k, None))
-            hit = (ref, t._version, self._make(t))
+            hit = (ref, version, self._make(t))
             self._cache[key] = hit
         return hit[2]
 

@@ -14,19 +14,24 @@ attention_control``; smoke: [P1]); ``mlp``, P2/P3 in
 whose mutants change the engine's product and epilogues in
 ``csrc/mega_common.cuh``, which P2/P3 run; and ``cache``, P4/P5 in
 ``csrc/cache_write.cu`` (tests ``-k "write_row or write_column"``; smoke:
-[P4]/[P5]).
+[P4]/[P5]); and ``attn_bwd``, K2-dkv and K2-dq in
+``csrc/encoder_attention_bwd.cu`` and K2's lse store in
+``csrc/encoder_attention.cu`` (tests ``-k "attention_backward or
+autograd_on_the_card"``; smoke: [TRAIN]'s kernel checks).
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
 the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
-the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5:
+the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
+eight K2 backward mutants about 3:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel mlp
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel cache
+    python -m thewhisper_tpu_torch.tools.mega_mutants --kernel attn_bwd
     python -m thewhisper_tpu_torch.tools.mega_mutants --only parity,causal
     python -m thewhisper_tpu_torch.tools.mega_mutants --check smoke
 """
@@ -59,12 +64,16 @@ SMOKE_MLP = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
              "c.phase_mlp(smi)")
 SMOKE_CACHE = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
                "c.phase_cache_writes(smi)")
+SMOKE_ATTN_BWD = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
+                  "c.phase_attention_backward(smi)")
 # kernel -> (its source, the -k selection of its card tests, its smoke run).
 KERNELS = {
     "mega": ("csrc/mega_common.cuh", "mega", SMOKE_MEGA),
     "control": ("csrc/attention_control.cu", "attention_control", SMOKE_CONTROL),
     "mlp": ("csrc/mlp_chain.cu", "mlp_chain", SMOKE_MLP),
     "cache": ("csrc/cache_write.cu", "write_row or write_column", SMOKE_CACHE),
+    "attn_bwd": ("csrc/encoder_attention_bwd.cu",
+                 "attention_backward or autograd_on_the_card", SMOKE_ATTN_BWD),
 }
 
 # The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
@@ -161,6 +170,29 @@ CACHE_MUTANTS = (
 )
 
 
+# K2-dkv and K2-dq, and K2's lse store (in csrc/encoder_attention.cu).
+ATTN_BWD_MUTANTS = (
+    ("dv-scale", "dV is stored halved",
+     "store_half(dv + out, dvr, 1.0f, half);", "store_half(dv + out, dvr, 0.5f, half);"),
+    ("dq-ragged", "dQ skips the last, ragged key tile",
+     "for (int t0 = 0; t0 < valid_len; t0 += kTile) {",
+     "for (int t0 = 0; t0 + kTile <= valid_len; t0 += kTile) {"),
+    ("dkv-no-di", "dS for dK leaves out di",
+     "round_as(p * (dp - di_t[j]), q)", "round_as(p * dp, q)"),
+    ("dkv-mask", "keys at or past valid_len get gradients",
+     "const bool live = key < valid_len;", "const bool live = key < S;"),
+    ("dq-scale", "dQ is not scaled by 1 / sqrt(dh)",
+     "             dqr, scale, half);", "             dqr, 1.0f, half);"),
+    ("dkv-last-query", "dK and dV leave out the last query of each tile",
+     "const int rows = min(kTile, S - t0);", "const int rows = min(kTile, S - t0 - 1);"),
+    ("lse-f32", "the f32 route's lse leaves out the row sum",
+     "= (m + log2f(l)) * kLn2;", "= m * kLn2;", "csrc/encoder_attention.cu"),
+    ("lse-tc", "the bf16 route's lse is 0.001 off in the log2 domain",
+     "(m[i] * scale_log2 + log2f(l[i])) * kLn2;",
+     "(m[i] * scale_log2 + log2f(l[i]) + 0.001f) * kLn2;", "csrc/encoder_attention.cu"),
+)
+
+
 def _with_source(kernel, mutants):
     """(kernel, source, name, fault, old, new) of each mutant, the source
     its own or its kernel's."""
@@ -170,7 +202,8 @@ def _with_source(kernel, mutants):
 
 # (kernel, source, name, fault, old, new) for every mutant.
 MUTANTS = (_with_source("mega", MEGA_MUTANTS) + _with_source("control", CONTROL_MUTANTS)
-           + _with_source("mlp", MLP_MUTANTS) + _with_source("cache", CACHE_MUTANTS))
+           + _with_source("mlp", MLP_MUTANTS) + _with_source("cache", CACHE_MUTANTS)
+           + _with_source("attn_bwd", ATTN_BWD_MUTANTS))
 
 
 def make_copy(name: str, source: Optional[str], old: Optional[str],
