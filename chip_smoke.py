@@ -105,7 +105,9 @@ is false. Phases, each of which raises on failure:
     two backward kernels) against their plain versions at B = 8 x S = 500,
     B = 4 x S = 1500 and B = 1 x S = 1500 with valid_len 1100, f32 and
     bf16, timed beside ``scaled_dot_product_attention``'s forward and
-    backward; then fine-tuning and distillation at large-v3-turbo's full
+    backward (bf16 K2-dkv + K2-dq at B = 8 x S = 500, the tensor-core
+    route, at most 1.5x its bf16 backward); then fine-tuning and
+    distillation at large-v3-turbo's full
     width (``phase_train``: arms A, B and C, the checkpoint round trip
     through the stdlib safetensors writer and reader, a distilled
     layer-skip student), every training step's launches counted.
@@ -1892,6 +1894,11 @@ def phase_probes() -> dict:
 TRAIN_TOKENS = 128          # run_finetune.py's --max-tokens
 # The backward kernels' cases: (B, S, valid_len), H = 20, f32 and bf16.
 BWD_CASES = ((8, 500, None), (4, 1500, None), (1, 1500, 1100))
+# bf16 K2-dkv + K2-dq at arm A's shape (B = 8, S = 500) against
+# scaled_dot_product_attention's bf16 backward (all three gradients) on the
+# same inputs.
+BWD_BF16_VS_SDPA = 1.5
+ARM_C_STEPS = 3
 
 
 def phase_attention_backward(smi: str) -> dict:
@@ -1905,8 +1912,11 @@ def phase_attention_backward(smi: str) -> dict:
     distance from the f32 gradients of the same inputs (both round P and
     dS to bf16). Times from CUDA events; ``scaled_dot_product_attention``'s
     forward (on inputs that require grad, so it keeps its residuals) and
-    backward on the same inputs as yardsticks. Returns the kernels-line
-    entries at arm A's shape (B = 8, S = 500, f32)."""
+    backward on the same inputs as yardsticks; in bf16 at arm A's shape
+    (B = 8, S = 500) K2-dkv and K2-dq together must take at most
+    ``BWD_BF16_VS_SDPA`` times that backward. Returns the kernels-line
+    entries at arm A's shape (f32, with the bf16 route's time, bound and
+    library time beside them)."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
     main = None
@@ -1971,6 +1981,14 @@ def phase_attention_backward(smi: str) -> dict:
                          f" ms, backward {lib_bwd:.4f} ms")
                 del leaves, lib_out
             print(f"{line}; {smi}", flush=True)
+            if (dtype, b, s, valid_len) == (torch.bfloat16, 8, 500, None):
+                check(dkv_ms + dq_ms <= BWD_BF16_VS_SDPA * lib_bwd,
+                      f"bf16 dK/dV + dQ {dkv_ms + dq_ms:.4f} ms over "
+                      f"{BWD_BF16_VS_SDPA}x scaled_dot_product_attention's "
+                      f"backward ({lib_bwd:.4f} ms)")
+                for key, ms in (("dkv", dkv_ms), ("dq", dq_ms)):
+                    main[key].update(bf16_ms=ms, bf16_bound_ms=bounds[key]["bound_ms"],
+                                     bf16_library_ms=lib_bwd)
             if (dtype, b, s, valid_len) == (torch.float32, 8, 500, None):
                 errs = [(x - r).abs().max().item() for x, r in zip(got, plain)]
                 main = {
@@ -2132,7 +2150,9 @@ def phase_train(smi: str) -> dict:
     window the same tokens from both models.
     Arm C: bf16 compute over those f32 weights at arm A's shapes: each
     group's gradient distance from the f32 gradients at most ``F32_RATIO``
-    times that of the same bf16 step with the plain attention; one step.
+    times that of the same bf16 step with the plain attention; then
+    ``ARM_C_STEPS`` steps, each timed, each launching the backward kernels
+    once a layer.
     Distillation: a two-layer layer-skip student of a fresh turbo model
     (``run_distill.py``'s defaults: lr 1e-4, temperature 1), three steps on
     arm A's batch: the KL falls and greedy agreement rises or holds. (From
@@ -2201,11 +2221,20 @@ def phase_train(smi: str) -> dict:
     check(max(ratio.values()) <= F32_RATIO, f"arm C ratios {ratio}")
     del g32, g16, g16p
     zero_train_counts()
-    state, loss = train.make_train_step(tx, compute_dtype=torch.bfloat16)(state, batch)
-    check(math.isfinite(loss.item()) and train_counts()["encoder_attention_bwd_dq"]
-          == layers, "arm C step")
-    print(f"[TRAIN] arm C step: loss {loss.item():.6f}; peak device memory "
-          f"{peak_gib():.2f} GiB", flush=True)
+    step16 = train.make_train_step(tx, compute_dtype=torch.bfloat16)
+    losses, walls = [], []
+    for _ in range(ARM_C_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step16(state, batch)
+        losses.append(loss.item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(x) for x in losses) and train_counts()["encoder_attention_bwd_dq"]
+          == ARM_C_STEPS * layers, "arm C steps")
+    print(f"[TRAIN] arm C steps (bf16 compute, B=8 x 10 s): loss "
+          f"{' -> '.join(f'{x:.6f}' for x in losses)}; step wall p50 "
+          f"{float(np.median(walls)):.1f} ms (each {', '.join(f'{w:.1f}' for w in walls)}); "
+          f"peak device memory {peak_gib():.2f} GiB; {smi}", flush=True)
 
     del model, state, tx
     torch.cuda.empty_cache()

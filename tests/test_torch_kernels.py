@@ -24,10 +24,13 @@ from CUDA graphs at slots refilled on the card, in a P5 -> P4 -> P4 relay
 that checks the programmatic launches' ordering, and a device slot outside
 the cache trapping in a child process (``mega_mutants --kernel cache``
 checks these against broken copies of ``csrc/cache_write.cu``). K2's lse
-and its backward kernels at S = 1, a ragged 77 (with valid_len 30), 500
-and 1500 (valid_len 1100), f32 and bf16, and through autograd
-(``mega_mutants --kernel attn_bwd`` checks these against broken copies of
-``csrc/encoder_attention_bwd.cu`` and of K2's lse store).
+and its backward kernels at S = 1, the bf16 route's tile edges 64, 65 and
+128, a ragged 77 (with valid_len 30), 500 and 1500 (valid_len 1100), f32
+and bf16, with lse and di that hold NaN past their last row, and through
+autograd on the encoder's strided views (``mega_mutants --kernel
+attn_bwd`` checks these against broken copies of
+``csrc/encoder_attention_bwd.cu``, of ``csrc/tc_common.cuh`` and of K2's
+lse store).
 """
 
 import dataclasses
@@ -211,6 +214,7 @@ def _l2(got, ref):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,valid_len", [
+    (1, 64, None), (2, 65, None), (1, 128, None), (2, 130, 65),
     (1, 77, None), (2, 77, 30), (2, 500, None), (1, 1500, 1100)])
 def test_attention_backward_kernels_match_plain(cuda_device, dtype, b, s, valid_len):
     """K2 with lse, then K2-dkv and K2-dq, against the plain versions on the
@@ -266,23 +270,76 @@ def test_attention_backward_kernels_one_key(cuda_device, dtype):
     assert dq.float().abs().max() <= 1e-3 and dk.float().abs().max() <= 1e-3
 
 
-def test_encoder_attention_autograd_on_the_card(cuda_device):
-    """Under grad, ``encoder_attention`` on strided views launches K2 with
-    lse once and each backward kernel once; its gradient equals autograd
-    of the plain version to 1e-4 relative L2 (f32)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_attention_autograd_on_the_card(cuda_device, dtype):
+    """Under grad, ``encoder_attention`` on the encoder's strided views (the
+    chunks of one (B, S, 3 H 64) leaf, which the bf16 route's tensor maps
+    meet as they are) launches K2 with lse once and each backward kernel
+    once. f32: its gradient equals autograd of the plain version to 1e-4
+    relative L2. bf16: its distance from the f32 plain gradient is at most
+    1.5x the plain bf16 autograd's."""
     x = torch.randn(2, 300, 3 * 20 * 64, device=cuda_device)
     grads = []
     counts = (ta.ATTN_LAUNCHES, ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES,
               ta.ATTN_BWD_DQ_LAUNCHES)
-    for fn in (ta.encoder_attention, ta.encoder_attention_plain):
-        leaf = x.clone().requires_grad_(True)
+    runs = [(ta.encoder_attention, dtype), (ta.encoder_attention_plain, dtype)]
+    if dtype == torch.bfloat16:
+        runs.append((ta.encoder_attention_plain, torch.float32))
+    for fn, run_dtype in runs:
+        # A leaf of its own each run (``to`` returns x itself when the type
+        # matches, and the runs would then sum into one .grad).
+        leaf = x.to(dtype).to(run_dtype).clone().requires_grad_(True)
         q, k, v = (t.view(2, 300, 20, 64) for t in leaf.chunk(3, dim=-1))
-        fn(q, k, v).square().sum().backward()
+        fn(q, k, v).float().square().sum().backward()
         grads.append(leaf.grad)
     torch.cuda.synchronize()
     assert (ta.ATTN_LAUNCHES, ta.ATTN_RES_LAUNCHES, ta.ATTN_BWD_DKV_LAUNCHES,
             ta.ATTN_BWD_DQ_LAUNCHES) == (counts[0], *(c + 1 for c in counts[1:]))
-    assert _l2(*grads) <= 1e-4
+    if dtype == torch.float32:
+        assert _l2(*grads) <= 1e-4
+    else:
+        assert _l2(grads[0], grads[2]) <= 1.5 * _l2(grads[1], grads[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_reads_nothing_past_s(cuda_device, dtype):
+    """lse and di as the first rows of buffers that hold NaN after them:
+    the last (batch, head) row's query tile runs past S (77 is no tile
+    multiple), and the kernels must neither read lse or di there nor let
+    those queries into the sums, so the gradients equal those from
+    ordinary lse and di bit for bit."""
+    q, k, v = _qkv(2, 77, 4, dtype, cuda_device, seed=11)
+    do = _qkv(2, 77, 4, dtype, cuda_device, seed=12)[0]
+    out, lse = ta.encoder_attention_residuals(q, k, v)
+    di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    guarded = []
+    for x in (lse, di):
+        buf = torch.full((x.numel() + 256,), float("nan"), device=cuda_device)
+        buf[:x.numel()] = x.flatten()
+        guarded.append(buf[:x.numel()].view(x.shape))
+    for launch in (ta.launch_backward_dkv, ta.launch_backward_dq):
+        ref = launch(q, k, v, do, lse, di, 77)
+        got = launch(q, k, v, do, *guarded, 77)
+        torch.cuda.synchronize()
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert torch.isfinite(g).all() and torch.equal(g, r)
+
+
+def test_attention_backward_bf16_rejects_misaligned_operands(cuda_device):
+    """The bf16 route's TMA needs 16-byte-aligned base pointers and strides
+    of q, k, v and dout."""
+    flat = torch.zeros(100 * 20 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 100, 20, 64)                     # base + 2 bytes
+    ok = torch.zeros(1, 100, 20, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 20, 100, device=cuda_device)
+    for args in ((shifted, ok, ok, ok), (ok, ok, shifted, ok), (ok, ok, ok, shifted)):
+        q, k, v, do = args
+        with pytest.raises(ValueError, match="TMA"):
+            ta.encoder_attention_backward(q, k, v, ok, lse, do)
+    wide = torch.zeros(1, 100, 20, 68, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):                     # 136-byte head stride
+        ta.encoder_attention_backward(ok, wide[..., :64], ok, ok, lse, ok)
 
 
 def test_attention_backward_rejects_bad_input(cuda_device):

@@ -208,7 +208,9 @@ def test_session_bounds_match_jax():
 
 
 class FakePipeline:
-    """Records each ``transcribe_batch``; raises when asked to."""
+    """Records each ``transcribe_batch``; raises when asked to. A row's
+    word comes from its own request (its language), not from its place in
+    the batch, so concurrent requests give the same words in any order."""
 
     def __init__(self, fail: bool = False):
         self.calls, self.fail = [], fail
@@ -218,14 +220,19 @@ class FakePipeline:
         self.calls.append((len(audios), languages, dict(generate_kwargs)))
         if self.fail:
             raise RuntimeError("kernel launch failed")
-        return [{"text": f" w{i}", "chunks": [
-            {"text": f" w{i}", "timestamp": (0.25 * i, None)}]}
-            for i in range(len(audios))]
+        langs = languages or [None] * len(audios)
+        return [{"text": f" w{lang}", "chunks": [
+            {"text": f" w{lang}", "timestamp": (0.5, None)}]} for lang in langs]
 
 
 def _coalesce(pkg):
     """Three requests with per-session languages inside one wait window,
-    then three sessions' backends at once."""
+    then three sessions' backends at once. The first three are submitted
+    in order: their call is returned as it is. The concurrent three reach
+    the queue in the scheduler's order, and under load may split into two
+    calls: of them, only what no order changes is returned (their rows in
+    all, the multiset of their languages, the distinct generate_kwargs of
+    their calls, their words sorted)."""
     pipe = FakePipeline()
     bt = pkg[2](pipe, language="en", max_batch=4, max_wait_ms=200.0)
     try:
@@ -244,7 +251,11 @@ def _coalesce(pkg):
         assert not any(t.is_alive() for t in threads)
     finally:
         bt.close()
-    return pipe.calls, results, sorted(map(repr, words))
+    first, rest = pipe.calls[0], pipe.calls[1:]
+    langs = [lang for n, row_langs, _ in rest for lang in (row_langs or [None] * n)]
+    concurrent = (sum(n for n, _, _ in rest), sorted(langs, key=repr),
+                  sorted({repr(kwargs) for _, _, kwargs in rest}))
+    return first, results, concurrent, sorted(map(repr, words))
 
 
 def test_batched_transcriber_matches_jax():
@@ -252,9 +263,12 @@ def test_batched_transcriber_matches_jax():
     open word ends are clamped against the buffer's end."""
     ours, ref = _coalesce(PACKAGES["torch"]), _coalesce(PACKAGES["jax"])
     assert repr(ours) == repr(ref)
-    assert ours[0][0] == (3, ["fr", "de", None],
-                          {"language": "en", "max_new_tokens": 128,
-                           "num_beams": 1})
+    kwargs = {"language": "en", "max_new_tokens": 128, "num_beams": 1}
+    assert ours[0] == (3, ["fr", "de", None], kwargs)
+    assert ours[2][:2] == (3, ["de", None, None])
+    assert ours[2][2] == [repr(kwargs)]
+    assert ours[3] == sorted(repr([{"text": f" w{lang}", "start": 10.5, "end": 11.0}])
+                             for lang in ("de", None, None))
 
 
 def test_a_failed_batch_reaches_every_session_as_http_500():

@@ -24,30 +24,56 @@
 // part. Gradients are written contiguous (B, S, H, 64) in the operand
 // type; sums are f32. In bf16, P and dS are rounded to bf16 before their
 // products (dV = P^T dO, dK = dS^T q, dQ = dS k), the rule the forward
-// keeps for P and the library keeps for both.
+// keeps for P and the library keeps for both; dS is computed from the
+// f32 P.
 //
 // Bound on the H100: arithmetic, 14 S^2 dh FLOPs per (batch, head) (the
 // dK/dV kernel 8: the scores, dO v^T, P^T dO and dS^T q; the dQ kernel 6:
-// the scores, dO v^T and dS k) against 5 S dh elements in. This first
-// design runs every product on the CUDA cores, f32 and bf16 alike (bf16
-// operands are widened to f32 when staged), so the f32 rate (67 TFLOP/s)
-// is its ceiling; the tensor-core design is later work.
+// the scores, dO v^T and dS k) against 5 S dh elements in.
 //
-// Layout, as in K2's f32 route: two threads per row (a key in dK/dV, a
-// query in dQ), each owning 32 of the 64 dims in interleaved float4
-// chunks, combining its half dot products with one shuffle. The block
-// stages 32 rows of the other side (q and dO, or k and v) in shared memory
-// as f32 and walks them; the row's operands and its two (or one)
-// gradient accumulators stay in registers.
+// bf16 (the encoder's training type): TMA + wgmma, every product on the
+// tensor cores. One kernel template serves both sides: a block holds 128
+// rows of one side resident (keys with their v rows for dK/dV, queries
+// with their dO rows for dQ) and streams 64-row tiles of the other side
+// (q and dO, or k and v) through a four-stage ring. A producer warpgroup
+// (one thread issues the TMA loads: 4-D tensor maps over the strided views,
+// 128-byte swizzle, rows past S read as zeros) and two consumer warpgroups
+// of 64 resident rows, setmaxnreg moving the producer's registers to them.
+// For each streamed tile a consumer computes, with 64 x 64 tiles on both
+// sides so that its four f32 accumulators take 128 registers:
+//   dK/dV: S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands in
+//          shared memory, K-major), P^T = exp2(S^T scale log2 e - lse
+//          log2 e) on the accumulator fragments, dV += bf16(P^T) dO, then
+//          dS^T = P^T (dP^T - di) and dK += bf16(dS^T) Q (m64n64k16 with
+//          the fragment as the register A operand and the same Q or dO
+//          tile read MN-major through the transpose bit);
+//   dQ:    S = Q K^T and dP = dO V^T, P, dS = P (dP - di), dQ += bf16(dS) K.
+// Products are issued together where they do not depend on each other
+// (S and dP; dV and the dS math), and each consumer waits for its own.
+// For dK/dV the producer warp's lanes also write each tile's 64 columns of
+// lse log2 e and di into its stage (plain loads from the (B, H, S) rows: a
+// bulk copy would need S * 4 % 16 == 0) and arrive on the stage's barrier,
+// in place of 32 global loads a consumer thread a tile, which held the
+// kernel back more than any of its products. Masks: queries >= S in the last query tile of dK/dV
+// arrive as zero rows of q and dO but have no lse or di, so their lse is
+// taken as +inf (P = 0) and their di as 0, and nothing past S is read; keys >= valid_len get P = 0 (dK/dV: by row; dQ: the columns of
+// its last key tile, whose rows hold real data); a dK/dV block whose keys
+// are all >= valid_len only writes zeros; rows >= S are not written. dK and
+// dQ are scaled by 1 / sqrt(dh) at the end.
+//
+// f32: on the CUDA cores, whose 67 TFLOP/s f32 rate is their ceiling.
+// Two threads per row (a key in dK/dV, a query in dQ), each owning 32 of
+// the 64 dims in interleaved float4 chunks, combining its half dot
+// products with one shuffle. The block stages 32 rows of the other
+// side (q and dO, or k and v) in shared memory and walks them; the row's
+// operands and its two (or one) gradient accumulators stay in registers.
 
 #include <math.h>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int kDh = 64;
 constexpr int kHalf = kDh / 2;       // dims a thread
 constexpr int kChunks = kHalf / 4;   // float4 chunks a thread
 constexpr int kBlockRows = 64;       // keys (dK/dV) or queries (dQ) a block
@@ -55,27 +81,16 @@ constexpr int kThreads = 2 * kBlockRows;
 constexpr int kTile = 32;            // rows of the other side staged a pass
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// x rounded to the operand type (the identity in f32).
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 // Element e of this thread's float4 chunk c: dim 4 (2 c + half) + e.
 __device__ __forceinline__ int dim(int c, int e, int half) { return 4 * (2 * c + half) + e; }
 
-// This thread's half of a row, widened to f32.
-template <typename T>
-__device__ __forceinline__ void load_half(float (&r)[kHalf], const T* row, bool live, int half) {
+// This thread's half of a row.
+__device__ __forceinline__ void load_half(float (&r)[kHalf], const float* row, bool live,
+                                          int half) {
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) r[4 * c + e] = live ? to_f32(row[dim(c, e, half)]) : 0.0f;
+    for (int e = 0; e < 4; ++e) r[4 * c + e] = live ? row[dim(c, e, half)] : 0.0f;
 }
 
 // The pair's dot product of a register half-row with a staged row.
@@ -104,13 +119,12 @@ __device__ __forceinline__ void axpy(float (&acc)[kHalf], float a, const float* 
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_half(T* row, const float (&r)[kHalf], float scale,
+__device__ __forceinline__ void store_half(float* row, const float (&r)[kHalf], float scale,
                                           int half) {
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(row + dim(c, e, half), r[4 * c + e] * scale);
+    for (int e = 0; e < 4; ++e) row[dim(c, e, half)] = r[4 * c + e] * scale;
 }
 
 struct Strides {
@@ -118,15 +132,14 @@ struct Strides {
 };
 
 // dK and dV of 64 keys of one (batch, head). For each query j (all S):
-// p = exp2(s_j scale log2 e - lse_j log2 e), dV += round(p) dO_j,
-// dp = v . dO_j, dS = p (dp - di_j), dK += round(dS) q_j; dK is scaled
-// by 1 / sqrt(dh) at the end.
-template <typename T>
+// p = exp2(s_j scale log2 e - lse_j log2 e), dV += p dO_j, dp = v . dO_j,
+// dS = p (dp - di_j), dK += dS q_j; dK is scaled by 1 / sqrt(dh) at the
+// end.
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         T* __restrict__ dk, T* __restrict__ dv, int S, int H, Strides qs,
+                         float* __restrict__ dk, float* __restrict__ dv, int S, int H, Strides qs,
                          Strides ks, Strides vs, Strides ds, int valid_len, float scale) {
   __shared__ __align__(16) float q_t[kTile][kDh];
   __shared__ __align__(16) float do_t[kTile][kDh];
@@ -147,8 +160,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) dkr[i] = dvr[i] = 0.0f;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* db = dout + b * ds.b + h * ds.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* db = dout + b * ds.b + h * ds.h;
   const float* lse_b = lse + static_cast<long long>(bh) * S;
   const float* di_b = di + static_cast<long long>(bh) * S;
   // A block whose keys are all masked only writes zeros.
@@ -160,8 +173,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / kDh;
       const int c = idx - r * kDh;
       const long long row = t0 + r;
-      q_t[r][c] = to_f32(qb[row * qs.s + c]);
-      do_t[r][c] = to_f32(db[row * ds.s + c]);
+      q_t[r][c] = qb[row * qs.s + c];
+      do_t[r][c] = db[row * ds.s + c];
     }
     if (threadIdx.x < rows) {
       lse_t[threadIdx.x] = lse_b[t0 + threadIdx.x] * kLog2e;
@@ -171,7 +184,6 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < rows; ++j) {
       const float s = dot(kr, q_t[j], half);
       const float p = live ? exp2f(fmaf(s, scale_log2, -lse_t[j])) : 0.0f;
-      const float p_r = round_as(p, q);
       float part = 0.0f;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
@@ -180,13 +192,13 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         part = fmaf(vr[4 * c + 1], x.y, part);
         part = fmaf(vr[4 * c + 2], x.z, part);
         part = fmaf(vr[4 * c + 3], x.w, part);
-        dvr[4 * c + 0] = fmaf(p_r, x.x, dvr[4 * c + 0]);
-        dvr[4 * c + 1] = fmaf(p_r, x.y, dvr[4 * c + 1]);
-        dvr[4 * c + 2] = fmaf(p_r, x.z, dvr[4 * c + 2]);
-        dvr[4 * c + 3] = fmaf(p_r, x.w, dvr[4 * c + 3]);
+        dvr[4 * c + 0] = fmaf(p, x.x, dvr[4 * c + 0]);
+        dvr[4 * c + 1] = fmaf(p, x.y, dvr[4 * c + 1]);
+        dvr[4 * c + 2] = fmaf(p, x.z, dvr[4 * c + 2]);
+        dvr[4 * c + 3] = fmaf(p, x.w, dvr[4 * c + 3]);
       }
       const float dp = part + __shfl_xor_sync(0xffffffffu, part, 1);
-      axpy(dkr, round_as(p * (dp - di_t[j]), q), q_t[j], half);
+      axpy(dkr, p * (dp - di_t[j]), q_t[j], half);
     }
   }
 
@@ -199,13 +211,12 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dQ of 64 queries of one (batch, head). For each key j < valid_len:
 // p = exp2(s_j scale log2 e - lse log2 e), dp = dO . v_j,
-// dQ += round(p (dp - di)) k_j; scaled by 1 / sqrt(dh) at the end.
-template <typename T>
+// dQ += p (dp - di) k_j; scaled by 1 / sqrt(dh) at the end.
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ di,
-                        T* __restrict__ dq, int S, int H, Strides qs, Strides ks, Strides vs,
+                        float* __restrict__ dq, int S, int H, Strides qs, Strides ks, Strides vs,
                         Strides ds, int valid_len, float scale) {
   __shared__ __align__(16) float k_t[kTile][kDh];
   __shared__ __align__(16) float v_t[kTile][kDh];
@@ -227,8 +238,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float lse2 = active ? lse[row] * kLog2e : 0.0f;
   const float di_q = active ? di[row] : 0.0f;
 
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
   for (int t0 = 0; t0 < valid_len; t0 += kTile) {
     const int keys = min(kTile, valid_len - t0);
     __syncthreads();  // the previous tile is consumed
@@ -236,8 +247,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / kDh;
       const int c = idx - r * kDh;
       const long long key = t0 + r;
-      k_t[r][c] = to_f32(kb[key * ks.s + c]);
-      v_t[r][c] = to_f32(vb[key * vs.s + c]);
+      k_t[r][c] = kb[key * ks.s + c];
+      v_t[r][c] = vb[key * vs.s + c];
     }
     __syncthreads();
     for (int j = 0; j < keys; ++j) {
@@ -258,7 +269,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float s = sp + __shfl_xor_sync(0xffffffffu, sp, 1);
       const float dp = dpp + __shfl_xor_sync(0xffffffffu, dpp, 1);
       const float p = exp2f(fmaf(s, scale_log2, -lse2));
-      axpy(dqr, round_as(p * (dp - di_q), q), k_t[j], half);
+      axpy(dqr, p * (dp - di_q), k_t[j], half);
     }
   }
 
@@ -267,26 +278,275 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
              dqr, scale, half);
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma.
+
+constexpr int kTcRows = 64;                         // rows of a consumer and of a streamed tile
+constexpr int kTcConsumers = 2;                     // warpgroups of 64 resident rows
+constexpr int kTcBlock = kTcRows * kTcConsumers;    // resident rows a block
+constexpr int kTcStages = 4;                        // ring depth (streamed tile pairs)
+constexpr int kTcThreads = 128 * (kTcConsumers + 1);  // producer, consumers
+// Registers a thread after setmaxnreg: the consumers hold four 64 x 64 f32
+// accumulators (128) and two bf16 fragments (32).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(128 * (kProducerRegs + kTcConsumers * kConsumerRegs) <= 65536, "registers");
+constexpr int kTcTileBytes = kTcRows * kDh * 2;     // one 64-row tile, 8 KB
+constexpr int kTcResBytes = kTcBlock * kDh * 2;     // one resident operand, 16 KB
+constexpr int kTcColBytes = 2 * kTcRows * 4;        // a dK/dV tile's lse log2 e and di
+constexpr int kTcSmem =
+    2 * kTcResBytes + kTcStages * (2 * kTcTileBytes + kTcColBytes) + 1024 + 128;
+
+// 2**x (ex2.approx: 2 ulp, 0 for -inf).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A thread's place in a 64 x 64 accumulator: index j holds row r0 + 8
+// frag_row(j) and column frag_col(j, cq), cq = 2 (lane % 4).
+__device__ __forceinline__ int frag_row(int j) { return (j >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int j, int cq) { return 8 * (j / 4) + cq + (j & 1); }
+
+// Rows row and row + 8 of one 64 x 64 accumulator, times `scale`, as bf16
+// into a contiguous (B, S, H, 64) gradient; rows >= S are skipped.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[32], float scale,
+                                           int row, int cq, int b, int h, int S, int H) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row + 8 * i >= S) continue;
+    __nv_bfloat16* op = out + ((static_cast<long long>(b) * S + row + 8 * i) * H + h) * kDh;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * c + cq) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * i] * scale, acc[4 * c + 2 * i + 1] * scale);
+  }
+}
+
+// kKeys: the dK/dV kernel (resident K and V, streamed Q and dO tiles,
+// out0 = dK, out1 = dV); else the dQ kernel (resident Q and dO, streamed K
+// and V tiles, out0 = dQ). out0 is scaled by out0_scale (1 / sqrt(dh)).
+template <bool kKeys>
+__global__ void __launch_bounds__(kTcThreads, 1)
+attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
+                        const __grid_constant__ CUtensorMap res1_map,
+                        const __grid_constant__ CUtensorMap str0_map,
+                        const __grid_constant__ CUtensorMap str1_map, int res0_perm,
+                        int res1_perm, int str0_perm, int str1_perm,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
+                        int S, int H, int valid_len, float scale_log2, float out0_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* res0 = base;                        // K (dK/dV) or Q (dQ), 128 rows
+  uint8_t* res1 = res0 + kTcResBytes;          // V or dO
+  uint8_t* str0 = res1 + kTcResBytes;          // Q or K tiles, one a stage
+  uint8_t* str1 = str0 + kTcStages * kTcTileBytes;  // dO or V tiles
+  // dK/dV: each stage's 64 query columns, lse log2 e then di.
+  float* cols = reinterpret_cast<float*>(str1 + kTcStages * kTcTileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cols + kTcStages * 2 * kTcRows);
+  uint64_t* res_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kTcStages;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int row0 = blockIdx.x * kTcBlock;  // first resident row (key or query)
+  const float* lse_bh = lse + static_cast<long long>(bh) * S;
+  const float* di_bh = di + static_cast<long long>(bh) * S;
+
+  if (kKeys && row0 >= valid_len) {
+    // Every key of the block is masked: dK and dV rows of zeros.
+    const int rows = min(kTcBlock, S - row0);
+    for (int idx = threadIdx.x; idx < rows * (kDh / 8); idx += kTcThreads) {
+      const long long off =
+          ((static_cast<long long>(b) * S + row0 + idx / 8) * H + h) * kDh + 8 * (idx % 8);
+      *reinterpret_cast<uint4*>(out0 + off) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(out1 + off) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  // Streamed tiles: every query for dK/dV, keys < valid_len for dQ.
+  const int n_tiles = ((kKeys ? S : valid_len) + kTcRows - 1) / kTcRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], kKeys ? 33 : 1);  // the TMA's bytes; dK/dV: 32 lanes' columns
+      mbar_init(&empty[s], 128 * kTcConsumers);  // every consumer thread releases it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // Producer warpgroup: its first warp fills the ring. One thread issues
+    // every TMA load; for dK/dV all 32 lanes also write the tile's query
+    // columns, lse log2 e and di, and arrive. Queries past S have neither:
+    // their lse is +inf (P = 0) and their di 0, and nothing past S is read.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(res_full, 2 * kTcResBytes);
+        load_rows(res0, &res0_map, res0_perm, row0, h, b, res_full);
+        load_rows(res1, &res1_map, res1_perm, row0, h, b, res_full);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kTcStages;
+        if (t >= kTcStages) mbar_wait(&empty[st], ((t / kTcStages) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * kTcTileBytes);
+          load_rows(str0 + st * kTcTileBytes, &str0_map, str0_perm, t * kTcRows, h, b, &full[st]);
+          load_rows(str1 + st * kTcTileBytes, &str1_map, str1_perm, t * kTcRows, h, b, &full[st]);
+        }
+        if (kKeys) {
+          float* cl = cols + st * 2 * kTcRows;
+          for (int c = lane; c < kTcRows; c += 32) {
+            const int q = t * kTcRows + c;
+            cl[c] = q < S ? lse_bh[q] * kLog2e : INFINITY;
+            cl[kTcRows + c] = q < S ? di_bh[q] : 0.0f;
+          }
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // Consumer warpgroup wg owns resident rows row0 + 64 wg .. + 63; a
+    // thread holds rows `row` and row + 8 of its accumulators.
+    const int wg = warp / 4 - 1;
+    const int row = row0 + wg * kTcRows + (warp % 4) * 16 + lane / 4;
+    const int cq = 2 * (lane % 4);
+    const uint64_t res0_desc = sw128_desc(res0 + wg * kTcTileBytes);
+    const uint64_t res1_desc = sw128_desc(res1 + wg * kTcTileBytes);
+
+    // dK/dV: whether each of the thread's keys is < valid_len. dQ: each
+    // of its queries' lse log2 e and di (+inf and 0 past S).
+    bool key_live[2];
+    float row_lse[2], row_di[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      key_live[i] = r < valid_len;
+      row_lse[i] = (!kKeys && r < S) ? lse_bh[r] * kLog2e : INFINITY;
+      row_di[i] = (!kKeys && r < S) ? di_bh[r] : 0.0f;
+    }
+
+    float acc0[32], acc1[32];  // dK and dV, or dQ
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.0f;
+
+    mbar_wait(res_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kTcStages;
+      mbar_wait(&full[st], (t / kTcStages) & 1);
+      const uint64_t str0_desc = sw128_desc(str0 + st * kTcTileBytes);
+      const uint64_t str1_desc = sw128_desc(str1 + st * kTcTileBytes);
+      float s[32], dp[32];
+      issue_ss64(s, res0_desc, str0_desc);   // S^T = K Q^T, or S = Q K^T
+      issue_ss64(dp, res1_desc, str1_desc);  // dP^T = V dO^T, or dP = dO V^T
+
+      const float* cl = cols + st * 2 * kTcRows;  // dK/dV: lse log2 e, then di
+      // dQ: keys >= valid_len in the last key tile hold real rows; P = 0.
+      const int key_end = valid_len - t * kTcRows;
+
+      wgmma_wait_one();  // the scores
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int i = frag_row(j);
+        if (kKeys)
+          s[j] = key_live[i] ? ex2(fmaf(s[j], scale_log2, -cl[frag_col(j, cq)])) : 0.0f;
+        else
+          s[j] = frag_col(j, cq) < key_end ? ex2(fmaf(s[j], scale_log2, -row_lse[i])) : 0.0f;
+      }
+      uint32_t pf[4][4];
+      if (kKeys) {
+        to_bf16(s, pf);
+        issue_pv(acc1, pf, str1_desc);  // dV += bf16(P^T) dO, dO MN-major
+        wgmma_wait_one();               // dP (groups complete in order)
+      } else {
+        wgmma_wait_all();
+      }
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        dp[j] = s[j] * (dp[j] - (kKeys ? cl[kTcRows + frag_col(j, cq)] : row_di[frag_row(j)]));
+      uint32_t df[4][4];
+      to_bf16(dp, df);
+      issue_pv(acc0, df, str0_desc);  // dK += bf16(dS^T) Q, or dQ += bf16(dS) K
+      wgmma_wait_all();
+      fence_regs(acc0);
+      fence_regs(acc1);
+      if (kKeys) fence_frag(pf);
+      fence_frag(df);
+      mbar_arrive(&empty[st]);
+    }
+
+    store_rows(out0, acc0, out0_scale, row, cq, b, h, S, H);
+    if (kKeys) store_rows(out1, acc1, 1.0f, row, cq, b, h, S, H);
+  }
+}
+
+// The four tensor maps of a bf16 launch (res0, res1, str0, str1), resident
+// boxes of kTcBlock rows and streamed ones of kTcRows; false if one is
+// misaligned or refused.
+struct TcMaps {
+  CUtensorMap map[4];
+  int perm[4];
+};
+
+bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3], int B, int S,
+                  int H) {
+  for (int i = 0; i < 4; ++i)
+    if (!aligned16(ptr[i], st[i][0], st[i][1], st[i][2]) ||
+        !make_map(&m->map[i], &m->perm[i], ptr[i], B, S, H, st[i][0], st[i][1], st[i][2],
+                  i < 2 ? kTcBlock : kTcRows))
+      return false;
+  return true;
+}
+
+template <bool kKeys>
+int launch_tc(const TcMaps& m, const float* lse, const float* di, void* out0, void* out1,
+              int B, int S, int H, int valid_len, float out0_scale, cudaStream_t st) {
+  // The shared-memory opt-in is per device; set it on every call (a
+  // host-side attribute write, no device work).
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_tc_kernel<kKeys>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kTcBlock - 1) / kTcBlock, B * H);
+  // 64 ** -0.5 (exact) times log2(e): scores go straight to ex2.
+  attention_bwd_tc_kernel<kKeys><<<grid, kTcThreads, kTcSmem, st>>>(
+      m.map[0], m.map[1], m.map[2], m.map[3], m.perm[0], m.perm[1], m.perm[2], m.perm[3], lse,
+      di, static_cast<__nv_bfloat16*>(out0), static_cast<__nv_bfloat16*>(out1), S, H,
+      valid_len, 0.125f * kLog2e, out0_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* di, void* dk, void* dv, int B, int S, int H, Strides qs, Strides ks,
                Strides vs, Strides ds, int valid_len, cudaStream_t st) {
   const dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  attention_bwd_dkv_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dk), static_cast<T*>(dv), S, H, qs,
-      ks, vs, ds, valid_len, 0.125f);  // 64 ** -0.5, exact
+  attention_bwd_dkv_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
+      S, H, qs, ks, vs, ds, valid_len, 0.125f);  // 64 ** -0.5, exact
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* di, void* dq, int B, int S, int H, Strides qs, Strides ks,
               Strides vs, Strides ds, int valid_len, cudaStream_t st) {
   const dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  attention_bwd_dq_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dq), S, H, qs, ks, vs, ds,
+  attention_bwd_dq_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), S, H, qs, ks, vs, ds,
       valid_len, 0.125f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -300,8 +560,10 @@ bool bad_args(int dtype, int B, int S, int H, int dh, int valid_len) {
 
 // dtype: 0 = f32, 1 = bf16. Strides are in elements; dk, dv (and dq) are
 // contiguous (B, S, H, 64) of the operand type, lse and di f32 (B, H, S).
-// 1 <= valid_len <= S. Returns cudaGetLastError() (cudaErrorInvalidValue
-// for dh != 64 or an argument out of range).
+// 1 <= valid_len <= S. bf16 needs 16-byte-aligned base pointers and
+// strides of q, k, v and dout (TMA). Returns cudaGetLastError()
+// (cudaErrorInvalidValue for dh != 64, an argument out of range, a
+// misaligned bf16 operand or a tensor map cuTensorMapEncodeTiled refuses).
 extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* di,
                                      void* dk, void* dv, int dtype, int B, int S, int H, int dh,
@@ -313,15 +575,21 @@ extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v
   if (bad_args(dtype, B, S, H, dh, valid_len)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      ds{do_sb, do_ss, do_sh};
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_dkv<__nv_bfloat16>(q, k, v, dout, l, d, dk, dv, B, S, H, qs, ks, vs,
-                                                ds, valid_len, st)
-                    : launch_dkv<float>(q, k, v, dout, l, d, dk, dv, B, S, H, qs, ks, vs, ds,
-                                        valid_len, st);
+  if (dtype == 1) {
+    // Resident k and v, streamed q and dout.
+    const void* ptrs[4] = {k, v, q, dout};
+    const long long strides[4][3] = {
+        {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}};
+    TcMaps m;
+    if (!make_tc_maps(&m, ptrs, strides, B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tc<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* dK */, st);
+  }
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
+      ds{do_sb, do_ss, do_sh};
+  return launch_dkv(q, k, v, dout, l, d, dk, dv, B, S, H, qs, ks, vs, ds, valid_len, st);
 }
 
 extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -335,13 +603,19 @@ extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_args(dtype, B, S, H, dh, valid_len)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      ds{do_sb, do_ss, do_sh};
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, d, dq, B, S, H, qs, ks, vs, ds,
-                                               valid_len, st)
-                    : launch_dq<float>(q, k, v, dout, l, d, dq, B, S, H, qs, ks, vs, ds,
-                                       valid_len, st);
+  if (dtype == 1) {
+    // Resident q and dout, streamed k and v.
+    const void* ptrs[4] = {q, dout, k, v};
+    const long long strides[4][3] = {
+        {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
+    TcMaps m;
+    if (!make_tc_maps(&m, ptrs, strides, B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tc<false>(m, l, d, dq, nullptr, B, S, H, valid_len, 0.125f /* dQ */, st);
+  }
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
+      ds{do_sb, do_ss, do_sh};
+  return launch_dq(q, k, v, dout, l, d, dq, B, S, H, qs, ks, vs, ds, valid_len, st);
 }

@@ -1,13 +1,14 @@
 // Hopper building blocks shared by the bf16 attention kernels: K2
-// (encoder_attention.cu) and P1 (attention_control.cu).
+// (encoder_attention.cu), its backward K2-dkv and K2-dq
+// (encoder_attention_bwd.cu) and P1 (attention_control.cu).
 //
 // Shared-memory addresses, mbarriers, TMA tile loads through 4-D tensor
 // maps over (B, S, H, 64) bf16 operands (128-byte swizzle, rows past S read
 // as zeros), wgmma descriptors and products for one warpgroup (S = Q K^T as
-// m64n128k16 with both operands in shared memory; O += P V as m64n64k16
-// with P in registers and V transposed), named barriers, and the host code
-// that encodes the tensor maps. Each including source gets its own copy
-// (an unnamed namespace).
+// m64n128k16 or m64n64k16 with both operands in shared memory; O += P V as
+// m64n64k16 with P in registers and V transposed), named barriers, and the
+// host code that encodes the tensor maps. Each including source gets its
+// own copy (an unnamed namespace).
 
 #pragma once
 
@@ -43,18 +44,39 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_u32(bar)); }
 
-// Wait until the phase of parity `parity` has completed.
+// Whether the phase of parity `parity` has completed (one bounded try).
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed: the one wait of
+// every ring here. The package's build waits without bound, since a context
+// that is preempted or time-sliced can hold a sound wait past any fixed
+// limit. A build with TWT_MBAR_TRAP_NS defined (the mutation check's copies,
+// tools/mega_mutants.py) traps once one wait passes that many ns of
+// %globaltimer, so that a barrier out of step fails the launch instead of
+// hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
+#ifdef TWT_MBAR_TRAP_NS
+  if (mbar_try(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > TWT_MBAR_TRAP_NS) __trap();
   }
+#else
+  while (!mbar_try(bar, parity)) {
+  }
+#endif
 }
 
 // One box (rows x 64 bf16) of a 4-D tensor map into shared memory.
@@ -139,6 +161,24 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d(64 x 64, f32) (+)= A(64 x 16) B(16 x 64): both operands in shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d(64 x 64, f32) += A(64 x 16, bf16 registers) B(16 x 64): B in shared
 // memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -187,23 +227,48 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t q_desc, uint64
   fence_regs(s);
 }
 
-// O (64 x 64, f32) += P V for one warpgroup: eight k-steps of 16 keys,
-// 2048 bytes of V apart.
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[8][4],
+// D (64 x 64, f32) = A B^T for one warpgroup: A and B 64-row tiles of
+// 128-byte rows (K-major both), four k-steps of 16 dims.
+__device__ __forceinline__ void issue_ss64(float (&d)[32], uint64_t a_desc, uint64_t b_desc) {
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) wgmma_ss64(d, a_desc + 2 * kk, b_desc + 2 * kk, kk > 0);
+  wgmma_commit();
+  fence_regs(d);
+}
+
+// O (64 x 64, f32) += P V for one warpgroup: kSteps k-steps of 16 rows of
+// V (8 for a 128-key tile, 4 for a 64-row one), 2048 bytes apart.
+template <int kSteps>
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[kSteps][4],
                                          uint64_t v_desc) {
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKeyTile / 16; ++kk) wgmma_pv(o, p[kk], v_desc + 128 * kk);
+  for (int kk = 0; kk < kSteps; ++kk) wgmma_pv(o, p[kk], v_desc + 128 * kk);
   wgmma_commit();
   fence_regs(o);
 }
 
 // P in bf16 as the A fragments of P V: accumulator columns 16 kk .. 16 kk +
-// 15 are k-step kk's fragment, registers (j / 2) % 4 in the order a0..a3.
-__device__ __forceinline__ void to_bf16(const float (&s)[64], uint32_t (&p)[8][4]) {
+// 15 are k-step kk's fragment, registers (j / 2) % 4 in the order a0..a3
+// (N = 64 for a 128-column accumulator, 32 for a 64-column one).
+template <int N, int K>
+__device__ __forceinline__ void to_bf16(const float (&s)[N], uint32_t (&p)[K][4]) {
+  static_assert(8 * K == N, "a fragment a k-step of 16 columns (8 accumulator values)");
 #pragma unroll
-  for (int j = 0; j < 64; j += 2) p[j / 8][(j / 2) % 4] = pack_bf16(s[j], s[j + 1]);
+  for (int j = 0; j < N; j += 2) p[j / 8][(j / 2) % 4] = pack_bf16(s[j], s[j + 1]);
+}
+
+// Keeps the compiler from reusing the registers of an A fragment before the
+// wgmma that reads them has been waited for.
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -15,8 +15,9 @@ on and an input requires grad, ``encoder_attention`` goes through
 log-sum-exp (:func:`encoder_attention_residuals`, the library's
 ``save_residuals`` forward) and whose backward launches
 ``csrc/encoder_attention_bwd.cu``'s dK/dV and dQ kernels
-(:func:`encoder_attention_backward`). CPU tensors take the plain versions
-of all three.
+(:func:`encoder_attention_backward`): bf16 on the tensor cores (TMA and
+wgmma, the same alignment rule, which ``dout`` meets too), f32 on the CUDA
+cores. CPU tensors take the plain versions of all three.
 """
 
 from __future__ import annotations
@@ -110,14 +111,22 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return valid
 
 
+def _tma_aligned(x: torch.Tensor) -> bool:
+    """Whether TMA takes a bf16 (B, S, H, dh) operand: a 16-byte-aligned base
+    pointer and batch, sequence and head strides."""
+    return x.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in x.stride()[:3])
+
+
+def _check_tma(name: str, *xs: torch.Tensor) -> None:
+    if xs[0].dtype == torch.bfloat16 and not all(_tma_aligned(x) for x in xs):
+        raise ValueError(f"{name}: bf16 operands need 16-byte-aligned "
+                         "base pointers and strides (TMA)")
+
+
 def _forward(q, k, v, valid_len, with_lse: bool):
     """One K2 launch: (out, lse or None)."""
     valid = _checked("encoder_attention", q, k, v, valid_len)
-    if q.dtype == torch.bfloat16 and not all(
-            x.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in x.stride()[:3])
-            for x in (q, k, v)):
-        raise ValueError("encoder_attention: bf16 operands need 16-byte-aligned "
-                         "base pointers and strides (TMA)")
+    _check_tma("encoder_attention", q, k, v)
     b, s, h, dh = q.shape
     out = torch.empty(b, s, h, dh, device=q.device, dtype=q.dtype)
     lse = (torch.empty(b, h, s, device=q.device, dtype=torch.float32)
@@ -155,8 +164,10 @@ def encoder_attention_backward(
     out and lse and the output's gradient ``dout``.
 
     CPU tensors take :func:`encoder_attention_backward_plain`; CUDA tensors
-    launch the dK/dV kernel and the dQ kernel or raise. ``di`` = rowsum(out
-    dout) is one torch reduction here, as it is plain JAX in the library."""
+    launch the dK/dV kernel and the dQ kernel or raise (bf16: q, k, v and
+    dout must meet TMA's alignment, ``ValueError`` otherwise). ``di`` =
+    rowsum(out dout) is one torch reduction here, as it is plain JAX in the
+    library."""
     if q.device.type == "cpu":
         return encoder_attention_backward_plain(q, k, v, out, lse, dout, valid_len)
     name = "encoder_attention_backward"
@@ -171,6 +182,7 @@ def encoder_attention_backward(
         raise ValueError(f"{name}: every operand must be on q's device")
     if dout.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be contiguous")
+    _check_tma(name, q, k, v, dout)
     lse = lse.contiguous()
     di = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
     dk, dv = launch_backward_dkv(q, k, v, dout, lse, di, valid)
@@ -228,8 +240,10 @@ class EncoderAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:      # autograd may hand over an expanded gradient
-            dout = dout.contiguous()
+        # Autograd may hand over an expanded or a misaligned gradient: a copy.
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and dout.is_cuda and not _tma_aligned(dout)):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         return (*encoder_attention_backward(q, k, v, out, lse, dout,
                                             ctx.valid_len), None)
 

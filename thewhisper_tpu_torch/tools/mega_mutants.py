@@ -15,7 +15,8 @@ whose mutants change the engine's product and epilogues in
 ``csrc/mega_common.cuh``, which P2/P3 run; and ``cache``, P4/P5 in
 ``csrc/cache_write.cu`` (tests ``-k "write_row or write_column"``; smoke:
 [P4]/[P5]); and ``attn_bwd``, K2-dkv and K2-dq in
-``csrc/encoder_attention_bwd.cu`` and K2's lse store in
+``csrc/encoder_attention_bwd.cu`` (both routes; the bf16 one's register-A
+product in ``csrc/tc_common.cuh``) and K2's lse store in
 ``csrc/encoder_attention.cu`` (tests ``-k "attention_backward or
 autograd_on_the_card"``; smoke: [TRAIN]'s kernel checks).
 
@@ -25,7 +26,7 @@ the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
 the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
-eight K2 backward mutants about 3:
+fourteen K2 backward mutants about 8:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
@@ -53,6 +54,12 @@ from thewhisper_tpu_torch.tools import _card
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = ROOT / "thewhisper_tpu_torch"
 WORK = PACKAGE / "build" / "mutants"
+# Put at the head of each copy's csrc/tc_common.cuh: its ring waits trap
+# after 2 s, so a mutant whose barriers fall out of step fails its launch
+# instead of hanging the card. The package's own build waits without bound;
+# here a copy runs alone on its card, where no wait of a sound launch comes
+# near 2 s (the kernels it runs take milliseconds).
+TRAP_DEFINE = "#define TWT_MBAR_TRAP_NS 2000000000ull\n"
 
 # chip_smoke.py's phases of each kernel and what they need, run in a copy.
 SMOKE_MEGA = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
@@ -170,7 +177,9 @@ CACHE_MUTANTS = (
 )
 
 
-# K2-dkv and K2-dq, and K2's lse store (in csrc/encoder_attention.cu).
+# K2-dkv and K2-dq, and K2's lse store (in csrc/encoder_attention.cu). The
+# first six change the f32 route (the CUDA-core kernels) alone; the tc-
+# ones the bf16 route (TMA + wgmma), one of them in csrc/tc_common.cuh.
 ATTN_BWD_MUTANTS = (
     ("dv-scale", "dV is stored halved",
      "store_half(dv + out, dvr, 1.0f, half);", "store_half(dv + out, dvr, 0.5f, half);"),
@@ -178,7 +187,7 @@ ATTN_BWD_MUTANTS = (
      "for (int t0 = 0; t0 < valid_len; t0 += kTile) {",
      "for (int t0 = 0; t0 + kTile <= valid_len; t0 += kTile) {"),
     ("dkv-no-di", "dS for dK leaves out di",
-     "round_as(p * (dp - di_t[j]), q)", "round_as(p * dp, q)"),
+     "axpy(dkr, p * (dp - di_t[j]), q_t[j], half);", "axpy(dkr, p * dp, q_t[j], half);"),
     ("dkv-mask", "keys at or past valid_len get gradients",
      "const bool live = key < valid_len;", "const bool live = key < S;"),
     ("dq-scale", "dQ is not scaled by 1 / sqrt(dh)",
@@ -190,6 +199,21 @@ ATTN_BWD_MUTANTS = (
     ("lse-tc", "the bf16 route's lse is 0.001 off in the log2 domain",
      "(m[i] * scale_log2 + log2f(l[i])) * kLn2;",
      "(m[i] * scale_log2 + log2f(l[i]) + 0.001f) * kLn2;", "csrc/encoder_attention.cu"),
+    ("tc-kmajor", "the register-A product reads its B tile K-major, where it is "
+     "MN-major (dO for dV, q for dK, k for dQ; and K2's V)",
+     "{%32, %33, %34, %35}, %36, p, 1, 1, 1;", "{%32, %33, %34, %35}, %36, p, 1, 1, 0;",
+     "csrc/tc_common.cuh"),
+    ("tc-past-s", "queries past S keep their P: their lse is read past the row",
+     "cl[c] = q < S ? lse_bh[q] * kLog2e : INFINITY;", "cl[c] = lse_bh[q] * kLog2e;"),
+    ("tc-dq-keys", "the dQ kernel's last key tile keeps keys >= valid_len",
+     "s[j] = frag_col(j, cq) < key_end ? ex2(fmaf(s[j], scale_log2, -row_lse[i])) : 0.0f;",
+     "s[j] = ex2(fmaf(s[j], scale_log2, -row_lse[i]));"),
+    ("tc-parity", "the consumers wait on a ring stage at the wrong parity",
+     "mbar_wait(&full[st], (t / kTcStages) & 1);",
+     "mbar_wait(&full[st], ((t / kTcStages) + 1) & 1);"),
+    ("tc-dk-scale", "dK is not scaled by 1 / sqrt(dh)", "0.125f /* dK */", "1.0f /* dK */"),
+    ("tc-dkv-mask", "keys at or past valid_len get dK and dV",
+     "key_live[i] = r < valid_len;", "key_live[i] = r < S;"),
 )
 
 
@@ -209,7 +233,8 @@ MUTANTS = (_with_source("mega", MEGA_MUTANTS) + _with_source("control", CONTROL_
 def make_copy(name: str, source: Optional[str], old: Optional[str],
               new: Optional[str]) -> Path:
     """A copy of the package (without its builds) and the tests under
-    WORK/name, with ``old`` replaced by ``new`` in ``source``."""
+    WORK/name, with ``old`` replaced by ``new`` in ``source`` and the ring
+    waits of ``csrc/tc_common.cuh`` trapping (``TRAP_DEFINE``)."""
     dst = WORK / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(PACKAGE, dst / PACKAGE.name,
@@ -217,6 +242,8 @@ def make_copy(name: str, source: Optional[str], old: Optional[str],
     shutil.copytree(ROOT / "tests", dst / "tests",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    header = dst / PACKAGE.name / "csrc" / "tc_common.cuh"
+    header.write_text(TRAP_DEFINE + header.read_text())
     if old is not None:
         src = dst / PACKAGE.name / source
         text = src.read_text()
