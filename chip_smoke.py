@@ -105,8 +105,9 @@ is false. Phases, each of which raises on failure:
     two backward kernels) against their plain versions at B = 8 x S = 500,
     B = 4 x S = 1500 and B = 1 x S = 1500 with valid_len 1100, f32 and
     bf16, timed beside ``scaled_dot_product_attention``'s forward and
-    backward (bf16 K2-dkv + K2-dq at B = 8 x S = 500, the tensor-core
-    route, at most 1.5x its bf16 backward); then fine-tuning and
+    backward (bf16 K2-dkv + K2-dq at B = 8 x S = 500 at most 1.5x its bf16
+    backward; f32 K2-fwd-res and K2-dkv, both 3xTF32 on the tensor cores,
+    at most its f32 forward and its whole f32 backward); then fine-tuning and
     distillation at large-v3-turbo's full
     width (``phase_train``: arms A, B and C, the checkpoint round trip
     through the stdlib safetensors writer and reader, a distilled
@@ -207,6 +208,7 @@ from thewhisper_tpu_torch.tools._card import (
     BF16_FLOPS,
     F32_FLOPS,
     HBM_BYTES_PER_S,
+    TF32_FLOPS,
     capture,
     card,
     cuda_ms,
@@ -356,7 +358,9 @@ def phase_attention() -> dict:
     """K2 at B = 4, H = 20, dh = 64, S in {1500, 500} and one case with
     valid_len < S, f32 and bf16; bf16 at B = 1 and 32, and at S = 500 (a
     10 s window) at B = 1 and 3, the batches of a lone stream and of three
-    coalesced server sessions. Bounds: f32 max
+    coalesced server sessions. The f32 lines (3xTF32 on the tensor cores)
+    also print the kernel's TFLOP/s and ``scaled_dot_product_attention``'s
+    f32 time on the same inputs. Bounds: f32 max
     abs err 1e-4 (the same f32 math, summed in another order); bf16 max abs
     err relative to the output's max 2e-2 (both versions round the
     probabilities to bf16 before the value product, the kernel unnormalized
@@ -392,6 +396,15 @@ def phase_attention() -> dict:
             iters=20 if b <= 4 else 3)
         line = (f"[K2] {str(dtype)[6:]:>8} B={b} S={s} valid={valid_len}: "
                 f"{shown}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        if dtype == torch.float32:
+            # The 3xTF32 route's rate (the f32 function's operations), beside
+            # the library call on the same inputs where it computes the same
+            # function (every key valid).
+            flops = 4 * b * 20 * s * (valid_len or s) * 64
+            line += f"; kernel {flops / ms / 1e9:.1f} TFLOP/s"
+            if valid_len is None:
+                line += (f", scaled_dot_product_attention "
+                         f"{cuda_ms(lambda: sdpa_attention(q, k, v)):.4f} ms")
         if dtype == torch.bfloat16 and valid_len is None and s == 1500:
             library_ms = cuda_ms(lambda: sdpa_attention(q, k, v))
             flops = 4 * b * 20 * s * s * 64
@@ -1914,9 +1927,12 @@ def phase_attention_backward(smi: str) -> dict:
     forward (on inputs that require grad, so it keeps its residuals) and
     backward on the same inputs as yardsticks; in bf16 at arm A's shape
     (B = 8, S = 500) K2-dkv and K2-dq together must take at most
-    ``BWD_BF16_VS_SDPA`` times that backward. Returns the kernels-line
-    entries at arm A's shape (f32, with the bf16 route's time, bound and
-    library time beside them)."""
+    ``BWD_BF16_VS_SDPA`` times that backward; in f32 there K2-fwd-res (3xTF32)
+    must take at most that forward and K2-dkv (3xTF32) at most that whole
+    backward. Returns the kernels-line entries at arm A's shape (f32, with
+    ``tc_bound_ms``, the bound at the TF32 tensor rate for three products
+    of each, and the bf16 route's time, bound and library time beside
+    them)."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(5)
     main = None
@@ -1960,16 +1976,24 @@ def phase_attention_backward(smi: str) -> dict:
                 q, k, v, out, lse, do, valid_len), iters=3)
             pairs = b * 20 * s * valid * 64       # (query, key, dim) triples
             io = nbytes(q, k, v, do, lse, di)
-            bounds = {"fwd_res": bound(nbytes(q, k, v, out, lse), 4 * pairs, peak),
-                      "dkv": bound(io + nbytes(*got[1:]), 8 * pairs, peak),
-                      "dq": bound(io + nbytes(got[0]), 6 * pairs, peak)}
+            moved = {"fwd_res": (nbytes(q, k, v, out, lse), 4 * pairs),
+                     "dkv": (io + nbytes(*got[1:]), 8 * pairs),
+                     "dq": (io + nbytes(got[0]), 6 * pairs)}
+            bounds = {key: bound(*m, peak) for key, m in moved.items()}
+            # The f32 routes' products as 3xTF32: three TF32 products each.
+            tc_bounds = {key: bound(m[0], 3 * m[1], TF32_FLOPS)["bound_ms"]
+                         for key, m in moved.items()}
             line = (f"[TRAIN] K2 backward {str(dtype)[6:]:>8} B={b} S={s} "
                     f"valid={valid_len}: lse max abs err {lse_err:.2e}, {shown}; "
                     f"fwd-res {fwd_ms:.4f} ms, dkv {dkv_ms:.4f} ms, dq "
                     f"{dq_ms:.4f} ms (bounds " + ", ".join(
                         f"{x['bound_ms']:.4f}" for x in bounds.values())
+                    + (" ms; 3xTF32 " + ", ".join(f"{x:.4f}" for x in tc_bounds.values())
+                       if dtype == torch.float32 else "")
                     + f" ms), plain backward {plain_ms:.4f} ms; "
-                    f"{14 * pairs / (dkv_ms + dq_ms) / 1e9:.1f} TFLOP/s backward")
+                    f"{4 * pairs / fwd_ms / 1e9:.1f} TFLOP/s fwd-res, "
+                    f"{8 * pairs / dkv_ms / 1e9:.1f} dkv, "
+                    f"{14 * pairs / (dkv_ms + dq_ms) / 1e9:.1f} backward")
             lib_fwd = lib_bwd = None
             if valid_len is None:
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -1986,10 +2010,17 @@ def phase_attention_backward(smi: str) -> dict:
                       f"bf16 dK/dV + dQ {dkv_ms + dq_ms:.4f} ms over "
                       f"{BWD_BF16_VS_SDPA}x scaled_dot_product_attention's "
                       f"backward ({lib_bwd:.4f} ms)")
-                for key, ms in (("dkv", dkv_ms), ("dq", dq_ms)):
+                for key, ms, lib in (("fwd_res", fwd_ms, lib_fwd), ("dkv", dkv_ms, lib_bwd),
+                                     ("dq", dq_ms, lib_bwd)):
                     main[key].update(bf16_ms=ms, bf16_bound_ms=bounds[key]["bound_ms"],
-                                     bf16_library_ms=lib_bwd)
+                                     bf16_library_ms=lib)
             if (dtype, b, s, valid_len) == (torch.float32, 8, 500, None):
+                check(fwd_ms <= lib_fwd,
+                      f"f32 K2-fwd-res {fwd_ms:.4f} ms slower than "
+                      f"scaled_dot_product_attention's f32 forward ({lib_fwd:.4f} ms)")
+                check(dkv_ms <= lib_bwd,
+                      f"f32 K2-dkv {dkv_ms:.4f} ms slower than "
+                      f"scaled_dot_product_attention's f32 backward ({lib_bwd:.4f} ms)")
                 errs = [(x - r).abs().max().item() for x, r in zip(got, plain)]
                 main = {
                     "fwd_res": {"max_abs_err": lse_err, "ms": fwd_ms,
@@ -2002,6 +2033,8 @@ def phase_attention_backward(smi: str) -> dict:
                     "dq": {"max_abs_err": errs[0], "ms": dq_ms, "plain_ms": plain_ms,
                            **bounds["dq"], "library_ms": lib_bwd},
                 }
+                for key in main:
+                    main[key]["tc_bound_ms"] = tc_bounds[key]
             del q, k, v, do, out, lse, got, plain, di
             torch.cuda.empty_cache()
     return main

@@ -28,9 +28,9 @@ and its backward kernels at S = 1, the bf16 route's tile edges 64, 65 and
 128, a ragged 77 (with valid_len 30), 500 and 1500 (valid_len 1100), f32
 and bf16, with lse and di that hold NaN past their last row, and through
 autograd on the encoder's strided views (``mega_mutants --kernel
-attn_bwd`` checks these against broken copies of
+attn_bwd`` checks these and K2's own tests against broken copies of
 ``csrc/encoder_attention_bwd.cu``, of ``csrc/tc_common.cuh`` and of K2's
-lse store).
+f32 route and lse stores).
 """
 
 import dataclasses
@@ -153,6 +153,17 @@ def test_attention_kernel_bf16_rescales_large_scores(cuda_device):
     out = ta.encoder_attention(q, k, v)
     ref = ta.encoder_attention_plain(q, k, v)
     assert _rel(out, ref) < 2e-2
+
+
+def test_attention_kernel_f32_rescales_large_scores(cuda_device):
+    """The f32 route (3xTF32) on inputs scaled by 8: scores span hundreds,
+    so the running max moves from tile to tile and every earlier tile's sum
+    must be rescaled. Bound: the f32 route's 1e-4, of the output's largest
+    value (the output is 8x larger here)."""
+    q, k, v = (8 * x for x in _qkv(2, 1500, 20, torch.float32, cuda_device, seed=4))
+    out = ta.encoder_attention(q, k, v)
+    ref = ta.encoder_attention_plain(q, k, v)
+    assert _rel(out, ref) < 1e-4
 
 
 def test_attention_kernel_bf16_one_valid_key_is_exact(cuda_device):
@@ -340,6 +351,22 @@ def test_attention_backward_bf16_rejects_misaligned_operands(cuda_device):
     wide = torch.zeros(1, 100, 20, 68, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="TMA"):                     # 136-byte head stride
         ta.encoder_attention_backward(ok, wide[..., :64], ok, ok, lse, ok)
+
+
+def test_attention_kernels_f32_reject_misaligned_operands(cuda_device):
+    """The f32 routes of K2 and K2-dkv load by TMA too: a base pointer 4
+    bytes off, or a 264-byte head stride, raises instead of launching."""
+    flat = torch.zeros(100 * 20 * 64 + 1, device=cuda_device)
+    shifted = flat[1:].view(1, 100, 20, 64)                     # base + 4 bytes
+    ok = torch.zeros(1, 100, 20, 64, device=cuda_device)
+    wide = torch.zeros(1, 100, 20, 66, device=cuda_device)[..., :64]
+    lse = torch.zeros(1, 20, 100, device=cuda_device)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            ta.encoder_attention(ok, bad, ok)
+        for q, k, v, do in ((bad, ok, ok, ok), (ok, ok, bad, ok), (ok, ok, ok, bad)):
+            with pytest.raises(ValueError, match="TMA"):
+                ta.encoder_attention_backward(q, k, v, ok, lse, do)
 
 
 def test_attention_backward_rejects_bad_input(cuda_device):

@@ -8,7 +8,8 @@
 //
 // Interface: q, k, v are (B, S, H, 64) with any batch/sequence/head strides
 // and a unit stride on the head dimension (the layout the projections
-// produce, so no transpose or pad copy is made). Keys at or past valid_len
+// produce, so no transpose or pad copy is made); both routes load them by
+// TMA, which needs 16-byte-aligned base pointers and strides. Keys at or past valid_len
 // are masked; S needs no tile multiple (1500 and 500 run as they are, the
 // ragged tile is masked here instead of padded to 512 as on the TPU). The
 // output is written in the input type, (B, S, H, 64) contiguous.
@@ -47,134 +48,192 @@
 // max and sum it already holds; the backward multiplies by log2 e again.
 // A null `lse` writes nothing else (the inference launch).
 //
-// f32 (the "XL32" size and the f32 references, which need f32 results,
-// so no TF32): on the CUDA cores, whose 67 TFLOP/s f32 rate is its ceiling.
-// One block per (batch x head, tile of 128 queries); 256 threads, two per
-// query, each owning half of the 64 dims in interleaved float4 chunks so
-// the pair's shared-memory reads never collide. The block walks 32-key
-// tiles of K and V staged in shared memory as f32; a thread's q, its 32
-// scores and its output accumulator stay in registers, and the pair
-// combines its partial dot products with one shuffle. Scores are kept in
-// the log2 domain for exp2f.
+// f32 (the "XL32" size, f32 training and the f32 references, which need
+// f32 results): TMA + mma.sync in 3xTF32 (tf32_common.cuh: each operand
+// split into a TF32 high part and rest, three TF32 products summed in f32),
+// so its ceiling is the TF32 tensor rate over three, not the CUDA cores'
+// 67 TFLOP/s. One block per (batch x head, tile of 128 queries): eight MMA
+// warps of 16 query rows and a producer warp, two blocks an SM. One
+// producer thread loads the Q tile once and 64-key K and V tiles into a
+// two-stage ring by TMA (f32 boxes of 32 floats, two a 64-float row,
+// 128-byte swizzle), completed on mbarriers; rows past S arrive as zeros.
+// A warp computes S = Q K^T (16 x 64, the Q fragments read from the
+// resident tile each tile) and O += P V with P in f32, split like any
+// other operand (no bf16 rounding: the f32 route's rule and the plain
+// version's); the online softmax runs on the accumulator fragments in the
+// log2 domain (row max over the quad by shuffles, keys >= valid_len at
+// -inf on the last tile only, exp2f), as the bf16 route's does. The
+// epilogue divides by the row sum and stores f32, rows >= S skipped.
 
 #include <math.h>
 
 #include "tc_common.cuh"
+#include "tf32_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 128;
-constexpr int kBlockK = 32;
-constexpr int kThreads = 2 * kBlockQ;
-constexpr int kHalf = kDh / 2;        // dims per thread
-constexpr int kChunks = kHalf / 4;    // float4 chunks per thread
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// ---------------------------------------------------------------------------
+// f32: TMA + mma.sync, 3xTF32.
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-encoder_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ out,
-                         float* __restrict__ lse, int S, int H,
-                         long long q_sb, long long q_ss, long long q_sh,
-                         long long k_sb, long long k_ss, long long k_sh,
-                         long long v_sb, long long v_ss, long long v_sh,
-                         int valid_len, float scale) {
-  __shared__ __align__(16) float ks[kBlockK][kDh];
-  __shared__ __align__(16) float vs[kBlockK][kDh];
+constexpr int kF32Warps = 8;                       // MMA warps of 16 query rows
+constexpr int kF32BlockQ = 16 * kF32Warps;         // queries a block
+constexpr int kF32Tile = 64;                       // keys a tile
+constexpr int kF32Stages = 2;                      // K/V ring depth
+constexpr int kF32Threads = 32 * (kF32Warps + 1);  // the MMA warps, the producer warp
+constexpr int kF32QBytes = kF32BlockQ * kDh * 4;
+constexpr int kF32TileBytes = kF32Tile * kDh * 4;  // one K or V tile
+constexpr int kF32Smem = kF32QBytes + 2 * kF32Stages * kF32TileBytes + 1024 + 64;
 
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y - b * H;
-  const int half = threadIdx.x & 1;
-  const int qi = blockIdx.x * kBlockQ + (threadIdx.x >> 1);
-  const bool active = qi < S;
-  // This thread's dims: float4 chunk 2 * c + half for c < kChunks.
-  auto dim = [&](int c, int e) { return 4 * (2 * c + half) + e; };
+__global__ void __launch_bounds__(kF32Threads, 2)
+encoder_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map, int q_perm, int k_perm,
+                             int v_perm, float* __restrict__ out, float* __restrict__ lse, int S,
+                             int H, int valid_len, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
+  // Offsetting smem_raw itself (not an integer address) keeps the tiles'
+  // loads shared-memory loads with 32-bit addresses.
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_tile = base;
+  uint8_t* k_tiles = base + kF32QBytes;
+  uint8_t* v_tiles = k_tiles + kF32Stages * kF32TileBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_tiles + kF32Stages * kF32TileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kF32Stages;
 
-  float qr[kHalf], acc[kHalf];
-  const T* qp = q + b * q_sb + static_cast<long long>(qi) * q_ss + h * q_sh;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qr[4 * c + e] = active ? to_f32(qp[dim(c, e)]) * scale : 0.0f;
-      acc[4 * c + e] = 0.0f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kF32BlockQ;
+  const int n_tiles = (valid_len + kF32Tile - 1) / kF32Tile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 32 * kF32Warps);  // every MMA thread releases it
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  const int limit = min(valid_len, S);
-  float m = -INFINITY;  // running max, log2 domain
-  float l = 0.0f;       // running sum of exp2(score - m)
-
-  for (int t0 = 0; t0 < limit; t0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBlockK * kDh; idx += kThreads) {
-      const int r = idx / kDh;
-      const int c = idx - r * kDh;
-      const int key = t0 + r;
-      float kv = 0.0f, vv = 0.0f;
-      if (key < limit) {
-        kv = to_f32(kb[static_cast<long long>(key) * k_ss + c]);
-        vv = to_f32(vb[static_cast<long long>(key) * v_ss + c]);
-      }
-      ks[r][c] = kv;
-      vs[r][c] = vv;
-    }
-    __syncthreads();
-
-    float s[kBlockK];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float part = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][dim(c, 0)]);
-        part = fmaf(qr[4 * c + 0], kk.x, part);
-        part = fmaf(qr[4 * c + 1], kk.y, part);
-        part = fmaf(qr[4 * c + 2], kk.z, part);
-        part = fmaf(qr[4 * c + 3], kk.w, part);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      s[j] = (t0 + j < limit) ? part * kLog2e : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // Every tile holds at least one valid key, so m_new is finite.
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = exp2f(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = exp2f(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][dim(c, 0)]);
-        acc[4 * c + 0] = fmaf(p, vv.x, acc[4 * c + 0]);
-        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+  if (warp == kF32Warps) {
+    // The producer warp: one thread issues every TMA load.
+    if (lane == 0) {
+      mbar_expect_tx(q_full, kF32QBytes);
+      load_rows_f32<kF32BlockQ>(q_tile, &q_map, q_perm, q0, h, b, q_full);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kF32Stages;
+        if (t >= kF32Stages) mbar_wait(&empty[st], ((t / kF32Stages) - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * kF32TileBytes);
+        load_rows_f32<kF32Tile>(k_tiles + st * kF32TileBytes, &k_map, k_perm, t * kF32Tile, h,
+                                b, &full[st]);
+        load_rows_f32<kF32Tile>(v_tiles + st * kF32TileBytes, &v_map, v_perm, t * kF32Tile, h,
+                                b, &full[st]);
       }
     }
-    m = m_new;
+    return;
   }
 
-  if (!active) return;
-  const float inv = 1.0f / l;
-  // m is in the log2 domain of the scaled scores.
-  if (lse != nullptr && half == 0)
-    lse[static_cast<long long>(blockIdx.y) * S + qi] = (m + log2f(l)) * kLn2;
-  T* op = out + ((static_cast<long long>(b) * S + qi) * H + h) * kDh;
+  // MMA warp `warp` owns query rows q0 + 16 warp .. + 15; a thread holds
+  // rows r0 and r0 + 8 of the block and, in n8 block j of an accumulator,
+  // columns 8 j + 2 (lane % 4) and the one after.
+  const int r0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float o[8][4];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(op + dim(c, e), acc[4 * c + e] * inv);
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+  float l[2] = {0.0f, 0.0f};            // this thread's part of the row sum
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kF32Stages;
+    mbar_wait(&full[st], (t / kF32Stages) & 1);
+    const uint8_t* k_st = k_tiles + st * kF32TileBytes;
+    const uint8_t* v_st = v_tiles + st * kF32TileBytes;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      Frag qa = dims_frag<kF32BlockQ>(q_tile, r0, kk, lane % 4);
+      mma_dims<kF32Tile>(s, qa, k_st, kk, lane);
+    }
+
+    // The online softmax: keys >= valid_len (only in the last tile) at
+    // -inf, the row max over the quad, s replaced by exp2((s - m) scale
+    // log2 e), the row sums and O rescaled by corr.
+    const int key0 = t * kF32Tile;
+    if (key0 + kF32Tile > valid_len) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * j + cq + (e & 1) >= valid_len) s[j][e] = -INFINITY;
+    }
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
+    float corr[2], m_log2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      // Every tile holds at least one valid key, so the new max is finite.
+      const float m_new = fmaxf(m[i], tmax[i]);
+      corr[i] = exp2f((m[i] - m_new) * scale_log2);
+      m[i] = m_new;
+      m_log2[i] = m_new * scale_log2;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -m_log2[e >> 1]));
+        l[e >> 1] += s[j][e];
+        o[j][e] *= corr[e >> 1];
+      }
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_rows<kF32Tile>(o, acc_frag(s[j]), v_st, j, lane);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= S) continue;
+    const float inv = 1.0f / l[i];
+    // m holds raw scores: m scale log2 e is the row max in the log2 domain.
+    if (lse != nullptr && cq == 0)
+      lse[static_cast<long long>(bh) * S + row] = (log2f(l[i]) + m[i] * scale_log2) * kLn2;
+    float* op = out + ((static_cast<long long>(b) * S + row) * H + h) * kDh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(op + 8 * j + cq) =
+          make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -372,9 +431,9 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // dtype: 0 = f32, 1 = bf16. Strides are in elements. 1 <= valid_len <= S.
 // lse: null, or f32 (B, H, S) for the rows' log-sum-exp (see above).
-// bf16 needs 16-byte-aligned base pointers and strides (TMA).
+// Both types need 16-byte-aligned base pointers and strides (TMA).
 // Returns cudaGetLastError() (cudaErrorInvalidValue for dh != 64, a
-// misaligned bf16 operand or a tensor map the driver refuses).
+// misaligned operand or a tensor map the driver refuses).
 extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse, int dtype, int B, int S, int H, int dh,
                                      long long q_sb, long long q_ss, long long q_sh,
@@ -407,12 +466,22 @@ extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v
         static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, valid_len,
         0.125f * kLog2e);
   } else {
-    const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-    const float scale = 0.125f;  // 64 ** -0.5, exact
-    encoder_attention_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), S, H,
-        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, valid_len, scale);
+    if (!aligned16(q, q_sb, q_ss, q_sh, 4) || !aligned16(k, k_sb, k_ss, k_sh, 4) ||
+        !aligned16(v, v_sb, v_ss, v_sh, 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[3];
+    int perms[3];
+    if (!make_map(&maps[0], &perms[0], q, B, S, H, q_sb, q_ss, q_sh, kF32BlockQ, true) ||
+        !make_map(&maps[1], &perms[1], k, B, S, H, k_sb, k_ss, k_sh, kF32Tile, true) ||
+        !make_map(&maps[2], &perms[2], v, B, S, H, v_sb, v_ss, v_sh, kF32Tile, true))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(encoder_attention_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((S + kF32BlockQ - 1) / kF32BlockQ, B * H);
+    encoder_attention_f32_kernel<<<grid, kF32Threads, kF32Smem, st>>>(
+        maps[0], maps[1], maps[2], perms[0], perms[1], perms[2], static_cast<float*>(out),
+        static_cast<float*>(lse), S, H, valid_len, 0.125f * kLog2e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,24 +61,39 @@
 // are all >= valid_len only writes zeros; rows >= S are not written. dK and
 // dQ are scaled by 1 / sqrt(dh) at the end.
 //
-// f32: on the CUDA cores, whose 67 TFLOP/s f32 rate is their ceiling.
-// Two threads per row (a key in dK/dV, a query in dQ), each owning 32 of
-// the 64 dims in interleaved float4 chunks, combining its half dot
-// products with one shuffle. The block stages 32 rows of the other
-// side (q and dO, or k and v) in shared memory and walks them; the row's
-// operands and its two (or one) gradient accumulators stay in registers.
+// f32, dK/dV: TMA + mma.sync in 3xTF32 (tf32_common.cuh: each operand split
+// into a TF32 high part and rest, three TF32 products summed in f32, so
+// its ceiling is the TF32 tensor rate over three), the bf16 route's plan with mma.sync in place of wgmma (whose TF32 form takes
+// shared-memory operands K-major only, where dV's dO and dK's q are read
+// MN-major). One block per (batch x head, 128 keys): eight MMA warps of 16
+// resident keys (their k and v rows, loaded once) and a producer warp that
+// streams 64-query tiles of q and dO through a three-stage ring by TMA (f32
+// boxes of 32 floats, 128-byte swizzle, rows past S as zeros) and writes
+// each tile's lse log2 e and di into its stage, as the bf16 route's does.
+// For each tile a warp computes S^T = K Q^T and dP^T = V dO^T (16 x 64
+// each), P^T = exp2(S^T scale log2 e - lse log2 e) in f32, dV += P^T dO,
+// dS^T = P^T (dP^T - di) and dK += dS^T Q, P^T and dS^T split like any
+// other operand. The same masks: keys >= valid_len get P = 0 and a block
+// of them only writes zeros; queries past S take lse = +inf and di = 0.
+//
+// f32, dQ: on the CUDA cores, whose 67 TFLOP/s f32 rate is its ceiling.
+// Two threads per query, each owning 32 of the 64 dims in interleaved
+// float4 chunks, combining its half dot products with one shuffle. The
+// block stages 32 keys (k and v rows) in shared memory and walks them; the
+// query's q and dO rows and its dQ accumulator stay in registers.
 
 #include <math.h>
 
 #include "tc_common.cuh"
+#include "tf32_common.cuh"
 
 namespace {
 
 constexpr int kHalf = kDh / 2;       // dims a thread
 constexpr int kChunks = kHalf / 4;   // float4 chunks a thread
-constexpr int kBlockRows = 64;       // keys (dK/dV) or queries (dQ) a block
+constexpr int kBlockRows = 64;       // queries a dQ block
 constexpr int kThreads = 2 * kBlockRows;
-constexpr int kTile = 32;            // rows of the other side staged a pass
+constexpr int kTile = 32;            // keys staged a pass
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Element e of this thread's float4 chunk c: dim 4 (2 c + half) + e.
@@ -91,20 +106,6 @@ __device__ __forceinline__ void load_half(float (&r)[kHalf], const float* row, b
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) r[4 * c + e] = live ? row[dim(c, e, half)] : 0.0f;
-}
-
-// The pair's dot product of a register half-row with a staged row.
-__device__ __forceinline__ float dot(const float (&r)[kHalf], const float* staged, int half) {
-  float part = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(staged + dim(c, 0, half));
-    part = fmaf(r[4 * c + 0], x.x, part);
-    part = fmaf(r[4 * c + 1], x.y, part);
-    part = fmaf(r[4 * c + 2], x.z, part);
-    part = fmaf(r[4 * c + 3], x.w, part);
-  }
-  return part + __shfl_xor_sync(0xffffffffu, part, 1);
 }
 
 // acc += a * staged (this thread's half).
@@ -130,84 +131,6 @@ __device__ __forceinline__ void store_half(float* row, const float (&r)[kHalf], 
 struct Strides {
   long long b, s, h;
 };
-
-// dK and dV of 64 keys of one (batch, head). For each query j (all S):
-// p = exp2(s_j scale log2 e - lse_j log2 e), dV += p dO_j, dp = v . dO_j,
-// dS = p (dp - di_j), dK += dS q_j; dK is scaled by 1 / sqrt(dh) at the
-// end.
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ dk, float* __restrict__ dv, int S, int H, Strides qs,
-                         Strides ks, Strides vs, Strides ds, int valid_len, float scale) {
-  __shared__ __align__(16) float q_t[kTile][kDh];
-  __shared__ __align__(16) float do_t[kTile][kDh];
-  __shared__ float lse_t[kTile];  // lse log2 e
-  __shared__ float di_t[kTile];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int half = threadIdx.x & 1;
-  const int key = blockIdx.x * kBlockRows + (threadIdx.x >> 1);
-  const bool live = key < valid_len;
-  const float scale_log2 = scale * kLog2e;
-
-  float kr[kHalf], vr[kHalf], dkr[kHalf], dvr[kHalf];
-  load_half(kr, k + b * ks.b + static_cast<long long>(key) * ks.s + h * ks.h, live, half);
-  load_half(vr, v + b * vs.b + static_cast<long long>(key) * vs.s + h * vs.h, live, half);
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) dkr[i] = dvr[i] = 0.0f;
-
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* db = dout + b * ds.b + h * ds.h;
-  const float* lse_b = lse + static_cast<long long>(bh) * S;
-  const float* di_b = di + static_cast<long long>(bh) * S;
-  // A block whose keys are all masked only writes zeros.
-  const int q_end = blockIdx.x * kBlockRows < valid_len ? S : 0;
-  for (int t0 = 0; t0 < q_end; t0 += kTile) {
-    const int rows = min(kTile, S - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < rows * kDh; idx += kThreads) {
-      const int r = idx / kDh;
-      const int c = idx - r * kDh;
-      const long long row = t0 + r;
-      q_t[r][c] = qb[row * qs.s + c];
-      do_t[r][c] = db[row * ds.s + c];
-    }
-    if (threadIdx.x < rows) {
-      lse_t[threadIdx.x] = lse_b[t0 + threadIdx.x] * kLog2e;
-      di_t[threadIdx.x] = di_b[t0 + threadIdx.x];
-    }
-    __syncthreads();
-    for (int j = 0; j < rows; ++j) {
-      const float s = dot(kr, q_t[j], half);
-      const float p = live ? exp2f(fmaf(s, scale_log2, -lse_t[j])) : 0.0f;
-      float part = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(&do_t[j][dim(c, 0, half)]);
-        part = fmaf(vr[4 * c + 0], x.x, part);
-        part = fmaf(vr[4 * c + 1], x.y, part);
-        part = fmaf(vr[4 * c + 2], x.z, part);
-        part = fmaf(vr[4 * c + 3], x.w, part);
-        dvr[4 * c + 0] = fmaf(p, x.x, dvr[4 * c + 0]);
-        dvr[4 * c + 1] = fmaf(p, x.y, dvr[4 * c + 1]);
-        dvr[4 * c + 2] = fmaf(p, x.z, dvr[4 * c + 2]);
-        dvr[4 * c + 3] = fmaf(p, x.w, dvr[4 * c + 3]);
-      }
-      const float dp = part + __shfl_xor_sync(0xffffffffu, part, 1);
-      axpy(dkr, p * (dp - di_t[j]), q_t[j], half);
-    }
-  }
-
-  if (key >= S) return;
-  const long long out = (static_cast<long long>(b) * S + key) * H * kDh +
-                        static_cast<long long>(h) * kDh;
-  store_half(dk + out, dkr, scale, half);
-  store_half(dv + out, dvr, 1.0f, half);
-}
 
 // dQ of 64 queries of one (batch, head). For each key j < valid_len:
 // p = exp2(s_j scale log2 e - lse log2 e), dp = dO . v_j,
@@ -276,6 +199,175 @@ attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   if (!active) return;
   store_half(dq + (static_cast<long long>(b) * S + qi) * H * kDh + static_cast<long long>(h) * kDh,
              dqr, scale, half);
+}
+
+// ---------------------------------------------------------------------------
+// f32 dK/dV: TMA + mma.sync, 3xTF32.
+
+constexpr int kF32Warps = 8;                        // MMA warps of 16 resident keys
+constexpr int kF32Keys = 16 * kF32Warps;            // keys a block
+constexpr int kF32Tile = 64;                        // queries a streamed tile
+constexpr int kF32Stages = 3;                       // ring depth (q and dO tile pairs)
+constexpr int kF32Threads = 32 * (kF32Warps + 1);   // the MMA warps, the producer warp
+constexpr int kF32ResBytes = kF32Keys * kDh * 4;    // the resident k or v rows
+constexpr int kF32TileBytes = kF32Tile * kDh * 4;   // one q or dO tile
+constexpr int kF32ColBytes = 2 * kF32Tile * 4;      // a tile's lse log2 e and di
+constexpr int kF32Smem =
+    2 * kF32ResBytes + kF32Stages * (2 * kF32TileBytes + kF32ColBytes) + 1024 + 128;
+
+// dK and dV of 128 keys of one (batch, head), every query streamed; dK is
+// scaled by dk_scale (1 / sqrt(dh)) at the end.
+__global__ void __launch_bounds__(kF32Threads, 1)
+attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map, int k_perm, int v_perm,
+                             int q_perm, int do_perm, const float* __restrict__ lse,
+                             const float* __restrict__ di, float* __restrict__ dk,
+                             float* __restrict__ dv, int S, int H, int valid_len,
+                             float scale_log2, float dk_scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
+  // Offsetting smem_raw itself (not an integer address) keeps the tiles'
+  // loads shared-memory loads with 32-bit addresses.
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_res = base;
+  uint8_t* v_res = k_res + kF32ResBytes;
+  uint8_t* q_tiles = v_res + kF32ResBytes;                 // one a stage
+  uint8_t* do_tiles = q_tiles + kF32Stages * kF32TileBytes;
+  // Each stage's 64 query columns, lse log2 e then di.
+  float* cols = reinterpret_cast<float*>(do_tiles + kF32Stages * kF32TileBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cols + kF32Stages * 2 * kF32Tile);
+  uint64_t* res_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kF32Stages;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int row0 = blockIdx.x * kF32Keys;  // first resident key
+
+  if (row0 >= valid_len) {
+    // Every key of the block is masked: dK and dV rows of zeros.
+    const int rows = min(kF32Keys, S - row0);
+    for (int idx = threadIdx.x; idx < rows * (kDh / 4); idx += kF32Threads) {
+      const long long off =
+          ((static_cast<long long>(b) * S + row0 + idx / 16) * H + h) * kDh + 4 * (idx % 16);
+      *reinterpret_cast<float4*>(dk + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(dv + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    return;
+  }
+  const int n_tiles = (S + kF32Tile - 1) / kF32Tile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&full[s], 33);                 // the TMA's bytes, then 32 lanes' columns
+      mbar_init(&empty[s], 32 * kF32Warps);    // every MMA thread releases it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kF32Warps) {
+    // The producer warp: one thread issues every TMA load; all 32 lanes
+    // write the tile's query columns, lse log2 e and di, and arrive.
+    // Queries past S have neither: their lse is +inf (P = 0) and their di
+    // 0, and nothing past S is read.
+    const float* lse_bh = lse + static_cast<long long>(bh) * S;
+    const float* di_bh = di + static_cast<long long>(bh) * S;
+    if (lane == 0) {
+      mbar_expect_tx(res_full, 2 * kF32ResBytes);
+      load_rows_f32<kF32Keys>(k_res, &k_map, k_perm, row0, h, b, res_full);
+      load_rows_f32<kF32Keys>(v_res, &v_map, v_perm, row0, h, b, res_full);
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kF32Stages;
+      if (t >= kF32Stages) mbar_wait(&empty[st], ((t / kF32Stages) - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 2 * kF32TileBytes);
+        load_rows_f32<kF32Tile>(q_tiles + st * kF32TileBytes, &q_map, q_perm, t * kF32Tile, h, b,
+                                &full[st]);
+        load_rows_f32<kF32Tile>(do_tiles + st * kF32TileBytes, &do_map, do_perm, t * kF32Tile, h,
+                                b, &full[st]);
+      }
+      float* cl = cols + st * 2 * kF32Tile;
+      for (int c = lane; c < kF32Tile; c += 32) {
+        const int qi = t * kF32Tile + c;
+        cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;
+        cl[kF32Tile + c] = qi < S ? di_bh[qi] : 0.0f;
+      }
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  // MMA warp `warp` owns keys row0 + 16 warp .. + 15; a thread holds keys
+  // r0 and r0 + 8 of the block and, in n8 block j of an accumulator, query
+  // columns 8 j + 2 (lane % 4) and the one after.
+  const int r0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const bool key_live[2] = {row0 + r0 < valid_len, row0 + r0 + 8 < valid_len};
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+
+  mbar_wait(res_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kF32Stages;
+    mbar_wait(&full[st], (t / kF32Stages) & 1);
+    const uint8_t* q_st = q_tiles + st * kF32TileBytes;
+    const uint8_t* do_st = do_tiles + st * kF32TileBytes;
+    const float* cl = cols + st * 2 * kF32Tile;  // lse log2 e, then di
+
+    float s[8][4], dp[8][4];  // S^T and dP^T: keys x queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      mma_dims<kF32Tile>(s, dims_frag<kF32Keys>(k_res, r0, kk, lane % 4), q_st, kk, lane);
+      mma_dims<kF32Tile>(dp, dims_frag<kF32Keys>(v_res, r0, kk, lane % 4), do_st, kk, lane);
+    }
+    // P^T in f32 and dS^T = P^T (dP^T - di), by query column.
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + cq + (e & 1);
+        const float p =
+            key_live[e >> 1] ? exp2f(fmaf(s[j][e], scale_log2, -cl[col])) : 0.0f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - cl[kF32Tile + col]);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      Frag pa = acc_frag(s[j]);
+      mma_rows<kF32Tile>(dv_acc, pa, do_st, j, lane);  // dV += P^T dO
+      mma_rows<kF32Tile>(dk_acc, acc_frag(dp[j]), q_st, j, lane);  // dK += dS^T Q
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = row0 + r0 + 8 * i;
+    if (key >= S) continue;
+    const long long off = ((static_cast<long long>(b) * S + key) * H + h) * kDh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(dk + off + 8 * j + cq) =
+          make_float2(dk_acc[j][2 * i] * dk_scale, dk_acc[j][2 * i + 1] * dk_scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * j + cq) =
+          make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -494,20 +586,21 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
   }
 }
 
-// The four tensor maps of a bf16 launch (res0, res1, str0, str1), resident
-// boxes of kTcBlock rows and streamed ones of kTcRows; false if one is
-// misaligned or refused.
+// The four tensor maps of a launch (res0, res1, str0, str1): bf16 (resident
+// boxes of kTcBlock rows, streamed ones of kTcRows) or, with `f32`, the f32
+// dK/dV kernel's (kF32Keys and kF32Tile rows); false if one is misaligned
+// or refused.
 struct TcMaps {
   CUtensorMap map[4];
   int perm[4];
 };
 
 bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3], int B, int S,
-                  int H) {
+                  int H, bool f32 = false) {
   for (int i = 0; i < 4; ++i)
-    if (!aligned16(ptr[i], st[i][0], st[i][1], st[i][2]) ||
+    if (!aligned16(ptr[i], st[i][0], st[i][1], st[i][2], f32 ? 4 : 2) ||
         !make_map(&m->map[i], &m->perm[i], ptr[i], B, S, H, st[i][0], st[i][1], st[i][2],
-                  i < 2 ? kTcBlock : kTcRows))
+                  f32 ? (i < 2 ? kF32Keys : kF32Tile) : (i < 2 ? kTcBlock : kTcRows), f32))
       return false;
   return true;
 }
@@ -529,14 +622,17 @@ int launch_tc(const TcMaps& m, const float* lse, const float* di, void* out0, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* di, void* dk, void* dv, int B, int S, int H, Strides qs, Strides ks,
-               Strides vs, Strides ds, int valid_len, cudaStream_t st) {
-  const dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  attention_bwd_dkv_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, di, static_cast<float*>(dk), static_cast<float*>(dv),
-      S, H, qs, ks, vs, ds, valid_len, 0.125f);  // 64 ** -0.5, exact
+int launch_dkv_f32(const TcMaps& m, const float* lse, const float* di, void* dk, void* dv,
+                   int B, int S, int H, int valid_len, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kF32Keys - 1) / kF32Keys, B * H);
+  // 64 ** -0.5 (exact) times log2(e): scores go straight to exp2.
+  attention_bwd_dkv_f32_kernel<<<grid, kF32Threads, kF32Smem, st>>>(
+      m.map[0], m.map[1], m.map[2], m.map[3], m.perm[0], m.perm[1], m.perm[2], m.perm[3], lse,
+      di, static_cast<float*>(dk), static_cast<float*>(dv), S, H, valid_len, 0.125f * kLog2e,
+      0.125f /* f32 dK */);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -560,10 +656,11 @@ bool bad_args(int dtype, int B, int S, int H, int dh, int valid_len) {
 
 // dtype: 0 = f32, 1 = bf16. Strides are in elements; dk, dv (and dq) are
 // contiguous (B, S, H, 64) of the operand type, lse and di f32 (B, H, S).
-// 1 <= valid_len <= S. bf16 needs 16-byte-aligned base pointers and
-// strides of q, k, v and dout (TMA). Returns cudaGetLastError()
-// (cudaErrorInvalidValue for dh != 64, an argument out of range, a
-// misaligned bf16 operand or a tensor map cuTensorMapEncodeTiled refuses).
+// 1 <= valid_len <= S. dK/dV (both types) and bf16 dQ need 16-byte-aligned
+// base pointers and strides of q, k, v and dout (TMA). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for dh != 64, an argument out
+// of range, a misaligned operand or a tensor map cuTensorMapEncodeTiled
+// refuses).
 extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* di,
                                      void* dk, void* dv, int dtype, int B, int S, int H, int dh,
@@ -578,18 +675,15 @@ extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // Resident k and v, streamed q and dout.
-    const void* ptrs[4] = {k, v, q, dout};
-    const long long strides[4][3] = {
-        {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}};
-    TcMaps m;
-    if (!make_tc_maps(&m, ptrs, strides, B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tc<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* dK */, st);
-  }
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      ds{do_sb, do_ss, do_sh};
-  return launch_dkv(q, k, v, dout, l, d, dk, dv, B, S, H, qs, ks, vs, ds, valid_len, st);
+  // Resident k and v, streamed q and dout.
+  const void* ptrs[4] = {k, v, q, dout};
+  const long long strides[4][3] = {
+      {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}};
+  TcMaps m;
+  if (!make_tc_maps(&m, ptrs, strides, B, S, H, dtype == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return launch_tc<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* dK */, st);
+  return launch_dkv_f32(m, l, d, dk, dv, B, S, H, valid_len, st);
 }
 
 extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,

@@ -1,14 +1,16 @@
 // Hopper building blocks shared by the bf16 attention kernels: K2
 // (encoder_attention.cu), its backward K2-dkv and K2-dq
-// (encoder_attention_bwd.cu) and P1 (attention_control.cu).
+// (encoder_attention_bwd.cu) and P1 (attention_control.cu); the f32 routes
+// of K2 and K2-dkv take the mbarriers, TMA loads and tensor maps from here
+// (their 3xTF32 products are in tf32_common.cuh).
 //
 // Shared-memory addresses, mbarriers, TMA tile loads through 4-D tensor
-// maps over (B, S, H, 64) bf16 operands (128-byte swizzle, rows past S read
-// as zeros), wgmma descriptors and products for one warpgroup (S = Q K^T as
-// m64n128k16 or m64n64k16 with both operands in shared memory; O += P V as
-// m64n64k16 with P in registers and V transposed), named barriers, and the
-// host code that encodes the tensor maps. Each including source gets its
-// own copy (an unnamed namespace).
+// maps over (B, S, H, 64) bf16 or f32 operands (128-byte swizzle, rows past
+// S read as zeros), wgmma descriptors and products for one warpgroup (S =
+// Q K^T as m64n128k16 or m64n64k16 with both operands in shared memory;
+// O += P V as m64n64k16 with P in registers and V transposed), named
+// barriers, and the host code that encodes the tensor maps. Each including
+// source gets its own copy (an unnamed namespace).
 
 #pragma once
 
@@ -293,10 +295,12 @@ EncodeTiledFn encode_tiled() {
 
 // A 4-D map (dh, then the sequence, head and batch dims in increasing stride
 // order) over one (B, S, H, 64) bf16 operand, boxes of box_rows x 64, the
-// 128-byte swizzle, rows past S read as zeros. Returns false if the driver
-// refuses it; *perm receives the dimension order (see coord()).
+// 128-byte swizzle, rows past S read as zeros. An f32 operand (`f32`) takes
+// boxes of box_rows x 32 (128 bytes a row, the widest the swizzle takes), so
+// a 64-float row is two loads. Returns false if the driver refuses it;
+// *perm receives the dimension order (see coord()).
 bool make_map(CUtensorMap* map, int* perm, const void* ptr, int B, int S, int H, long long sb,
-              long long ss, long long sh, int box_rows) {
+              long long ss, long long sh, int box_rows, bool f32 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   long long strides[3] = {ss, sh, sb};  // roles: 0 = s, 1 = h, 2 = b
@@ -311,26 +315,30 @@ bool make_map(CUtensorMap* map, int* perm, const void* ptr, int B, int S, int H,
       }
   cuuint64_t dims[4] = {kDh, 0, 0, 0};
   cuuint64_t gstrides[3];
-  cuuint32_t box[4] = {kDh, 1, 1, 1};
+  const int elem_bytes = f32 ? 4 : 2;
+  cuuint32_t box[4] = {f32 ? 128u / 4 : kDh, 1, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   int pos[3];
   for (int d = 0; d < 3; ++d) {
     const int role = order[d];
     pos[role] = d;
     dims[1 + d] = static_cast<cuuint64_t>(sizes[role]);
-    gstrides[d] = static_cast<cuuint64_t>(strides[role]) * 2;
+    gstrides[d] = static_cast<cuuint64_t>(strides[role]) * elem_bytes;
     if (role == 0) box[1 + d] = box_rows;
   }
   *perm = pos[0] | (pos[1] << 2) | (pos[2] << 4);
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims,
                 gstrides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-bool aligned16(const void* p, long long sb, long long ss, long long sh) {
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (sb * 2) % 16 == 0 &&
-         (ss * 2) % 16 == 0 && (sh * 2) % 16 == 0;
+// Whether TMA takes an operand: a 16-byte-aligned base pointer and batch,
+// sequence and head strides (elem_bytes 2 for bf16, 4 for f32).
+bool aligned16(const void* p, long long sb, long long ss, long long sh, int elem_bytes = 2) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (sb * elem_bytes) % 16 == 0 &&
+         (ss * elem_bytes) % 16 == 0 && (sh * elem_bytes) % 16 == 0;
 }
 
 }  // namespace

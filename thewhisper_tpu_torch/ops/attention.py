@@ -5,9 +5,11 @@
 encoder layer runs, which thewhisper_tpu sends to the Pallas TPU flash
 attention (``models/whisper.py::_flash_attention``). On a CUDA tensor it
 launches ``csrc/encoder_attention.cu`` (dh = 64, f32 or bf16, any S, no
-padded copies): bf16 on the tensor cores (TMA and wgmma, which need
-16-byte-aligned base pointers and strides), f32 on the CUDA cores. On a CPU
-tensor it runs :func:`encoder_attention_plain`.
+padded copies), on the tensor cores in both types: bf16 by TMA and wgmma,
+f32 by TMA and mma.sync in 3xTF32 (each operand split into a TF32 high
+part and rest, so the result keeps f32's precision). TMA needs
+16-byte-aligned base pointers and strides. On a CPU tensor it runs
+:func:`encoder_attention_plain`.
 
 Its gradient is the library kernel's custom VJP ported: when grad mode is
 on and an input requires grad, ``encoder_attention`` goes through
@@ -16,8 +18,9 @@ log-sum-exp (:func:`encoder_attention_residuals`, the library's
 ``save_residuals`` forward) and whose backward launches
 ``csrc/encoder_attention_bwd.cu``'s dK/dV and dQ kernels
 (:func:`encoder_attention_backward`): bf16 on the tensor cores (TMA and
-wgmma, the same alignment rule, which ``dout`` meets too), f32 on the CUDA
-cores. CPU tensors take the plain versions of all three.
+wgmma), f32 dK/dV on them too (TMA and mma.sync in 3xTF32), f32 dQ on the
+CUDA cores; the same alignment rule holds for q, k, v and ``dout`` in both
+types. CPU tensors take the plain versions of all three.
 """
 
 from __future__ import annotations
@@ -112,14 +115,15 @@ def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _tma_aligned(x: torch.Tensor) -> bool:
-    """Whether TMA takes a bf16 (B, S, H, dh) operand: a 16-byte-aligned base
+    """Whether TMA takes a (B, S, H, dh) operand: a 16-byte-aligned base
     pointer and batch, sequence and head strides."""
-    return x.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in x.stride()[:3])
+    return x.data_ptr() % 16 == 0 and all(
+        st * x.element_size() % 16 == 0 for st in x.stride()[:3])
 
 
 def _check_tma(name: str, *xs: torch.Tensor) -> None:
-    if xs[0].dtype == torch.bfloat16 and not all(_tma_aligned(x) for x in xs):
-        raise ValueError(f"{name}: bf16 operands need 16-byte-aligned "
+    if not all(_tma_aligned(x) for x in xs):
+        raise ValueError(f"{name}: {xs[0].dtype} operands need 16-byte-aligned "
                          "base pointers and strides (TMA)")
 
 
@@ -164,8 +168,8 @@ def encoder_attention_backward(
     out and lse and the output's gradient ``dout``.
 
     CPU tensors take :func:`encoder_attention_backward_plain`; CUDA tensors
-    launch the dK/dV kernel and the dQ kernel or raise (bf16: q, k, v and
-    dout must meet TMA's alignment, ``ValueError`` otherwise). ``di`` =
+    launch the dK/dV kernel and the dQ kernel or raise (q, k, v and dout
+    must meet TMA's alignment, ``ValueError`` otherwise). ``di`` =
     rowsum(out dout) is one torch reduction here, as it is plain JAX in the
     library."""
     if q.device.type == "cpu":
@@ -241,8 +245,7 @@ class EncoderAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         # Autograd may hand over an expanded or a misaligned gradient: a copy.
-        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
-                                    and dout.is_cuda and not _tma_aligned(dout)):
+        if dout.stride(-1) != 1 or (dout.is_cuda and not _tma_aligned(dout)):
             dout = dout.clone(memory_format=torch.contiguous_format)
         return (*encoder_attention_backward(q, k, v, out, lse, dout,
                                             ctx.valid_len), None)

@@ -16,6 +16,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 494.7e12
 
 
 def device(name: str) -> torch.device:

@@ -16,9 +16,10 @@ whose mutants change the engine's product and epilogues in
 ``csrc/cache_write.cu`` (tests ``-k "write_row or write_column"``; smoke:
 [P4]/[P5]); and ``attn_bwd``, K2-dkv and K2-dq in
 ``csrc/encoder_attention_bwd.cu`` (both routes; the bf16 one's register-A
-product in ``csrc/tc_common.cuh``) and K2's lse store in
-``csrc/encoder_attention.cu`` (tests ``-k "attention_backward or
-autograd_on_the_card"``; smoke: [TRAIN]'s kernel checks).
+product in ``csrc/tc_common.cuh``) and K2's f32 route and lse stores in
+``csrc/encoder_attention.cu`` (tests ``-k "attention_kernel or
+attention_backward or autograd_on_the_card"``; smoke: [TRAIN]'s kernel
+checks).
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
@@ -26,7 +27,7 @@ the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
 the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
-fourteen K2 backward mutants about 8:
+eighteen K2 and K2 backward mutants about 10:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
@@ -80,7 +81,8 @@ KERNELS = {
     "mlp": ("csrc/mlp_chain.cu", "mlp_chain", SMOKE_MLP),
     "cache": ("csrc/cache_write.cu", "write_row or write_column", SMOKE_CACHE),
     "attn_bwd": ("csrc/encoder_attention_bwd.cu",
-                 "attention_backward or autograd_on_the_card", SMOKE_ATTN_BWD),
+                 "attention_kernel or attention_backward or autograd_on_the_card",
+                 SMOKE_ATTN_BWD),
 }
 
 # The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
@@ -177,25 +179,45 @@ CACHE_MUTANTS = (
 )
 
 
-# K2-dkv and K2-dq, and K2's lse store (in csrc/encoder_attention.cu). The
-# first six change the f32 route (the CUDA-core kernels) alone; the tc-
-# ones the bf16 route (TMA + wgmma), one of them in csrc/tc_common.cuh.
+# K2-dkv and K2-dq, and K2's f32 route and lse stores (in
+# csrc/encoder_attention.cu). The f32- ones change the f32 routes (K2's and
+# K2-dkv's 3xTF32 kernels); dq-ragged and dq-scale the f32 dQ kernel (CUDA
+# cores); the tc- ones the bf16 route (TMA + wgmma), one of them in
+# csrc/tc_common.cuh.
 ATTN_BWD_MUTANTS = (
-    ("dv-scale", "dV is stored halved",
-     "store_half(dv + out, dvr, 1.0f, half);", "store_half(dv + out, dvr, 0.5f, half);"),
+    ("f32-dv-scale", "the f32 route's dV is stored halved",
+     "make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);",
+     "make_float2(0.5f * dv_acc[j][2 * i], 0.5f * dv_acc[j][2 * i + 1]);"),
     ("dq-ragged", "dQ skips the last, ragged key tile",
      "for (int t0 = 0; t0 < valid_len; t0 += kTile) {",
      "for (int t0 = 0; t0 + kTile <= valid_len; t0 += kTile) {"),
-    ("dkv-no-di", "dS for dK leaves out di",
-     "axpy(dkr, p * (dp - di_t[j]), q_t[j], half);", "axpy(dkr, p * dp, q_t[j], half);"),
-    ("dkv-mask", "keys at or past valid_len get gradients",
-     "const bool live = key < valid_len;", "const bool live = key < S;"),
+    ("f32-dkv-no-di", "the f32 route's dS for dK leaves out di",
+     "dp[j][e] = p * (dp[j][e] - cl[kF32Tile + col]);", "dp[j][e] = p * dp[j][e];"),
+    ("f32-dkv-mask", "the f32 route gives keys at or past valid_len gradients",
+     "const bool key_live[2] = {row0 + r0 < valid_len, row0 + r0 + 8 < valid_len};",
+     "const bool key_live[2] = {row0 + r0 < S, row0 + r0 + 8 < S};"),
     ("dq-scale", "dQ is not scaled by 1 / sqrt(dh)",
      "             dqr, scale, half);", "             dqr, 1.0f, half);"),
-    ("dkv-last-query", "dK and dV leave out the last query of each tile",
-     "const int rows = min(kTile, S - t0);", "const int rows = min(kTile, S - t0 - 1);"),
+    ("f32-dkv-last-query", "the f32 route's dK and dV leave out the last query of "
+     "each tile (its lse read as +inf)",
+     "cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;",
+     "cl[c] = qi < S && c != kF32Tile - 1 ? lse_bh[qi] * kLog2e : INFINITY;"),
     ("lse-f32", "the f32 route's lse leaves out the row sum",
-     "= (m + log2f(l)) * kLn2;", "= m * kLn2;", "csrc/encoder_attention.cu"),
+     "(log2f(l[i]) + m[i] * scale_log2) * kLn2;", "(m[i] * scale_log2) * kLn2;",
+     "csrc/encoder_attention.cu"),
+    ("f32-fwd-lo", "the f32 forward's score product leaves out q's lo term (a_lo b_hi)",
+     "Frag qa = dims_frag<kF32BlockQ>(q_tile, r0, kk, lane % 4);\n",
+     "Frag qa = dims_frag<kF32BlockQ>(q_tile, r0, kk, lane % 4);\n"
+     "      for (int e = 0; e < 4; ++e) qa.lo[e] = 0u;\n", "csrc/encoder_attention.cu"),
+    ("f32-dkv-lo", "the f32 route's dV product leaves out P^T's lo term (a_lo b_hi)",
+     "Frag pa = acc_frag(s[j]);\n",
+     "Frag pa = acc_frag(s[j]);\n      for (int e = 0; e < 4; ++e) pa.lo[e] = 0u;\n"),
+    ("f32-fwd-ragged", "the f32 forward's last, ragged key tile is not masked "
+     "(keys >= valid_len, and rows past S as zero scores, take part)",
+     "if (key0 + kF32Tile > valid_len) {", "if (false) {", "csrc/encoder_attention.cu"),
+    ("f32-parity", "the f32 forward's MMA warps wait on a ring stage at the wrong parity",
+     "mbar_wait(&full[st], (t / kF32Stages) & 1);",
+     "mbar_wait(&full[st], ((t / kF32Stages) + 1) & 1);", "csrc/encoder_attention.cu"),
     ("lse-tc", "the bf16 route's lse is 0.001 off in the log2 domain",
      "(m[i] * scale_log2 + log2f(l[i])) * kLn2;",
      "(m[i] * scale_log2 + log2f(l[i]) + 0.001f) * kLn2;", "csrc/encoder_attention.cu"),
