@@ -1,8 +1,9 @@
 """The f32 routes of K2 (with and without lse: K2-fwd-res and the inference
-launch, csrc/encoder_attention.cu) and of K2-dkv (csrc/encoder_attention_bwd.cu),
-emulated in torch on the CPU: no GPU needed.
+launch, csrc/encoder_attention.cu) and of K2-dkv and K2-dq
+(csrc/encoder_attention_bwd.cu), emulated in torch on the CPU: no GPU
+needed.
 
-Both kernels run every product on the tensor cores in 3xTF32: an f32
+The kernels run every product on the tensor cores in 3xTF32: an f32
 operand x is split into hi = rna(x) (``cvt.rna.tf32.f32``'s rounding: to 10
 mantissa bits, ties away from zero) and lo = x - hi, which the tensor core
 reads truncated to 10 mantissa bits, and a product is a_lo b_hi + a_hi b_lo
@@ -11,17 +12,21 @@ reads truncated to 10 mantissa bits, and a product is a_lo b_hi + a_hi b_lo
 tile, P in f32 split like any other operand); dK/dV holds 128 keys and walks
 64-query tiles (P^T = exp2(S^T scale log2 e - lse log2 e), dS^T = P^T
 (dP^T - di), queries past S taking lse = +inf and di = 0, keys >= valid_len
-P = 0, dK scaled by 1 / sqrt(dh) at the end). The tile sizes are read from
-the sources.
+P = 0, dK scaled by 1 / sqrt(dh) at the end); dQ holds 128 queries and
+walks the 64-key tiles below valid_len (P = exp2(S scale log2 e - lse
+log2 e), keys >= valid_len of the last tile P = 0 by column, dS = P (dP -
+di), dQ += dS K on the same K tile, scaled by 1 / sqrt(dh) at the end).
+The tile sizes are read from the sources.
 
-- The emulated forward, lse and dK/dV meet the card tests' bounds against
-  the plain versions (output 1e-4 max abs, lse 1e-5 absolute, gradients
-  1e-4 relative L2) at S = 1, 77 (valid_len 30), 500 and 1500 (valid_len
-  1100), and with scores in the hundreds (inputs times 8).
+- The emulated forward, lse, dK/dV and dQ meet the card tests' bounds
+  against the plain versions (output 1e-4 max abs, lse 1e-5 absolute,
+  gradients 1e-4 relative L2) at S = 1, 77 (valid_len 30), 500 and 1500
+  (valid_len 1100), and with scores in the hundreds (inputs times 8); the
+  dQ walk also against the TPU library's own ``mha_reference_bwd``.
 - The same walk in plain 1xTF32 breaks the output, lse and gradient
-  bounds, so the lo terms are needed; dropping q's lo term from the score product alone,
-  or P^T's from dV's product alone (the mutation check's two 1xTF32
-  mutants), breaks them too.
+  bounds, so the lo terms are needed; dropping q's lo term from the score
+  product alone, P^T's from dV's product alone or dS's from dQ's product
+  alone (the mutation check's three 1xTF32 mutants), breaks them too.
 - Leaving out either guard past S, with lse and di followed by NaN in
   memory (as the card test lays them out), puts NaN into dK.
 - Each ring's producer and consumers, with the kernel's own mbarrier
@@ -36,6 +41,9 @@ import random
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -61,7 +69,7 @@ SCALE_LOG2 = torch.tensor(0.125 * LOG2E, dtype=torch.float32)
 
 def test_tiles_are_those_of_the_sources():
     assert "constexpr int kF32BlockQ = 16 * kF32Warps;" in FWD_SRC
-    assert "constexpr int kF32Keys = 16 * kF32Warps;" in BWD_SRC
+    assert "constexpr int kF32Rows = 16 * kF32Warps;" in BWD_SRC
     assert FWD_TILE == BWD_TILE == 64 and FWD_STAGES >= 2 and BWD_STAGES >= 2
 
 
@@ -153,6 +161,26 @@ def emulate_dkv(q, k, v, do, lse, di, valid, terms=3, p_lo=True, guard_lse=True,
     return dk * 0.125, dv
 
 
+def emulate_dq(q, k, v, do, lse, di, valid, terms=3, ds_lo=True):
+    """dQ of the dQ kernel's walk over the 64-key tiles below ``valid``;
+    q, k, v, do: (B, H, S, 64) f32; lse, di: (B, H, S) f32. Every query row
+    is independent, so all queries walk at once; the keys >= valid of the
+    last tile (real rows when valid < S, zero rows past S) get P = 0 by
+    column. ``ds_lo`` False leaves dS's lo term out of dQ's product."""
+    n_tiles = math.ceil(valid / BWD_TILE)
+    kp, vp = _pad(k, n_tiles * BWD_TILE), _pad(v, n_tiles * BWD_TILE)
+    lse2, di_r = (lse * LOG2E)[..., None], di[..., None]
+    dq = torch.zeros(q.shape)
+    for t in range(n_tiles):
+        keys = torch.arange(t * BWD_TILE, (t + 1) * BWD_TILE)
+        kt, vt = kp[:, :, keys], vp[:, :, keys]
+        sc = mm(q, kt.transpose(-1, -2), terms)
+        dp = mm(do, vt.transpose(-1, -2), terms)
+        p = torch.where(keys < valid, torch.exp2(sc * SCALE_LOG2 - lse2), torch.tensor(0.0))
+        dq += mm(p * (dp - di_r), kt, terms, a_lo=ds_lo)
+    return dq * 0.125
+
+
 def _case(b, h, s, valid_len, seed, scale=1.0):
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (scale * torch.randn(b, s, h, 64, generator=g) for _ in range(4))
@@ -168,18 +196,19 @@ def _l2(got, ref):
     return ((got - ref).norm() / ref.norm()).item()
 
 
-def _errors(q, k, v, do, out, lse, valid_len, **kw):
-    """(output max abs, lse max abs, dK and dV relative L2) of the walks
+def _errors(q, k, v, do, out, lse, valid_len, terms=3, q_lo=True, p_lo=True, ds_lo=True):
+    """(output max abs, lse max abs, dK, dV and dQ relative L2) of the walks
     against the plain versions, on the same out and lse."""
     valid = valid_len or q.shape[1]
     tq, tk, tv, tdo = _bhsd(q, k, v, do)
-    fwd_kw = {"terms": kw.get("terms", 3), "q_lo": kw.pop("q_lo", True)}
-    o, l = emulate_forward(tq, tk, tv, valid, **fwd_kw)
+    o, l = emulate_forward(tq, tk, tv, valid, terms, q_lo=q_lo)
     di = (out * do).sum(-1).transpose(1, 2)
-    dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, di, valid, **kw)
-    _, pk, pv = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
+    dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, di, valid, terms, p_lo=p_lo)
+    dq = emulate_dq(tq, tk, tv, tdo, lse, di, valid, terms, ds_lo=ds_lo)
+    pq, pk, pv = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
     return ((o.transpose(1, 2) - out).abs().max().item(), (l - lse).abs().max().item(),
-            _l2(dk.transpose(1, 2), pk), _l2(dv.transpose(1, 2), pv))
+            _l2(dk.transpose(1, 2), pk), _l2(dv.transpose(1, 2), pv),
+            _l2(dq.transpose(1, 2), pq))
 
 
 CASES = [(500, None), (77, 30), (1500, 1100)]
@@ -200,7 +229,9 @@ def test_walks_meet_the_card_bounds(s, valid_len):
 
 def test_walks_meet_the_card_bounds_at_one_key():
     """S = 1: weight 1 on the one key, so out = v, lse is the scaled score,
-    dV = dO, and dK vanishes up to the rounding of dO v^T - di."""
+    dV = dO, and dK and dQ vanish up to the rounding of dO v^T - di (the
+    card test's absolute bound: no relative one holds a gradient that is
+    zero but for rounding)."""
     q, k, v, do, out, lse = _case(2, 4, 1, None, seed=1)
     tq, tk, tv, tdo = _bhsd(q, k, v, do)
     o, l = emulate_forward(tq, tk, tv, 1)
@@ -209,6 +240,8 @@ def test_walks_meet_the_card_bounds_at_one_key():
     dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, (out * do).sum(-1).transpose(1, 2), 1)
     torch.testing.assert_close(dv.transpose(1, 2), do, atol=0, rtol=1e-5)
     assert dk.abs().max().item() <= 1e-3
+    dq = emulate_dq(tq, tk, tv, tdo, lse, (out * do).sum(-1).transpose(1, 2), 1)
+    assert dq.abs().max().item() <= 1e-3
 
 
 def test_forward_rescales_large_scores():
@@ -231,10 +264,60 @@ def test_plain_tf32_breaks_the_bounds(s, valid_len):
 @pytest.mark.parametrize("s,valid_len", CASES)
 def test_each_dropped_lo_term_breaks_a_bound(s, valid_len):
     """q's lo term left out of the score product: lse leaves 1e-5. P^T's
-    left out of dV's product: dV leaves 1e-4."""
+    left out of dV's product: dV leaves 1e-4. dS's left out of dQ's
+    product: dQ leaves 1e-4."""
     q, k, v, do, out, lse = _case(1 if s == 1500 else 2, 2, s, valid_len, seed=s)
     assert _errors(q, k, v, do, out, lse, valid_len, q_lo=False)[1] > 1e-5
     assert _errors(q, k, v, do, out, lse, valid_len, p_lo=False)[3] > 1e-4
+    assert _errors(q, k, v, do, out, lse, valid_len, ds_lo=False)[4] > 1e-4
+
+
+def _library_dq(q, k, v, do, valid_len):
+    """dQ of the TPU library's ``mha_reference_bwd`` on numpy (B, S, H, 64)
+    inputs, as tests/test_torch_attention_grad.py calls it: it refuses
+    ``sm_scale != 1``, so it gets q scaled by 1/sqrt(dh) and its dQ is
+    scaled back; with valid_len it masks by segment ids, which agrees with
+    the kernel's mask where dO is zero on the rows >= valid_len."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import (
+        SegmentIds,
+        mha_reference_bwd,
+        mha_reference_no_custom_vjp,
+    )
+
+    b, s = q.shape[:2]
+    qt, kt, vt, dot = (jnp.transpose(jnp.asarray(x), (0, 2, 1, 3))
+                       for x in (q * 0.125, k, v, do))
+    seg = None
+    if valid_len is not None:
+        ids = jnp.broadcast_to((jnp.arange(s) >= valid_len).astype(jnp.int32), (b, s))
+        seg = SegmentIds(q=ids, kv=ids)
+    with jax.default_matmul_precision("highest"):
+        o, l, m = mha_reference_no_custom_vjp(qt, kt, vt, None, seg, save_residuals=True)
+        dq = mha_reference_bwd(qt, kt, vt, None, seg, o, l, m, dot)[0]
+    return torch.from_numpy(np.transpose(np.array(dq * 0.125), (0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("s,valid_len", [(1, None)] + CASES)
+def test_dq_walk_meets_the_library_reference(s, valid_len):
+    """The dQ walk on numpy inputs (dO zero on the rows >= valid_len, as the
+    encoder hands it back) against ``mha_reference_bwd``'s dQ and the plain
+    backward's: 1e-4 relative L2; at S = 1, where dQ is zero but for
+    rounding, 1e-3 absolute, the card test's bound."""
+    rng = np.random.default_rng(s)
+    q, k, v, do = (rng.standard_normal((1 if s == 1500 else 2, s, 2, 64)).astype(np.float32)
+                   for _ in range(4))
+    if valid_len is not None:
+        do[:, valid_len:] = 0.0
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = ta.encoder_attention_residuals(tq, tk, tv, valid_len)
+    di = (out * tdo).sum(-1).transpose(1, 2)
+    dq = emulate_dq(*_bhsd(tq, tk, tv, tdo), lse, di, valid_len or s).transpose(1, 2)
+    plain = ta.encoder_attention_backward_plain(tq, tk, tv, out, lse, tdo, valid_len)[0]
+    for ref in (_library_dq(q, k, v, do, valid_len), plain):
+        if s == 1:
+            assert (dq - ref).abs().max().item() <= 1e-3
+        else:
+            assert _l2(dq, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("left_out", ["lse", "di"])
@@ -258,11 +341,29 @@ def _kernel(src: str, name: str) -> str:
     return src[start:src.index("\n}\n", start)]
 
 
+def _instance(body: str, keys: bool) -> str:
+    """The text of one instance of the backward's kernel template: each
+    ``if (kKeys) { ... }`` block kept (dK/dV) or dropped (dQ), each
+    ``kKeys ? a : b`` of two words resolved."""
+    while (i := body.find("if (kKeys) {")) >= 0:
+        j = body.index("{", i)
+        depth = 0
+        for end in range(j, len(body)):
+            depth += {"{": 1, "}": -1}.get(body[end], 0)
+            if depth == 0:
+                break
+        body = body[:i] + (body[j + 1:end] if keys else "") + body[end + 1:]
+    return re.sub(r"kKeys \? (\w+) : (\w+)", r"\1" if keys else r"\2", body)
+
+
+BWD_KERNEL = _kernel(BWD_SRC, "attention_bwd_f32_kernel")
+
 # The rings: each f32 kernel's body, its stages, MMA warps and full
 # barrier's arrival count (dK/dV: the TMA's, then the 32 lanes' columns).
 RINGS = {
     "forward": (_kernel(FWD_SRC, "encoder_attention_f32_kernel"), FWD_STAGES, FWD_WARPS, 1),
-    "dkv": (_kernel(BWD_SRC, "attention_bwd_dkv_f32_kernel"), BWD_STAGES, BWD_WARPS, 33),
+    "dkv": (_instance(BWD_KERNEL, True), BWD_STAGES, BWD_WARPS, 33),
+    "dq": (_instance(BWD_KERNEL, False), BWD_STAGES, BWD_WARPS, 1),
 }
 
 
@@ -373,7 +474,7 @@ def walk_ring(n_tiles, stages, warps, cols, rng, parity_shift=0):
 def test_producer_and_consumers_walk_the_same_stages(ring, s, valid_len):
     _, stages, warps, full_count = RINGS[ring]
     valid = valid_len or s
-    n_tiles = math.ceil((valid if ring == "forward" else s) / 64)
+    n_tiles = math.ceil((s if ring == "dkv" else valid) / 64)
     rng = random.Random(s + stages)
     for _ in range(20):
         assert walk_ring(n_tiles, stages, warps, full_count != 1, rng) == [n_tiles] * warps

@@ -369,6 +369,23 @@ def test_attention_kernels_f32_reject_misaligned_operands(cuda_device):
                 ta.encoder_attention_backward(q, k, v, ok, lse, do)
 
 
+def test_attention_backward_dq_f32_rejects_misaligned_operands(cuda_device):
+    """The f32 dQ kernel loads q, k, v and dout by TMA: its entry point,
+    called without the wrapper's check, refuses an operand whose base
+    pointer is 4 bytes off (cudaErrorInvalidValue, 1) and launches nothing."""
+    flat = torch.zeros(100 * 20 * 64 + 1, device=cuda_device)
+    shifted = flat[1:].view(1, 100, 20, 64)                     # base + 4 bytes
+    ok = torch.zeros(1, 100, 20, 64, device=cuda_device)
+    lse = torch.zeros(1, 20, 100, device=cuda_device)
+    for q, k, v, do in ((shifted, ok, ok, ok), (ok, shifted, ok, ok),
+                        (ok, ok, shifted, ok), (ok, ok, ok, shifted)):
+        count = ta.ATTN_BWD_DQ_LAUNCHES
+        with pytest.raises(RuntimeError, match="twt_attention_bwd_dq: CUDA error 1 "):
+            ta.launch_backward_dq(q, k, v, do, lse, lse, 100)
+        assert ta.ATTN_BWD_DQ_LAUNCHES == count
+    torch.cuda.synchronize()
+
+
 def test_attention_backward_rejects_bad_input(cuda_device):
     q = torch.zeros(1, 16, 2, 64, device=cuda_device)
     lse = torch.zeros(1, 2, 16, device=cuda_device)

@@ -61,26 +61,28 @@
 // are all >= valid_len only writes zeros; rows >= S are not written. dK and
 // dQ are scaled by 1 / sqrt(dh) at the end.
 //
-// f32, dK/dV: TMA + mma.sync in 3xTF32 (tf32_common.cuh: each operand split
-// into a TF32 high part and rest, three TF32 products summed in f32, so
-// its ceiling is the TF32 tensor rate over three), the bf16 route's plan with mma.sync in place of wgmma (whose TF32 form takes
-// shared-memory operands K-major only, where dV's dO and dK's q are read
-// MN-major). One block per (batch x head, 128 keys): eight MMA warps of 16
-// resident keys (their k and v rows, loaded once) and a producer warp that
-// streams 64-query tiles of q and dO through a three-stage ring by TMA (f32
-// boxes of 32 floats, 128-byte swizzle, rows past S as zeros) and writes
-// each tile's lse log2 e and di into its stage, as the bf16 route's does.
-// For each tile a warp computes S^T = K Q^T and dP^T = V dO^T (16 x 64
-// each), P^T = exp2(S^T scale log2 e - lse log2 e) in f32, dV += P^T dO,
-// dS^T = P^T (dP^T - di) and dK += dS^T Q, P^T and dS^T split like any
-// other operand. The same masks: keys >= valid_len get P = 0 and a block
-// of them only writes zeros; queries past S take lse = +inf and di = 0.
-//
-// f32, dQ: on the CUDA cores, whose 67 TFLOP/s f32 rate is its ceiling.
-// Two threads per query, each owning 32 of the 64 dims in interleaved
-// float4 chunks, combining its half dot products with one shuffle. The
-// block stages 32 keys (k and v rows) in shared memory and walks them; the
-// query's q and dO rows and its dQ accumulator stay in registers.
+// f32: TMA + mma.sync in 3xTF32 (tf32_common.cuh: each operand split into a
+// TF32 high part and rest, three TF32 products summed in f32, so its
+// ceiling is the TF32 tensor rate over three), the bf16 route's plan with
+// mma.sync in place of wgmma (whose TF32 form takes shared-memory operands
+// K-major only, where dV's dO, dK's q and dQ's k are read MN-major). One
+// kernel template serves both kernels, as in bf16: a block holds 128
+// resident rows in eight MMA warps of 16 (k and v rows for dK/dV, q and dO
+// rows for dQ, loaded once) and a producer warp streams 64-row tiles of the
+// other side (q and dO, or k and v) through a three-stage ring by TMA (f32
+// boxes of 32 floats, 128-byte swizzle, rows past S as zeros). For dK/dV it
+// also writes each tile's lse log2 e and di into its stage, as the bf16
+// route's does; a dQ thread loads its two queries' once. For each tile a
+// warp computes
+//   dK/dV: S^T = K Q^T and dP^T = V dO^T (16 x 64 each), P^T = exp2(S^T
+//          scale log2 e - lse log2 e) in f32, dV += P^T dO, dS^T = P^T
+//          (dP^T - di) and dK += dS^T Q;
+//   dQ:    S = Q K^T and dP = dO V^T, P, dS = P (dP - di) and dQ += dS K,
+//          against the same K tile read by rows;
+// P and dS split like any other operand. The bf16 route's masks: keys >=
+// valid_len get P = 0 (dK/dV by row, a block of them only writing zeros;
+// dQ by column in its last key tile), queries past S take lse = +inf and
+// di = 0, and nothing past S is read.
 
 #include <math.h>
 
@@ -89,154 +91,46 @@
 
 namespace {
 
-constexpr int kHalf = kDh / 2;       // dims a thread
-constexpr int kChunks = kHalf / 4;   // float4 chunks a thread
-constexpr int kBlockRows = 64;       // queries a dQ block
-constexpr int kThreads = 2 * kBlockRows;
-constexpr int kTile = 32;            // keys staged a pass
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Element e of this thread's float4 chunk c: dim 4 (2 c + half) + e.
-__device__ __forceinline__ int dim(int c, int e, int half) { return 4 * (2 * c + half) + e; }
-
-// This thread's half of a row.
-__device__ __forceinline__ void load_half(float (&r)[kHalf], const float* row, bool live,
-                                          int half) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) r[4 * c + e] = live ? row[dim(c, e, half)] : 0.0f;
-}
-
-// acc += a * staged (this thread's half).
-__device__ __forceinline__ void axpy(float (&acc)[kHalf], float a, const float* staged, int half) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(staged + dim(c, 0, half));
-    acc[4 * c + 0] = fmaf(a, x.x, acc[4 * c + 0]);
-    acc[4 * c + 1] = fmaf(a, x.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(a, x.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(a, x.w, acc[4 * c + 3]);
-  }
-}
-
-__device__ __forceinline__ void store_half(float* row, const float (&r)[kHalf], float scale,
-                                          int half) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) row[dim(c, e, half)] = r[4 * c + e] * scale;
-}
-
-struct Strides {
-  long long b, s, h;
-};
-
-// dQ of 64 queries of one (batch, head). For each key j < valid_len:
-// p = exp2(s_j scale log2 e - lse log2 e), dp = dO . v_j,
-// dQ += p (dp - di) k_j; scaled by 1 / sqrt(dh) at the end.
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        float* __restrict__ dq, int S, int H, Strides qs, Strides ks, Strides vs,
-                        Strides ds, int valid_len, float scale) {
-  __shared__ __align__(16) float k_t[kTile][kDh];
-  __shared__ __align__(16) float v_t[kTile][kDh];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int half = threadIdx.x & 1;
-  const int qi = blockIdx.x * kBlockRows + (threadIdx.x >> 1);
-  const bool active = qi < S;
-  const float scale_log2 = scale * kLog2e;
-
-  float qr[kHalf], dor[kHalf], dqr[kHalf];
-  load_half(qr, q + b * qs.b + static_cast<long long>(qi) * qs.s + h * qs.h, active, half);
-  load_half(dor, dout + b * ds.b + static_cast<long long>(qi) * ds.s + h * ds.h, active, half);
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) dqr[i] = 0.0f;
-  const long long row = static_cast<long long>(bh) * S + qi;
-  const float lse2 = active ? lse[row] * kLog2e : 0.0f;
-  const float di_q = active ? di[row] : 0.0f;
-
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  for (int t0 = 0; t0 < valid_len; t0 += kTile) {
-    const int keys = min(kTile, valid_len - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < keys * kDh; idx += kThreads) {
-      const int r = idx / kDh;
-      const int c = idx - r * kDh;
-      const long long key = t0 + r;
-      k_t[r][c] = kb[key * ks.s + c];
-      v_t[r][c] = vb[key * vs.s + c];
-    }
-    __syncthreads();
-    for (int j = 0; j < keys; ++j) {
-      float sp = 0.0f, dpp = 0.0f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(&k_t[j][dim(c, 0, half)]);
-        const float4 y = *reinterpret_cast<const float4*>(&v_t[j][dim(c, 0, half)]);
-        sp = fmaf(qr[4 * c + 0], x.x, sp);
-        sp = fmaf(qr[4 * c + 1], x.y, sp);
-        sp = fmaf(qr[4 * c + 2], x.z, sp);
-        sp = fmaf(qr[4 * c + 3], x.w, sp);
-        dpp = fmaf(dor[4 * c + 0], y.x, dpp);
-        dpp = fmaf(dor[4 * c + 1], y.y, dpp);
-        dpp = fmaf(dor[4 * c + 2], y.z, dpp);
-        dpp = fmaf(dor[4 * c + 3], y.w, dpp);
-      }
-      const float s = sp + __shfl_xor_sync(0xffffffffu, sp, 1);
-      const float dp = dpp + __shfl_xor_sync(0xffffffffu, dpp, 1);
-      const float p = exp2f(fmaf(s, scale_log2, -lse2));
-      axpy(dqr, p * (dp - di_q), k_t[j], half);
-    }
-  }
-
-  if (!active) return;
-  store_half(dq + (static_cast<long long>(b) * S + qi) * H * kDh + static_cast<long long>(h) * kDh,
-             dqr, scale, half);
-}
-
 // ---------------------------------------------------------------------------
-// f32 dK/dV: TMA + mma.sync, 3xTF32.
+// f32: TMA + mma.sync, 3xTF32.
 
-constexpr int kF32Warps = 8;                        // MMA warps of 16 resident keys
-constexpr int kF32Keys = 16 * kF32Warps;            // keys a block
-constexpr int kF32Tile = 64;                        // queries a streamed tile
-constexpr int kF32Stages = 3;                       // ring depth (q and dO tile pairs)
+constexpr int kF32Warps = 8;                        // MMA warps of 16 resident rows
+constexpr int kF32Rows = 16 * kF32Warps;            // resident rows a block
+constexpr int kF32Tile = 64;                        // rows a streamed tile
+constexpr int kF32Stages = 3;                       // ring depth (streamed tile pairs)
 constexpr int kF32Threads = 32 * (kF32Warps + 1);   // the MMA warps, the producer warp
-constexpr int kF32ResBytes = kF32Keys * kDh * 4;    // the resident k or v rows
-constexpr int kF32TileBytes = kF32Tile * kDh * 4;   // one q or dO tile
-constexpr int kF32ColBytes = 2 * kF32Tile * 4;      // a tile's lse log2 e and di
+constexpr int kF32ResBytes = kF32Rows * kDh * 4;    // one resident operand
+constexpr int kF32TileBytes = kF32Tile * kDh * 4;   // one streamed tile
+constexpr int kF32ColBytes = 2 * kF32Tile * 4;      // a dK/dV tile's lse log2 e and di
 constexpr int kF32Smem =
     2 * kF32ResBytes + kF32Stages * (2 * kF32TileBytes + kF32ColBytes) + 1024 + 128;
 
-// dK and dV of 128 keys of one (batch, head), every query streamed; dK is
-// scaled by dk_scale (1 / sqrt(dh)) at the end.
+// kKeys: the dK/dV kernel (resident K and V, streamed Q and dO tiles, out0 =
+// dK, out1 = dV); else the dQ kernel (resident Q and dO, streamed K and V
+// tiles, out0 = dQ). out0 is scaled by out0_scale (1 / sqrt(dh)) at the end.
+template <bool kKeys>
 __global__ void __launch_bounds__(kF32Threads, 1)
-attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
-                             const __grid_constant__ CUtensorMap v_map,
-                             const __grid_constant__ CUtensorMap q_map,
-                             const __grid_constant__ CUtensorMap do_map, int k_perm, int v_perm,
-                             int q_perm, int do_perm, const float* __restrict__ lse,
-                             const float* __restrict__ di, float* __restrict__ dk,
-                             float* __restrict__ dv, int S, int H, int valid_len,
-                             float scale_log2, float dk_scale) {
+attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
+                         const __grid_constant__ CUtensorMap res1_map,
+                         const __grid_constant__ CUtensorMap str0_map,
+                         const __grid_constant__ CUtensorMap str1_map, int res0_perm,
+                         int res1_perm, int str0_perm, int str1_perm,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         float* __restrict__ out0, float* __restrict__ out1, int S, int H,
+                         int valid_len, float scale_log2, float out0_scale) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
   // Offsetting smem_raw itself (not an integer address) keeps the tiles'
   // loads shared-memory loads with 32-bit addresses.
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* k_res = base;
-  uint8_t* v_res = k_res + kF32ResBytes;
-  uint8_t* q_tiles = v_res + kF32ResBytes;                 // one a stage
-  uint8_t* do_tiles = q_tiles + kF32Stages * kF32TileBytes;
-  // Each stage's 64 query columns, lse log2 e then di.
-  float* cols = reinterpret_cast<float*>(do_tiles + kF32Stages * kF32TileBytes);
+  uint8_t* res0 = base;                               // K (dK/dV) or Q (dQ), 128 rows
+  uint8_t* res1 = res0 + kF32ResBytes;                // V or dO
+  uint8_t* str0 = res1 + kF32ResBytes;                // Q or K tiles, one a stage
+  uint8_t* str1 = str0 + kF32Stages * kF32TileBytes;  // dO or V tiles
+  // dK/dV: each stage's 64 query columns, lse log2 e then di.
+  float* cols = reinterpret_cast<float*>(str1 + kF32Stages * kF32TileBytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(cols + kF32Stages * 2 * kF32Tile);
   uint64_t* res_full = bars;
   uint64_t* full = bars + 1;
@@ -247,25 +141,28 @@ attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int row0 = blockIdx.x * kF32Keys;  // first resident key
+  const int row0 = blockIdx.x * kF32Rows;  // first resident row (key or query)
+  const float* lse_bh = lse + static_cast<long long>(bh) * S;
+  const float* di_bh = di + static_cast<long long>(bh) * S;
 
-  if (row0 >= valid_len) {
+  if (kKeys && row0 >= valid_len) {
     // Every key of the block is masked: dK and dV rows of zeros.
-    const int rows = min(kF32Keys, S - row0);
+    const int rows = min(kF32Rows, S - row0);
     for (int idx = threadIdx.x; idx < rows * (kDh / 4); idx += kF32Threads) {
       const long long off =
           ((static_cast<long long>(b) * S + row0 + idx / 16) * H + h) * kDh + 4 * (idx % 16);
-      *reinterpret_cast<float4*>(dk + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      *reinterpret_cast<float4*>(dv + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(out0 + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(out1 + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     return;
   }
-  const int n_tiles = (S + kF32Tile - 1) / kF32Tile;
+  // Streamed tiles: every query for dK/dV, keys < valid_len for dQ.
+  const int n_tiles = ((kKeys ? S : valid_len) + kF32Tile - 1) / kF32Tile;
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
     for (int s = 0; s < kF32Stages; ++s) {
-      mbar_init(&full[s], 33);                 // the TMA's bytes, then 32 lanes' columns
+      mbar_init(&full[s], kKeys ? 33 : 1);     // the TMA's bytes; dK/dV: 32 lanes' columns
       mbar_init(&empty[s], 32 * kF32Warps);    // every MMA thread releases it
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -273,99 +170,116 @@ attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
   __syncthreads();
 
   if (warp == kF32Warps) {
-    // The producer warp: one thread issues every TMA load; all 32 lanes
-    // write the tile's query columns, lse log2 e and di, and arrive.
-    // Queries past S have neither: their lse is +inf (P = 0) and their di
-    // 0, and nothing past S is read.
-    const float* lse_bh = lse + static_cast<long long>(bh) * S;
-    const float* di_bh = di + static_cast<long long>(bh) * S;
+    // The producer warp: one thread issues every TMA load; for dK/dV all
+    // 32 lanes write the tile's query columns, lse log2 e and di, and
+    // arrive. Queries past S have neither: their lse is +inf (P = 0) and
+    // their di 0, and nothing past S is read.
     if (lane == 0) {
       mbar_expect_tx(res_full, 2 * kF32ResBytes);
-      load_rows_f32<kF32Keys>(k_res, &k_map, k_perm, row0, h, b, res_full);
-      load_rows_f32<kF32Keys>(v_res, &v_map, v_perm, row0, h, b, res_full);
+      load_rows_f32<kF32Rows>(res0, &res0_map, res0_perm, row0, h, b, res_full);
+      load_rows_f32<kF32Rows>(res1, &res1_map, res1_perm, row0, h, b, res_full);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % kF32Stages;
       if (t >= kF32Stages) mbar_wait(&empty[st], ((t / kF32Stages) - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(&full[st], 2 * kF32TileBytes);
-        load_rows_f32<kF32Tile>(q_tiles + st * kF32TileBytes, &q_map, q_perm, t * kF32Tile, h, b,
-                                &full[st]);
-        load_rows_f32<kF32Tile>(do_tiles + st * kF32TileBytes, &do_map, do_perm, t * kF32Tile, h,
-                                b, &full[st]);
+        load_rows_f32<kF32Tile>(str0 + st * kF32TileBytes, &str0_map, str0_perm, t * kF32Tile,
+                                h, b, &full[st]);
+        load_rows_f32<kF32Tile>(str1 + st * kF32TileBytes, &str1_map, str1_perm, t * kF32Tile,
+                                h, b, &full[st]);
       }
-      float* cl = cols + st * 2 * kF32Tile;
-      for (int c = lane; c < kF32Tile; c += 32) {
-        const int qi = t * kF32Tile + c;
-        cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;
-        cl[kF32Tile + c] = qi < S ? di_bh[qi] : 0.0f;
+      if (kKeys) {
+        float* cl = cols + st * 2 * kF32Tile;
+        for (int c = lane; c < kF32Tile; c += 32) {
+          const int qi = t * kF32Tile + c;
+          cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;
+          cl[kF32Tile + c] = qi < S ? di_bh[qi] : 0.0f;
+        }
+        mbar_arrive(&full[st]);
       }
-      mbar_arrive(&full[st]);
     }
     return;
   }
 
-  // MMA warp `warp` owns keys row0 + 16 warp .. + 15; a thread holds keys
-  // r0 and r0 + 8 of the block and, in n8 block j of an accumulator, query
-  // columns 8 j + 2 (lane % 4) and the one after.
+  // MMA warp `warp` owns resident rows row0 + 16 warp .. + 15; a thread
+  // holds rows r0 and r0 + 8 of the block and, in n8 block j of an
+  // accumulator, streamed columns 8 j + 2 (lane % 4) and the one after.
   const int r0 = 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
+  // dK/dV: whether each of the thread's keys is < valid_len. dQ: each of
+  // its queries' lse log2 e and di (+inf and 0 past S, where nothing is read).
   const bool key_live[2] = {row0 + r0 < valid_len, row0 + r0 + 8 < valid_len};
-  float dk_acc[8][4], dv_acc[8][4];
+  float row_lse[2], row_di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + r0 + 8 * i;
+    row_lse[i] = (!kKeys && qi < S) ? lse_bh[qi] * kLog2e : INFINITY;
+    row_di[i] = (!kKeys && qi < S) ? di_bh[qi] : 0.0f;
+  }
+  float acc0[8][4], acc1[8][4];  // dK and dV, or dQ
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc0[j][e] = acc1[j][e] = 0.0f;
 
   mbar_wait(res_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kF32Stages;
     mbar_wait(&full[st], (t / kF32Stages) & 1);
-    const uint8_t* q_st = q_tiles + st * kF32TileBytes;
-    const uint8_t* do_st = do_tiles + st * kF32TileBytes;
-    const float* cl = cols + st * 2 * kF32Tile;  // lse log2 e, then di
+    const uint8_t* str0_st = str0 + st * kF32TileBytes;
+    const uint8_t* str1_st = str1 + st * kF32TileBytes;
+    const float* cl = cols + st * 2 * kF32Tile;  // dK/dV: lse log2 e, then di
+    // dQ: keys >= valid_len in the last key tile hold real rows; P = 0.
+    const int key_end = valid_len - t * kF32Tile;
 
-    float s[8][4], dp[8][4];  // S^T and dP^T: keys x queries
+    float s[8][4], dp[8][4];  // S^T and dP^T (keys x queries), or S and dP
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      mma_dims<kF32Tile>(s, dims_frag<kF32Keys>(k_res, r0, kk, lane % 4), q_st, kk, lane);
-      mma_dims<kF32Tile>(dp, dims_frag<kF32Keys>(v_res, r0, kk, lane % 4), do_st, kk, lane);
+      mma_dims<kF32Tile>(s, dims_frag<kF32Rows>(res0, r0, kk, lane % 4), str0_st, kk, lane);
+      mma_dims<kF32Tile>(dp, dims_frag<kF32Rows>(res1, r0, kk, lane % 4), str1_st, kk, lane);
     }
-    // P^T in f32 and dS^T = P^T (dP^T - di), by query column.
+    // P in f32 and dS = P (dP - di), by streamed column.
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + cq + (e & 1);
-        const float p =
-            key_live[e >> 1] ? exp2f(fmaf(s[j][e], scale_log2, -cl[col])) : 0.0f;
+        const bool live = kKeys ? key_live[e >> 1] : col < key_end;
+        const float p = live ? exp2f(fmaf(s[j][e], scale_log2,
+                                          kKeys ? -cl[col] : -row_lse[e >> 1]))
+                             : 0.0f;
         s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - cl[kF32Tile + col]);
+        dp[j][e] = p * (dp[j][e] - (kKeys ? cl[kF32Tile + col] : row_di[e >> 1]));
       }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      Frag pa = acc_frag(s[j]);
-      mma_rows<kF32Tile>(dv_acc, pa, do_st, j, lane);  // dV += P^T dO
-      mma_rows<kF32Tile>(dk_acc, acc_frag(dp[j]), q_st, j, lane);  // dK += dS^T Q
+      if (kKeys) {
+        Frag pa = acc_frag(s[j]);
+        mma_rows<kF32Tile>(acc1, pa, str1_st, j, lane);  // dV += P^T dO
+      }
+      Frag da = acc_frag(dp[j]);
+      mma_rows<kF32Tile>(acc0, da, str0_st, j, lane);  // dK += dS^T Q, or dQ += dS K
     }
     mbar_arrive(&empty[st]);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = row0 + r0 + 8 * i;
-    if (key >= S) continue;
-    const long long off = ((static_cast<long long>(b) * S + key) * H + h) * kDh;
+    const int row = row0 + r0 + 8 * i;
+    if (row >= S) continue;
+    const long long off = ((static_cast<long long>(b) * S + row) * H + h) * kDh;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(dk + off + 8 * j + cq) =
-          make_float2(dk_acc[j][2 * i] * dk_scale, dk_acc[j][2 * i + 1] * dk_scale);
-      *reinterpret_cast<float2*>(dv + off + 8 * j + cq) =
-          make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      *reinterpret_cast<float2*>(out0 + off + 8 * j + cq) =
+          make_float2(acc0[j][2 * i] * out0_scale, acc0[j][2 * i + 1] * out0_scale);
+      if (kKeys)
+        *reinterpret_cast<float2*>(out1 + off + 8 * j + cq) =
+            make_float2(acc1[j][2 * i], acc1[j][2 * i + 1]);
     }
   }
 }
@@ -588,19 +502,19 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
 
 // The four tensor maps of a launch (res0, res1, str0, str1): bf16 (resident
 // boxes of kTcBlock rows, streamed ones of kTcRows) or, with `f32`, the f32
-// dK/dV kernel's (kF32Keys and kF32Tile rows); false if one is misaligned
-// or refused.
+// kernels' (kF32Rows and kF32Tile rows); false if one is misaligned or
+// refused.
 struct TcMaps {
   CUtensorMap map[4];
   int perm[4];
 };
 
 bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3], int B, int S,
-                  int H, bool f32 = false) {
+                  int H, bool f32) {
   for (int i = 0; i < 4; ++i)
     if (!aligned16(ptr[i], st[i][0], st[i][1], st[i][2], f32 ? 4 : 2) ||
         !make_map(&m->map[i], &m->perm[i], ptr[i], B, S, H, st[i][0], st[i][1], st[i][2],
-                  f32 ? (i < 2 ? kF32Keys : kF32Tile) : (i < 2 ? kTcBlock : kTcRows), f32))
+                  f32 ? (i < 2 ? kF32Rows : kF32Tile) : (i < 2 ? kTcBlock : kTcRows), f32))
       return false;
   return true;
 }
@@ -622,28 +536,18 @@ int launch_tc(const TcMaps& m, const float* lse, const float* di, void* out0, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkv_f32(const TcMaps& m, const float* lse, const float* di, void* dk, void* dv,
-                   int B, int S, int H, int valid_len, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkv_f32_kernel,
+template <bool kKeys>
+int launch_f32(const TcMaps& m, const float* lse, const float* di, void* out0, void* out1,
+               int B, int S, int H, int valid_len, float out0_scale, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_f32_kernel<kKeys>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kF32Keys - 1) / kF32Keys, B * H);
+  const dim3 grid((S + kF32Rows - 1) / kF32Rows, B * H);
   // 64 ** -0.5 (exact) times log2(e): scores go straight to exp2.
-  attention_bwd_dkv_f32_kernel<<<grid, kF32Threads, kF32Smem, st>>>(
+  attention_bwd_f32_kernel<kKeys><<<grid, kF32Threads, kF32Smem, st>>>(
       m.map[0], m.map[1], m.map[2], m.map[3], m.perm[0], m.perm[1], m.perm[2], m.perm[3], lse,
-      di, static_cast<float*>(dk), static_cast<float*>(dv), S, H, valid_len, 0.125f * kLog2e,
-      0.125f /* f32 dK */);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* di, void* dq, int B, int S, int H, Strides qs, Strides ks,
-              Strides vs, Strides ds, int valid_len, cudaStream_t st) {
-  const dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  attention_bwd_dq_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, di, static_cast<float*>(dq), S, H, qs, ks, vs, ds,
-      valid_len, 0.125f);
+      di, static_cast<float*>(out0), static_cast<float*>(out1), S, H, valid_len,
+      0.125f * kLog2e, out0_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -656,7 +560,7 @@ bool bad_args(int dtype, int B, int S, int H, int dh, int valid_len) {
 
 // dtype: 0 = f32, 1 = bf16. Strides are in elements; dk, dv (and dq) are
 // contiguous (B, S, H, 64) of the operand type, lse and di f32 (B, H, S).
-// 1 <= valid_len <= S. dK/dV (both types) and bf16 dQ need 16-byte-aligned
+// 1 <= valid_len <= S. Both kernels, in both types, need 16-byte-aligned
 // base pointers and strides of q, k, v and dout (TMA). Returns
 // cudaGetLastError() (cudaErrorInvalidValue for dh != 64, an argument out
 // of range, a misaligned operand or a tensor map cuTensorMapEncodeTiled
@@ -683,7 +587,7 @@ extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v
   if (!make_tc_maps(&m, ptrs, strides, B, S, H, dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) return launch_tc<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* dK */, st);
-  return launch_dkv_f32(m, l, d, dk, dv, B, S, H, valid_len, st);
+  return launch_f32<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* f32 dK */, st);
 }
 
 extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -700,16 +604,14 @@ extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // Resident q and dout, streamed k and v.
-    const void* ptrs[4] = {q, dout, k, v};
-    const long long strides[4][3] = {
-        {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
-    TcMaps m;
-    if (!make_tc_maps(&m, ptrs, strides, B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
+  // Resident q and dout, streamed k and v.
+  const void* ptrs[4] = {q, dout, k, v};
+  const long long strides[4][3] = {
+      {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
+  TcMaps m;
+  if (!make_tc_maps(&m, ptrs, strides, B, S, H, dtype == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
     return launch_tc<false>(m, l, d, dq, nullptr, B, S, H, valid_len, 0.125f /* dQ */, st);
-  }
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      ds{do_sb, do_ss, do_sh};
-  return launch_dq(q, k, v, dout, l, d, dq, B, S, H, qs, ks, vs, ds, valid_len, st);
+  return launch_f32<false>(m, l, d, dq, nullptr, B, S, H, valid_len, 0.125f /* f32 dQ */, st);
 }

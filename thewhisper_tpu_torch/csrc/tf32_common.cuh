@@ -1,5 +1,5 @@
 // 3xTF32 building blocks of the f32 attention kernels: K2's f32 route
-// (encoder_attention.cu, with or without lse) and K2-dkv's
+// (encoder_attention.cu, with or without lse), K2-dkv's and K2-dq's
 // (encoder_attention_bwd.cu).
 //
 // f32 results on the tensor cores: each f32 operand x is split into a TF32
@@ -21,20 +21,21 @@
 // shared-memory operands K-major only), and split in registers after the
 // load. A warp owns 16 rows of a resident tile and runs two kinds of
 // product against a 64-row streamed tile T:
-//   over the 64 dims, acc (16 x 64) += A T^T (S = Q K^T; S^T = K Q^T and
-//     dP^T = V dO^T): k-step kk takes, in half kk / 4, 16-byte chunks
-//     kk % 4 and kk % 4 + 4; lane (g, t) holds the float pair 2 (t % 2) of
-//     chunk kk % 4 + 4 (t / 2) as its k = t and k = t + 4, in A (rows g and
-//     g + 8 of the warp's 16) and in B (row 8 nt + g of T). The order of
-//     the dims in a k-step is the products' own affair; this one makes the
-//     half-warp's 64-bit loads hit 32 distinct banks under the swizzle;
-//   over the 64 rows of T, acc (16 x 64) += F T (O += P V; dV += P^T dO and
-//     dK += dS^T Q): F is a 16 x 64 accumulator of the first kind (P, P^T
-//     or dS^T), whose n8 block j is k-step j's A fragment as it stands
-//     (lane (g, t) holds columns 2 t and 2 t + 1 of rows g and g + 8: its
-//     k = t and k = t + 4 are rows 8 j + 2 t and 8 j + 2 t + 1 of T); B is
-//     element (8 j + 2 t (+ 1), 8 nn + g) of T, conflict-free under the
-//     swizzle as scalar loads.
+//   over the 64 dims, acc (16 x 64) += A T^T (S = Q K^T and dP = dO V^T;
+//     S^T = K Q^T and dP^T = V dO^T): k-step kk takes, in half kk / 4,
+//     16-byte chunks kk % 4 and kk % 4 + 4; lane (g, t) holds the float
+//     pair 2 (t % 2) of chunk kk % 4 + 4 (t / 2) as its k = t and k = t + 4,
+//     in A (rows g and g + 8 of the warp's 16) and in B (row 8 nt + g of
+//     T). The order of the dims in a k-step is the products' own affair;
+//     this one makes the half-warp's 64-bit loads hit 32 distinct banks
+//     under the swizzle;
+//   over the 64 rows of T, acc (16 x 64) += F T (O += P V; dV += P^T dO,
+//     dK += dS^T Q and dQ += dS K): F is a 16 x 64 accumulator of the
+//     first kind (P, P^T, dS^T or dS), whose n8 block j is k-step j's A
+//     fragment as it stands (lane (g, t) holds columns 2 t and 2 t + 1 of
+//     rows g and g + 8: its k = t and k = t + 4 are rows 8 j + 2 t and
+//     8 j + 2 t + 1 of T); B is element (8 j + 2 t (+ 1), 8 nn + g) of T,
+//     conflict-free under the swizzle as scalar loads.
 
 #pragma once
 

@@ -18,9 +18,9 @@ log-sum-exp (:func:`encoder_attention_residuals`, the library's
 ``save_residuals`` forward) and whose backward launches
 ``csrc/encoder_attention_bwd.cu``'s dK/dV and dQ kernels
 (:func:`encoder_attention_backward`): bf16 on the tensor cores (TMA and
-wgmma), f32 dK/dV on them too (TMA and mma.sync in 3xTF32), f32 dQ on the
-CUDA cores; the same alignment rule holds for q, k, v and ``dout`` in both
-types. CPU tensors take the plain versions of all three.
+wgmma), f32 on them too (TMA and mma.sync in 3xTF32), each type one kernel
+template for dK/dV and dQ; the same alignment rule holds for q, k, v and
+``dout`` in both types. CPU tensors take the plain versions of all three.
 """
 
 from __future__ import annotations

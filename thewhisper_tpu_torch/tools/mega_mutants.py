@@ -27,7 +27,7 @@ the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the ten K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
 the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
-eighteen K2 and K2 backward mutants about 10:
+twenty K2 and K2 backward mutants about 10:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
@@ -180,24 +180,32 @@ CACHE_MUTANTS = (
 
 
 # K2-dkv and K2-dq, and K2's f32 route and lse stores (in
-# csrc/encoder_attention.cu). The f32- ones change the f32 routes (K2's and
-# K2-dkv's 3xTF32 kernels); dq-ragged and dq-scale the f32 dQ kernel (CUDA
-# cores); the tc- ones the bf16 route (TMA + wgmma), one of them in
-# csrc/tc_common.cuh.
+# csrc/encoder_attention.cu). The f32- ones change the f32 routes (K2's
+# 3xTF32 kernel and the backward's, one template for dK/dV and dQ: the
+# f32-dq- ones change only its dQ instance); the tc- ones the bf16 route
+# (TMA + wgmma), one of them in csrc/tc_common.cuh.
 ATTN_BWD_MUTANTS = (
     ("f32-dv-scale", "the f32 route's dV is stored halved",
-     "make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);",
-     "make_float2(0.5f * dv_acc[j][2 * i], 0.5f * dv_acc[j][2 * i + 1]);"),
-    ("dq-ragged", "dQ skips the last, ragged key tile",
-     "for (int t0 = 0; t0 < valid_len; t0 += kTile) {",
-     "for (int t0 = 0; t0 + kTile <= valid_len; t0 += kTile) {"),
+     "make_float2(acc1[j][2 * i], acc1[j][2 * i + 1]);",
+     "make_float2(0.5f * acc1[j][2 * i], 0.5f * acc1[j][2 * i + 1]);"),
+    ("f32-dq-keys", "the f32 dQ kernel's last key tile keeps keys >= valid_len",
+     "const bool live = kKeys ? key_live[e >> 1] : col < key_end;",
+     "const bool live = kKeys ? key_live[e >> 1] : true;"),
     ("f32-dkv-no-di", "the f32 route's dS for dK leaves out di",
-     "dp[j][e] = p * (dp[j][e] - cl[kF32Tile + col]);", "dp[j][e] = p * dp[j][e];"),
+     "dp[j][e] = p * (dp[j][e] - (kKeys ? cl[kF32Tile + col] : row_di[e >> 1]));",
+     "dp[j][e] = p * (dp[j][e] - (kKeys ? 0.0f : row_di[e >> 1]));"),
     ("f32-dkv-mask", "the f32 route gives keys at or past valid_len gradients",
      "const bool key_live[2] = {row0 + r0 < valid_len, row0 + r0 + 8 < valid_len};",
      "const bool key_live[2] = {row0 + r0 < S, row0 + r0 + 8 < S};"),
-    ("dq-scale", "dQ is not scaled by 1 / sqrt(dh)",
-     "             dqr, scale, half);", "             dqr, 1.0f, half);"),
+    ("f32-dq-scale", "the f32 dQ is stored unscaled (not times 1 / sqrt(dh))",
+     "0.125f /* f32 dQ */", "1.0f /* f32 dQ */"),
+    ("f32-dq-lo", "the f32 dQ product leaves out dS's lo term (a_lo b_hi)",
+     "Frag da = acc_frag(dp[j]);\n",
+     "Frag da = acc_frag(dp[j]);\n"
+     "      if (!kKeys) for (int e = 0; e < 4; ++e) da.lo[e] = 0u;\n"),
+    ("f32-dq-parity", "the f32 dQ kernel's MMA warps wait on a ring stage at the wrong parity",
+     "mbar_wait(&full[st], (t / kF32Stages) & 1);",
+     "mbar_wait(&full[st], ((t / kF32Stages) + !kKeys) & 1);"),
     ("f32-dkv-last-query", "the f32 route's dK and dV leave out the last query of "
      "each tile (its lse read as +inf)",
      "cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;",
