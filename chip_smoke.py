@@ -28,10 +28,21 @@ is false. Phases, each of which raises on failure:
    library attention (K2 must beat the plain attention at B = 4), and that a
    small f32 model transcribes the same on the card as on the CPU, and
    decodes the same tokens speculatively (ngram, a one-layer layer-skip
-   draft) as greedily, on the card and on the CPU. It prints the bf16
+   draft) as greedily, on the card and on the CPU, and the same tokens
+   with three beams on both. It prints the bf16
    encoder's relative L2 drift from an f32 copy with the plain attention.
+   [GRAPH] The bf16 turbo greedy loop replayed from CUDA graphs against
+   the same loop eager (``WhisperEngine(cuda_graphs=False)``), 30 s
+   windows, 64 new tokens, at batch 1 and at batch 3 (bucket 4): every
+   output field equal, bit for bit; ms a step of each route (the decode
+   alone, host clock, p50 of 5), the graph's device ms a step, each key's
+   capture time and device memory.
+   [BEAM] The same at batch 2 x 4 beams with word timestamps; the best
+   beam's sum_logprob equals the sum of its token_logprobs.
    [turbo S] Then the same model quantized as ``"int8-all"`` with int8
-   cross K/V: the 20 s WAV at batch 1, every decode step one K3 launch.
+   cross K/V (the engine warmed first): the 20 s WAV at batch 1, every
+   step call of the loop one K3 launch, replayed from its graph; then
+   [GRAPH] on that K3 route at batch 1.
    [STREAM] That engine under the streaming pipeline (featurizers built
    under ``torch.inference_mode``; 10 s windows, the
    neural VAD, cross-tick reuse on and off): 30 s of speech and
@@ -62,7 +73,11 @@ is false. Phases, each of which raises on failure:
    every depth the kernel's distance from the same function computed in f32
    at most 1.5 times the bf16 plain version's. Times of both at each, the
    kernel eager and from a CUDA graph, and the phase stamps of one L = 32
-   step (where the launch's time goes).
+   step (where the launch's time goes). The kernels line's K3 times are the
+   decode loop's route: the slot read from device memory, the
+   self-attention planned for the whole cache (equal to the host int's
+   launch, bit for bit); that route is also timed at L = 32 on a 448-slot
+   cache at positions 10 and 400 beside the host int's.
 8. [K4] The verify-window kernel against its plain version on the S model's
    operands: L = 32 with windows of 5 (cache 73), 16 (cache 84) and 1, L = 4
    and L = 1 over eight windows, K3's checks; one L = 1 window against K3
@@ -165,6 +180,7 @@ from thewhisper_tpu_torch.config import (
     SpecialTokens,
 )
 from thewhisper_tpu_torch.engine import WhisperEngine
+from thewhisper_tpu_torch.engine.decode import STEPS_PER_CHECK
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
 from thewhisper_tpu_torch.models.checkpoint import save_hf_checkpoint
 from thewhisper_tpu_torch.models.load import load_checkpoint
@@ -590,16 +606,20 @@ def encoder_drift(model, featurizer) -> None:
           f"attention, 30 s window: relative L2 {rel:.3e}", flush=True)
 
 
-def phase_turbo_s(model) -> WhisperEngine:
+def phase_turbo_s(model, smi: str) -> WhisperEngine:
     """[turbo S] The turbo model quantized in place as ``"int8-all"`` (int8
     decoder and table, W8A8 encoder), ``WhisperEngine(cross_kv_int8=True)``:
     the 20 s WAV at batch 1 with word timestamps, twice, each with K3's
-    count zeroed just before. Every decode step must be one K3 launch
-    (``mega_pays`` at batch 1 for any depth). Returns the engine."""
+    count zeroed just before (the engine warmed first, as a server warms
+    it, so no call captures). Every step call of the loop must be one K3
+    launch (``mega_pays`` at batch 1 for any depth), replayed from the
+    loop's CUDA graph. Then [GRAPH] on that engine's K3 route at batch 1:
+    graph against eager (``graph_vs_eager``). Returns the engine."""
     quantize_params(model, components=("decoder",))
     quantize_params(model, components=("encoder",), activation_int8=True)
     engine = WhisperEngine(model, cross_kv_int8=True)
     check(model.mega is not None, "the turbo S engine did not pack K3's operands")
+    engine.warmup(3000, (1,), GEN_KW["max_new_tokens"], True)
     pipe = ASRPipeline(engine, chunk_length_s=30)
     results = []
     generate = engine._generate
@@ -614,16 +634,146 @@ def phase_turbo_s(model) -> WhisperEngine:
                                      generate_kwargs=dict(GEN_KW)), tag="turbo S")
             launches = mega.MEGA_LAUNCHES
             res = results[-1]
-            steps = min(int(res.num_generated[0]), GEN_KW["max_new_tokens"] - 1)
+            steps = res.decode_steps
             check(steps > 0 and launches == steps,
-                  f"turbo S: K3 launches {launches} != {steps} decode steps")
+                  f"turbo S: K3 launches {launches} != {steps} step calls")
             check_word_chunks(r20, 20.0, ordered=True)
             check(bool(np.isfinite(res.token_logprobs).all()
                        and np.isfinite(res.align).all()), "turbo S result not finite")
             print(f"[turbo S] call {run}: {len(r20['chunks'])} words, {steps} "
-                  f"decode steps, K3 launches {launches}", flush=True)
+                  f"step calls, K3 launches {launches}", flush=True)
     engine._generate = generate
+    graph_vs_eager("GRAPH turbo S", model, 1, smi, cross_kv_int8=True)
     return engine
+
+
+RESULT_FIELDS = ("tokens", "num_generated", "sum_logprob", "token_logprobs",
+                 "no_speech_prob", "align")
+
+
+def prompt_rows(engine: WhisperEngine, rows: int) -> torch.Tensor:
+    return torch.tensor([engine.build_prompt("en")] * rows,
+                        device=engine.device)
+
+
+def loop_ms(engine: WhisperEngine, key: tuple, reps: int = 5):
+    """The decode alone: the loop of ``key``'s program (after an eager
+    prefill of the English prompt on the cross K/V its last call left),
+    host clock around ``torch.cuda.synchronize``, p50 of ``reps``, in ms a
+    step call; and the step calls a run made. Graph engines replay."""
+    prog = engine._programs[key]
+    replay = prog.graph.replay if prog.graph is not None else None
+    prompt = prompt_rows(engine, key[0])
+    times, steps = [], 0
+    with torch.inference_mode():
+        for _ in range(reps):
+            prog.loop.start(prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = prog.loop.run(STEPS_PER_CHECK, replay=replay)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+    return float(np.median(times)), steps
+
+
+def replay_ms(engine: WhisperEngine, key: tuple) -> float:
+    """Device time of one step from a replay of ``key``'s graph (CUDA
+    events around one replay of ``STEPS_PER_CHECK`` steps; the loop's state
+    as its last run left it, so every step does a step's work and writes
+    nothing)."""
+    graph = engine._programs[key].graph
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * STEPS_PER_CHECK)
+
+
+def graph_vs_eager(tag: str, model, batch: int, smi: str, beams: int = 1,
+                   cross_kv_int8: bool = False) -> dict:
+    """One engine with CUDA graphs, warmed for 30 s windows at ``batch``
+    (``WhisperEngine.warmup``), and one without on the same model; then one
+    call each on the same ``batch`` x 30 s of audio, 64 new tokens, word
+    timestamps: every output field must be equal, bit for bit. Prints each
+    route's ms a step (``loop_ms``), the graph's device ms a step
+    (``replay_ms``) and the key's capture time and device memory; on the
+    K3 route, K3's launches in each engine's call must equal the step
+    calls its loop ran (``tools/decode_step_probe.py`` profiles the
+    replayed steps). Returns the numbers."""
+    kw = dict(cross_kv_int8=cross_kv_int8)
+    engines = {"graph": WhisperEngine(model, **kw),
+               "eager": WhisperEngine(model, cuda_graphs=False, **kw)}
+    feat = LogMelFeaturizer(n_mels=model.arch.n_mels, device=model.device)
+    mel = feat([synth_audio(30, seed=90 + i) for i in range(batch)])
+    opts = GenerationOptions(language="en", max_new_tokens=64, num_beams=beams,
+                             return_timestamps=True)
+    results, out = {}, {}
+    # The graph engine warmed, so that its call captures nothing (the
+    # capture's warm-up step launches K3 eagerly); the eager one needs none.
+    engines["graph"].warmup(3000, (batch,), 64, True, num_beams=beams)
+    for name, engine in engines.items():
+        mega.MEGA_LAUNCHES = 0
+        results[name] = engine.transcribe_features(mel, opts)
+        out[f"{name}_k3"] = mega.MEGA_LAUNCHES
+    g, e = results["graph"], results["eager"]
+    for field in RESULT_FIELDS:
+        check(np.array_equal(getattr(g, field), getattr(e, field)),
+              f"{tag}: graph and eager {field} differ")
+    check(bool(np.isfinite(g.token_logprobs).all() and np.isfinite(g.align).all()),
+          f"{tag}: result not finite")
+    (key, prog), = [(p["key"], p) for p in engines["graph"].programs()]
+    check(prog["graph"], f"{tag}: no graph captured")
+    if engines["graph"].model.mega is not None and batch * beams == 1:
+        # The eager loop stops at max_new - 1 step calls; the graph runs
+        # whole replays of STEPS_PER_CHECK.
+        check(out["graph_k3"] == g.decode_steps
+              and out["eager_k3"] == e.decode_steps,
+              f"{tag}: K3 launches {out['graph_k3']} (graph) / "
+              f"{out['eager_k3']} (eager) != step calls {g.decode_steps} / "
+              f"{e.decode_steps}")
+    for name, engine in engines.items():
+        out[f"{name}_ms"], out["steps"] = loop_ms(engine, key)
+    out["device_ms"] = replay_ms(engines["graph"], key)
+    out["capture_s"], out["bytes"] = prog["seconds"], prog["bytes"]
+    out["result"] = g
+    print(f"[{tag}] key {key}: graph == eager (tokens, num_generated, "
+          f"sum_logprob, token_logprobs, no_speech_prob, align), "
+          f"{int(g.num_generated.min())}-{int(g.num_generated.max())} tokens, "
+          f"{g.decode_steps} step calls; decode alone (host clock, p50 of 5) "
+          f"{out['graph_ms']:.4f} ms a step from the graph, "
+          f"{out['eager_ms']:.4f} eager ({out['eager_ms'] / out['graph_ms']:.2f}x); "
+          f"device {out['device_ms']:.4f} ms a step (graph replay); capture "
+          f"{out['capture_s']:.3f} s, {out['bytes'] / 2 ** 20:.1f} MiB for the "
+          f"key (buffers and graph pool); {smi}", flush=True)
+    return out
+
+
+def phase_graph(model, smi: str) -> dict:
+    """[GRAPH] bf16 large-v3-turbo at full width, 30 s windows, 64 new
+    tokens: the greedy loop from CUDA graphs against the same loop eager
+    (``graph_vs_eager``) at batch 1 and at batch 3 (padded to bucket 4)."""
+    return {b: graph_vs_eager("GRAPH", model, b, smi) for b in (1, 3)}
+
+
+def phase_beam(model, smi: str) -> dict:
+    """[BEAM] bf16 large-v3-turbo, batch 2 x 4 beams, word timestamps: the
+    beam loop from CUDA graphs against the same loop eager, bit for bit;
+    the best beam's sum_logprob equals the sum of its token_logprobs to
+    1e-4 relative."""
+    out = graph_vs_eager("BEAM", model, 2, smi, beams=4)
+    res = out["result"]
+    total = res.token_logprobs.astype(np.float64).sum(-1)
+    gap = np.abs(total - res.sum_logprob) / np.maximum(1.0, np.abs(res.sum_logprob))
+    check(float(gap.max()) <= 1e-4, f"BEAM: best beams' sum_logprob "
+          f"{res.sum_logprob} against their token_logprobs' sums {total}")
+    print(f"[BEAM] best beams' sum_logprob {res.sum_logprob.tolist()}, their "
+          f"token_logprobs summed within {float(gap.max()):.2e} (relative)",
+          flush=True)
+    return out
 
 
 def percentiles(ms) -> str:
@@ -683,6 +833,11 @@ def phase_stream(engine: WhisperEngine, smi: str) -> None:
                   f"{sorted(times)[2]:.2f} ms; {smi}", flush=True)
     check(logmel.LOGMEL_LAUNCHES == k1_before + 4,
           "the featurizers built in inference mode did not run K1")
+    # The greedy ticks' programs (CUDA graphs) made before the sessions, as
+    # a server makes them: no tick captures, so a tick's K3 launches are the
+    # step calls its loop ran.
+    for max_new in (GEN_KW["max_new_tokens"], WORD_TOKENS):
+        engine.warmup(1000, (1,), max_new, True)
     for reuse in (True, False):
         stream_session(engine, reuse, smi, GEN_KW["max_new_tokens"])
     stream_session(engine, True, smi, WORD_TOKENS)
@@ -747,11 +902,11 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
         res = t["res"]
         check(bool(np.isfinite(res.token_logprobs).all()
                    and np.isfinite(res.align).all()), f"tick {i} not finite")
-        steps = min(int(res.num_generated[0]), max_new - 1)
+        steps = res.decode_steps
         greedy = res.spec_rounds is None
         check(greedy or reuse, f"{tag}, tick {i} decoded speculatively")
         check(t["k3"] == (steps if greedy else 0),
-              f"{tag}, tick {i}: K3 launches {t['k3']}, {steps} steps, "
+              f"{tag}, tick {i}: K3 launches {t['k3']}, {steps} step calls, "
               f"greedy {greedy}")
     check(ticks[0]["res"].spec_rounds is None and ticks[0]["k3"] > 0,
           "the first tick did not decode through K3")
@@ -965,7 +1120,9 @@ def phase_small_reference() -> None:
     padded = np.zeros((1, 30 * SAMPLE_RATE), np.float32)
     padded[0, :len(audio)] = audio
     opts = GenerationOptions(language="en", max_new_tokens=32)
-    outs, tokens = [], []
+    beam_opts = GenerationOptions(language="en", max_new_tokens=32,
+                                  num_beams=3, return_timestamps=True)
+    outs, tokens, beams = [], [], []
     for model in (cpu_model, gpu_model):
         pipe = ASRPipeline(WhisperEngine(model), chunk_length_s=30)
         outs.append(pipe(audio, return_timestamps="word",
@@ -977,7 +1134,11 @@ def phase_small_reference() -> None:
                            model, 1))):
             res = engine.transcribe_audio(padded, opts)
             tokens.append((res.tokens, res.spec_rounds))
+        beams.append(pipe.engine.transcribe_audio(padded, beam_opts))
     check(outs[0] == outs[1], "small f32 model: card and CPU transcripts differ")
+    check(np.array_equal(beams[0].tokens, beams[1].tokens)
+          and np.array_equal(beams[0].num_generated, beams[1].num_generated),
+          "small f32 model: card and CPU beam tokens differ")
     check(all(np.array_equal(t, tokens[0][0]) for t, _ in tokens),
           "small f32 model: speculative and greedy tokens differ")
     check(all((r is None) == (i % 3 == 0) for i, (_, r) in enumerate(tokens)),
@@ -985,7 +1146,8 @@ def phase_small_reference() -> None:
     print(f"[ref] small f32 model, 20 s: card == CPU ({len(outs[1]['chunks'])} "
           "words, identical text and word timestamps); greedy, ngram and "
           "layer-skip:1 tokens identical on both (verify rounds "
-          f"{[r for _, r in tokens if r is not None]})", flush=True)
+          f"{[r for _, r in tokens if r is not None]}); 3 beams: card == CPU "
+          f"tokens ({int(beams[1].num_generated[0])} generated)", flush=True)
 
 
 def phase_s_path():
@@ -1041,6 +1203,10 @@ def phase_s_path():
         return res
 
     engine._generate = recording
+    # Made before the counts are zeroed, as a server makes them: the
+    # batch-1 call then replays its CUDA graph without capturing.
+    engine.warmup(3000, (1,), GEN_KW["max_new_tokens"], True)
+    results.clear()
     batch = [synth_audio(s, seed=20 + i) for i, s in enumerate((4, 9, 17, 30))]
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         wav20 = Path(tmp) / "speech20.wav"
@@ -1061,10 +1227,10 @@ def phase_s_path():
     print(f"[S] kernel launches on the S path: {launches}", flush=True)
     check([r.tokens.shape[0] for r in results] == [1, 4],
           f"engine calls {[r.tokens.shape for r in results]}")
-    # Greedy feeds token i back as step i, 1 <= i < max_new, until EOT.
-    steps = min(int(results[0].num_generated[0]), GEN_KW["max_new_tokens"] - 1)
+    # One K3 launch a step call of the loop (replayed from its graph).
+    steps = results[0].decode_steps
     check(steps > 0 and k3_batch1 == steps,
-          f"K3 launches {k3_batch1} != {steps} decode steps of the bs=1 call")
+          f"K3 launches {k3_batch1} != {steps} step calls of the bs=1 call")
     check(launches["mega_step"] == k3_batch1, "K3 launched at batch 4")
     check(launches["logmel"] == 2, f"K1 launches {launches['logmel']} != 2")
     check(launches["encoder_attention"] == 2 * arch.encoder_layers,
@@ -1282,14 +1448,71 @@ def phase_mega(model, encs) -> dict:
                 mega.mega_step(mp_l, x, pos, caches[0], arch_l, stamps=stamps)
                 torch.cuda.synchronize()
                 stamp_table("K3 L=32 S=68", stamps, depth)
-                main = {"max_abs_err": err, "ms": ms, "graph_ms": dev_ms,
+                # The decode loop's route: the slot read from device memory,
+                # the self-attention planned for the whole cache.
+                slot = torch.tensor([pos], dtype=torch.int32, device=dev)
+                copies = [DecodeCache(base.self_k.clone(), base.self_v.clone(),
+                                      ck_l, cv_l) for _ in range(2)]
+                lh, _ = mega.mega_step(mp_l, x, pos, copies[0], arch_l)
+                ld, _ = mega.mega_step(mp_l, x, slot, copies[1], arch_l)
+                check(torch.equal(lh, ld) and torch.equal(copies[0].self_k,
+                                                          copies[1].self_k),
+                      "K3 with a device slot differs from K3 at the host int")
+                route = lambda: mega.mega_step(  # noqa: E731
+                    mp_l, x, slot, caches[0], arch_l, check=False)
+                ms_dev, graph_dev = cuda_ms(route), graph_ms(route)
+                mega.raise_position_errors(dev)
+                print(f"[K3] {where:>18}: device slot pos={pos}, planned for "
+                      f"{s_len} slots: {ms_dev:.4f} ms eager, {graph_dev:.4f} "
+                      f"ms on the device (CUDA graph); equal to the host int's "
+                      f"bits", flush=True)
+                main = {"max_abs_err": err, "ms": ms_dev, "graph_ms": graph_dev,
+                        "host_int_ms": ms, "host_int_graph_ms": dev_ms,
                         "plain_ms": plain_ms,
                         **step_bound(mp_l, ck_l, cv_l, caches[0], pos, 1),
                         "library_ms": None}
+        main.update(k3_long_cache(model, mp, cross[30], g))
     print(f"[K3] bound at L=32 S=68 {main['bound_ms']:.4f} ms ({main['bound_by']}); "
           f"eager {main['ms'] / main['bound_ms']:.2f}x, device "
           f"{main['graph_ms'] / main['bound_ms']:.2f}x of it", flush=True)
     return main
+
+
+def k3_long_cache(model, mp, cross, g) -> dict:
+    """K3 at L = 32 on a 448-slot cache (``max_target_positions``), T = 1500:
+    the slot read from device memory with the self-attention planned for
+    all 448 slots (as a captured step plans it) against the host int
+    planned for pos + 1, at pos 10 and 400; eager and from a CUDA graph,
+    equal bits."""
+    arch, dev = model.arch, model.device
+    base = make_cache(arch, 1, 448, *cross, dtype=torch.bfloat16)
+    for t in (base.self_k, base.self_v):
+        t.copy_(0.5 * torch.randn(t.shape, generator=g, device=dev))
+    out = {}
+    for pos in (10, 400):
+        x = embed_tokens(model, torch.tensor([[100 + pos]], device=dev),
+                         pos)[:, 0]
+        slot = torch.tensor([pos], dtype=torch.int32, device=dev)
+        caches = [DecodeCache(base.self_k.clone(), base.self_v.clone(),
+                              *cross) for _ in range(2)]
+        lh, _ = mega.mega_step(mp, x, pos, caches[0], arch)
+        ld, _ = mega.mega_step(mp, x, slot, caches[1], arch)
+        check(torch.equal(lh, ld), f"K3 at S=448 pos={pos}: device slot "
+              "and host int differ")
+        times = {}
+        for name, fn in (("host", lambda: mega.mega_step(
+                mp, x, pos, caches[0], arch)), ("device", lambda: mega.mega_step(
+                mp, x, slot, caches[1], arch, check=False))):
+            times[name] = (cuda_ms(fn), graph_ms(fn))
+        mega.raise_position_errors(dev)
+        print(f"[K3] L=32 S=448 pos={pos}: device slot planned for 448 slots "
+              f"{times['device'][0]:.4f} ms eager, {times['device'][1]:.4f} "
+              f"on the device; host int planned for {pos + 1} "
+              f"{times['host'][0]:.4f} / {times['host'][1]:.4f}", flush=True)
+        out[f"s448_pos{pos}_ms"] = times["device"][0]
+        out[f"s448_pos{pos}_graph_ms"] = times["device"][1]
+        out[f"s448_pos{pos}_host_int_ms"] = times["host"][0]
+    return out
 
 
 def step_bound(mp, ck, cv, cache, pos: int, rows: int) -> dict:
@@ -2330,7 +2553,10 @@ def main() -> None:
     k1 = phase_logmel()
     k2 = phase_attention()
     launches, turbo = phase_main_path()
-    turbo_s = phase_turbo_s(turbo)
+    phase_graph(turbo, smi)
+    phase_beam(turbo, smi)
+    torch.cuda.empty_cache()
+    turbo_s = phase_turbo_s(turbo, smi)
     phase_stream(turbo_s, smi)
     phase_server(turbo_s, smi)
     del turbo, turbo_s

@@ -596,6 +596,114 @@ def test_mega_verify_kernel_rejects_bad_input(cuda_device):
                                                   device=cuda_device), 5, cache)
 
 
+@pytest.mark.parametrize("slots,pos,w", [(448, 9, 1), (448, 150, 1), (60, 59, 1),
+                                         (448, 140, 5), (60, 0, 16)])
+def test_mega_device_position_matches_host_plan(cuda_device, slots, pos, w):
+    """K3 (W = 1) and K4 with the slot read from device memory and the
+    self-attention planned for the whole cache (chunks past pos + W
+    neutral) give the bits of the launch planned at pos + W from a host
+    int, cache included, and the plain version's bounds."""
+    model, cache = _k3_case(cuda_device, slots)
+    mp = model.mega
+    tokens = torch.arange(17, 17 + w, device=cuda_device)[None]
+    x = tw.embed_tokens_at(model, tokens,
+                           torch.full((1,), pos, device=cuda_device))[0]
+    copies = [tw.DecodeCache(cache.self_k.clone(), cache.self_v.clone(),
+                             cache.cross_k, cache.cross_v) for _ in range(3)]
+    slot = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+    if w == 1:
+        lh, ah = tm.mega_step(mp, x, pos, copies[0], K3_ARCH)
+        ld, ad = tm.mega_step(mp, x, slot, copies[1], K3_ARCH)
+        lp, ap = tm.mega_step_plain(mp, x, pos, copies[2], K3_ARCH)
+        assert torch.equal(ah, ad)
+        assert (ad - ap).abs().max().item() < 2e-3
+    else:
+        lh = tm.mega_verify(mp, x, pos, copies[0], K3_ARCH)
+        ld = tm.mega_verify(mp, x, slot, copies[1], K3_ARCH)
+        lp = tm.mega_verify_plain(mp, x, pos, copies[2], K3_ARCH)
+    torch.cuda.synchronize()
+    assert torch.equal(lh, ld)
+    assert torch.equal(copies[0].self_k, copies[1].self_k)
+    assert torch.equal(copies[0].self_v, copies[1].self_v)
+    assert _rel(ld, lp) < 2e-2
+
+
+def test_mega_device_position_outside_its_bound_sets_the_error(cuda_device):
+    """A device slot with pos + W past the bound the launch was planned for
+    (the cache's length) or below 0 writes nothing and sets the error word:
+    an eager launch raises; with ``check=False`` the word waits for
+    ``raise_position_errors``, which clears it."""
+    model, cache = _k3_case(cuda_device, 60)
+    mp = model.mega
+    x = tw.embed_tokens(model, torch.arange(17, 20, device=cuda_device)[None],
+                        0)[0]
+    before = (cache.self_k.clone(), cache.self_v.clone())
+
+    def slot(pos):
+        return torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+
+    with pytest.raises(ValueError, match="outside the bound"):
+        tm.mega_step(mp, x[:1], slot(60), cache, K3_ARCH)
+    tm.mega_verify(mp, x, slot(58), cache, K3_ARCH, check=False)
+    with pytest.raises(ValueError, match="outside the bound"):
+        tm.raise_position_errors(cuda_device)
+    tm.raise_position_errors(cuda_device)
+    with pytest.raises(ValueError, match="outside the bound"):
+        tm.mega_step(mp, x[:1], slot(-1), cache, K3_ARCH)
+    assert torch.equal(cache.self_k, before[0])
+    assert torch.equal(cache.self_v, before[1])
+    ok, _ = tm.mega_step(mp, x[:1], slot(59), cache, K3_ARCH)
+    assert torch.isfinite(ok).all()
+    ok = tm.mega_verify(mp, x, slot(57), cache, K3_ARCH)
+    assert torch.isfinite(ok).all()
+
+
+@pytest.mark.parametrize("route", ["k3", "plain"])
+def test_captured_greedy_steps_replay_the_eager_steps(cuda_device, route):
+    """A run of four greedy steps captured as a CUDA graph
+    (``engine.graphs.StepGraph``) and replayed from the loop's device state
+    gives, bit for bit, what the same loop's eager steps give: tokens,
+    logprobs, alignment and the cache; through K3 (batch 1, bf16, packed:
+    each replay counts its four K3 launches) and through the plain bf16
+    step."""
+    from thewhisper_tpu_torch.engine.decode import GreedyLoop
+    from thewhisper_tpu_torch.engine.graphs import StepGraph
+
+    model, cache = _k3_case(cuda_device, 4 + 13)
+    if route == "plain":
+        model.mega = None
+    prompt = torch.tensor([[1, 2, 3, 4]], device=cuda_device)
+    results = []
+    for graphed in (False, True):
+        fresh = tw.make_cache(K3_ARCH, 1, 4 + 13, cache.cross_k, cache.cross_v,
+                              dtype=torch.bfloat16)
+        loop = GreedyLoop(model, fresh, 4, 13, -1, capture_alignment=True)
+        assert loop.mega == (route == "k3")
+        replay = None
+        if graphed:
+            loop.park()
+            graph = StepGraph(lambda: loop.steps(4), lambda: loop.steps(1),
+                              cuda_device)
+            assert graph.launches == (4 if route == "k3" else 0)
+            replay = graph.replay
+        before = tm.MEGA_LAUNCHES
+        loop.start(prompt)
+        steps = loop.run(4, replay=replay)
+        torch.cuda.synchronize()
+        assert steps == 12
+        if route == "k3":
+            assert tm.MEGA_LAUNCHES - before == 12
+        # Slots 4 .. 15 the twelve steps wrote (the graph's warm-up step
+        # wrote the parked slot 16).
+        results.append((loop.result(), fresh.self_k[:, :, :, :16].clone(),
+                        fresh.self_v[:, :, :, :16].clone()))
+    (a, ak, av), (b, bk, bv) = results
+    for name in ("tokens", "num_generated", "sum_logprob", "align",
+                 "token_logprobs", "no_speech_prob"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert torch.equal(ak, bk) and torch.equal(av, bv)
+
+
 def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 

@@ -409,18 +409,46 @@ def test_entry_point_serves_the_tiny_checkpoint_on_cpu(tiny_ckpt, monkeypatch):
 
 
 def test_warm_up_runs_every_batch_size_of_a_full_window():
+    """Every batch size 1 to ``max_batch`` is warmed through the bucket it
+    pads to (``engine.warmup`` at the pipeline's window, word timestamps),
+    then one full rolling window runs the rest of the path."""
+    from types import SimpleNamespace
+
     from thewhisper_tpu_torch.server.launch import warm_up
 
-    for max_batch in (3, 8):
+    for max_batch, buckets in ((3, [1, 2, 4]), (8, [1, 2, 4, 8])):
         pipe = FakePipeline()
-        calls = []
+        calls, warmed = [], []
         pipe.transcribe_batch = lambda audios, **kw: calls.append(
             ([len(a) for a in audios], kw))
+        pipe.featurizer = SimpleNamespace(num_mel_frames=lambda: 1000)
+        pipe.engine = SimpleNamespace(
+            batch_buckets=(1, 2, 4, 8, 16, 32, 64),
+            warmup=lambda *a, **kw: warmed.append((a, kw)))
         warm_up(pipe, 10, max_new_tokens=64, max_batch=max_batch)
-        assert calls == [([9 * 16000] * n, {
+        assert warmed == [((1000,), {"batches": buckets, "max_new_tokens": 64,
+                                     "timestamps": True})]
+        assert calls == [([9 * 16000], {
             "return_timestamps": "word",
-            "generate_kwargs": {"max_new_tokens": 64, "language": "en"}})
-            for n in range(1, max_batch + 1)]
+            "generate_kwargs": {"max_new_tokens": 64, "language": "en"}})]
+
+
+def test_warm_up_makes_each_bucket_program_on_the_tiny_checkpoint(tiny_ckpt):
+    """On the CPU the warm-up makes one decode program a bucket (the keys
+    of JAX's compile cache) and no request of those shapes makes another."""
+    from thewhisper_tpu_torch.pipeline import ASRPipeline
+    from thewhisper_tpu_torch.server.launch import warm_up
+
+    asr = ASRPipeline(tiny_ckpt, chunk_length_s=10, device="cpu",
+                      compute_dtype=torch.float32)
+    warm_up(asr, 10, max_new_tokens=3, max_batch=3)
+    keys = [p["key"] for p in asr.engine.programs()]
+    frames = asr.featurizer.num_mel_frames()
+    assert sorted(keys) == [(b, frames, 4, 3, True, 1) for b in (1, 2, 4)]
+    assert not any(p["graph"] for p in asr.engine.programs())
+    asr.transcribe_batch([np.zeros(16000, np.float32)] * 3,
+                         generate_kwargs={"max_new_tokens": 3, "language": "en"})
+    assert len(asr.engine.programs()) == 3
 
 
 def test_served_sessions_on_the_tiny_checkpoint(tiny_ckpt):

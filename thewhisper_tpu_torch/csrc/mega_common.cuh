@@ -104,6 +104,15 @@ namespace engine {
 //   only the blocks that hold their head's rows measured slower (1.86
 //   against 1.67 ms a step in two runs on H100 80GB HBM3, 700 W: each
 //   release fence cost about what the skew it skipped did).
+// - The window's first cache slot `pos` is read from device memory, as the
+//   TPU kernel reads it from SMEM: a CUDA graph of a launch replays it at
+//   whatever slot the device holds. Each phase that needs it loads it
+//   (`window_pos`). The self-attention chunks
+//   and the scratch are planned on the host for a bound on pos + W (pos + W
+//   itself for a host int, the cache's length for a device slot, as a
+//   captured launch needs); chunks past pos + W are
+//   neutral. A pos outside [0, bound - W] sets the error word and the launch
+//   does nothing else.
 // - With `stamps` given, thread 0 of block 0 and of the last block record
 //   %globaltimer at every phase's start, barrier arrival and leaving, and
 //   what of the phase its product, its waits for the ring and its product
@@ -147,7 +156,9 @@ struct Args {
   unsigned int* bar;                                        // (1) arrivals
   unsigned int* done;                                       // (L, 2, H) items done
   unsigned long long* stamps;                               // (2, phases, 3) or null
-  int L, D, F, H, V, S, T, A, W, pos, capture, phases;
+  const int* pos;                                           // (1) first slot, device
+  int* err;                                                 // (1) set on a bad pos
+  int L, D, F, H, V, S, T, A, W, bound, capture, phases;
   int sc, sn, cc, cn;     // self / cross chunk length and chunks a head
   int stages, pitch;      // ring stages; bf16 elements a row of act
 };
@@ -395,6 +406,17 @@ struct EpiIn {
   const bf16* resid;
 };
 
+// The window's first cache slot, from device memory: each phase that needs
+// it loads it again. The load is volatile, so that the compiler neither
+// hoists it nor keeps it in a register across the phases (kept there, it
+// made the kernel spill 16 bytes; this way it spills 4, against the host
+// int's none).
+__device__ __forceinline__ int window_pos(const Args& p) {
+  int pos;
+  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(pos) : "l"(p.pos));
+  return pos;
+}
+
 // What a gemm's epilogue does with y = sum * scale + bias of row r, window
 // row n: the qkv rows (k and v also into cache slot pos + n of layer l),
 // the residual add, the cross query (extra = the K scale), fc1's GELU, the
@@ -411,7 +433,8 @@ __device__ __forceinline__ void epilogue(const Args& p, int kind, int l, int r, 
       if (r >= D) {
         const int c = r >= 2 * D ? r - 2 * D : r - D;
         bf16* cache = r >= 2 * D ? p.self_v : p.self_k;
-        cache[((static_cast<size_t>(l) * p.H + c / kDh) * p.S + p.pos + n) * kDh + c % kDh] = v;
+        const int pos = window_pos(p);
+        cache[((static_cast<size_t>(l) * p.H + c / kDh) * p.S + pos + n) * kDh + c % kDh] = v;
       }
       break;
     }
@@ -723,9 +746,13 @@ __device__ __forceinline__ void write_att(const Args& p, int w, int h, int d, fl
 // Self-attention of layer l over (head, slot-chunk) items: window row w sees
 // slots [0, pos + w]. Slots below pos come from earlier launches, the
 // window's from this launch's qkv phase (read from L2). The queries and the
-// chunk's V rows come in one round of loads, the K rows in a second.
+// chunk's V rows come in one round of loads, the K rows in a second. The
+// chunks are planned for the host's bound on pos + W, so those that start
+// at or past pos + W hold no slot a row sees: with ns <= 0 every loop below
+// is empty and the chunk's partial comes out neutral (max -inf, sum 0, o
+// 0), which the combine skips.
 __device__ void self_attention(const Args& p, int l, float* u, int* flag) {
-  const int W = p.W, H = p.H, pos = p.pos, D = p.D;
+  const int W = p.W, H = p.H, pos = window_pos(p), D = p.D;
   uint4* vsm = reinterpret_cast<uint4*>(u);            // (sc, 64) bf16
   float* mz = u + 32 * p.sc;                            // (kMaxW, 2)
   float* qs = mz + 2 * kMaxW;                           // (W, 64)
@@ -941,6 +968,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1) mega_kernel(Args p) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  // The window's first slot, from device memory (a CUDA graph replays the
+  // launch at whatever slot the device holds then). Outside [0, bound - W]
+  // (the host planned the chunks and the scratch for pos + W <= bound <= S)
+  // every thread of every block leaves before any read or write, and the
+  // wrapper finds the error word set. The phases that need it read it
+  // again (`window_pos`).
+  const int pos = window_pos(p);
+  if (pos < 0 || pos > p.bound - p.W) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicExch(p.err, 1);
+    return;
+  }
   if (threadIdx.x >= kConsumers) {
     produce(p, ring);
     return;
@@ -1068,7 +1106,7 @@ inline int ring_launch(const void* kernel, size_t* opened, Args& p, int NT, void
 // K3/K4: one launch of mega_kernel<NT>.
 template <int NT>
 int launch(Args p, size_t work_size, int device, cudaStream_t stream) {
-  if (p.sc < 1 || p.sc > kMaxChunk || static_cast<long long>(p.sc) * p.sn < p.pos + p.W ||
+  if (p.sc < 1 || p.sc > kMaxChunk || static_cast<long long>(p.sc) * p.sn < p.bound ||
       p.cc < 1 || p.cc > kMaxChunk || static_cast<long long>(p.cc) * p.cn < p.T ||
       work_size < work_bytes(p.L, p.W, p.D, p.F, p.H, p.sn, p.cn, p.A, p.T))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1114,10 +1152,10 @@ inline void bind(Args& p, const void* const* w16, void* x, void* work) {
 }
 
 // What both entry points refuse: D == 64 H, D and F multiples of 128,
-// 1 <= W <= kMaxW, a window inside the cache.
-inline bool shapes_ok(int L, int D, int F, int H, int V, int S, int T, int W, int pos) {
+// 1 <= W <= kMaxW, a bound on the window's end inside the cache.
+inline bool shapes_ok(int L, int D, int F, int H, int V, int S, int T, int W, int bound) {
   return L >= 1 && D == H * kDh && D % 128 == 0 && F % 128 == 0 && V >= 1 && T >= 1 && W >= 1 &&
-         W <= kMaxW && pos >= 0 && pos + W <= S;
+         W <= kMaxW && bound >= W && bound <= S;
 }
 
 }  // namespace engine

@@ -4,7 +4,8 @@
 // the Pallas TPU megakernel that the JAX package's greedy loop calls for
 // every token of a bs=1 bf16 engine with int8 weights and int8 cross K/V.
 // For each of L layers: LN1, the fused int8 qkv product (k and v also go to
-// self-cache slot `pos`), self-attention over slots [0, pos] (the fresh
+// self-cache slot `pos`, read from device memory as the TPU kernel reads it
+// from SMEM), self-attention over slots [0, pos] (the fresh
 // token's k/v from this launch), the int8 out-projection, LN, the int8
 // cross query, cross-attention over the int8 K/V with its scales folded
 // (the K scale into the query, the V scale into the output) and the
@@ -25,27 +26,31 @@ using namespace engine;
 // Pointers are device pointers of contiguous tensors (shapes in Args); `x`
 // (D) bf16 is the embedded token, updated in place; `work` holds
 // `work_size` bytes, at least work_bytes(L, 1, ...), the counters first
-// (zeroed by the launch); `stamps` null or (2, 8 L + 1, 3) u64. (sc, sn) and (cc, cn) are
-// the self and cross chunk lengths and counts (ops/mega_step.py::
-// attention_chunks). Needs D == 64 H, D and F multiples of 128, 0 <= pos <
-// S. Returns the CUDA error of the launch (cudaErrorInvalidValue for shapes
-// or chunks it does not take).
+// (zeroed by the launch); `stamps` null or (2, 8 L + 1, 3) u64; `pos` one
+// int32, the cache slot, read by the kernel; `pos_error` one int32 that the
+// kernel sets to 1 (and does nothing else) when pos is outside [0, bound).
+// (sc, sn) and (cc, cn) are the self and cross chunk lengths and counts
+// (ops/mega_step.py::attention_chunks), sc sn >= bound. Needs D == 64 H, D
+// and F multiples of 128, 1 <= bound <= S. Returns the CUDA error of the
+// launch (cudaErrorInvalidValue for shapes or chunks it does not take).
 extern "C" int twt_mega_step(const void* qkv_w, const void* o_w, const void* cq_w,
                              const void* co_w, const void* fc1_w, const void* fc2_w,
                              const void* smalls, const void* lnp, const void* emb_q,
                              const void* emb_s, void* self_k, void* self_v, const void* cross_k,
                              const void* cross_v, const void* cross_ks, const void* cross_vs,
                              const void* heads, void* x, void* work, long long work_size,
-                             void* logits, void* align, void* stamps, int L, int D,
-                             int F, int H, int V, int S, int T, int A, int pos, int capture,
-                             int sc, int sn, int cc, int cn, int device, void* stream) {
-  if (!shapes_ok(L, D, F, H, V, S, T, 1, pos) || A < 0 || work_size < 0)
+                             void* logits, void* align, void* stamps, const void* pos,
+                             void* pos_error, int L, int D, int F, int H, int V, int S, int T,
+                             int A, int bound, int capture, int sc, int sn, int cc, int cn,
+                             int device, void* stream) {
+  if (!shapes_ok(L, D, F, H, V, S, T, 1, bound) || A < 0 || work_size < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args p = {};
   p.L = L; p.D = D; p.F = F; p.H = H; p.V = V; p.S = S; p.T = T; p.A = A; p.W = 1;
-  p.pos = pos; p.capture = capture && A > 0; p.sc = sc; p.sn = sn; p.cc = cc; p.cn = cn;
+  p.pos = static_cast<const int*>(pos); p.err = static_cast<int*>(pos_error); p.bound = bound;
+  p.capture = capture && A > 0; p.sc = sc; p.sn = sn; p.cc = cc; p.cn = cn;
   const void* w16[16] = {qkv_w, o_w, cq_w, co_w, fc1_w, fc2_w, smalls, lnp, emb_q, emb_s,
                          self_k, self_v, cross_k, cross_v, cross_ks, cross_vs};
   bind(p, w16, x, work);

@@ -31,25 +31,27 @@ using namespace engine;
 // Pointers are device pointers of contiguous tensors (shapes in Args); `x`
 // is the embedded window (W, D) bf16, updated in place; `work` holds
 // `work_size` bytes, at least work_bytes(L, W, ...), the counters first;
-// `stamps` null or (2, 8 L + 1, 3) u64; the chunks as for twt_mega_step.
-// Needs D == 64 H, D and F multiples of 128, 1 <= W <= 16, 0 <= pos,
-// pos + W <= S. Returns the CUDA error of the launch.
+// `stamps` null or (2, 8 L + 1, 3) u64; `pos` and `pos_error` as for
+// twt_mega_step (pos + W <= bound); the chunks as for twt_mega_step. Needs
+// D == 64 H, D and F multiples of 128, 1 <= W <= 16, W <= bound <= S.
+// Returns the CUDA error of the launch.
 extern "C" int twt_mega_verify(const void* qkv_w, const void* o_w, const void* cq_w,
                                const void* co_w, const void* fc1_w, const void* fc2_w,
                                const void* smalls, const void* lnp, const void* emb_q,
                                const void* emb_s, void* self_k, void* self_v, const void* cross_k,
                                const void* cross_v, const void* cross_ks, const void* cross_vs,
                                void* x, void* work, long long work_size, void* logits,
-                               void* stamps, int L, int D, int F, int H, int V,
-                               int S, int T, int W, int pos, int sc, int sn, int cc, int cn,
-                               int device, void* stream) {
-  if (!shapes_ok(L, D, F, H, V, S, T, W, pos) || work_size < 0)
+                               void* stamps, const void* pos, void* pos_error, int L, int D, int F,
+                               int H, int V, int S, int T, int W, int bound, int sc, int sn,
+                               int cc, int cn, int device, void* stream) {
+  if (!shapes_ok(L, D, F, H, V, S, T, W, bound) || work_size < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   Args p = {};
   p.L = L; p.D = D; p.F = F; p.H = H; p.V = V; p.S = S; p.T = T; p.A = 0; p.W = W;
-  p.pos = pos; p.capture = 0; p.sc = sc; p.sn = sn; p.cc = cc; p.cn = cn;
+  p.pos = static_cast<const int*>(pos); p.err = static_cast<int*>(pos_error); p.bound = bound;
+  p.capture = 0; p.sc = sc; p.sn = sn; p.cc = cc; p.cn = cn;
   const void* w16[16] = {qkv_w, o_w, cq_w, co_w, fc1_w, fc2_w, smalls, lnp, emb_q, emb_s,
                          self_k, self_v, cross_k, cross_v, cross_ks, cross_vs};
   bind(p, w16, x, work);

@@ -16,8 +16,10 @@ The module tree holds the weights in PyTorch's layout (``nn.Linear`` keeps
   :func:`decoder_verify`: the decoder over a (L, B, H, S, dh) cache
   written in place (the GPU's layout; the TPU's feature-major
   (L, B, H, dh, S) and its where-iota and one-hot writes do not carry
-  over). Every decoder pass returns cross-attention probabilities reduced
-  to the checkpoint's alignment heads, the DTW input.
+  over). The step takes its position on the device, so its shapes are
+  fixed and a CUDA graph of it replays at any position. Every decoder
+  pass returns cross-attention probabilities reduced to the checkpoint's
+  alignment heads, the DTW input.
 
 Numerics follow JAX: LayerNorm in f32, attention scores and softmax in f32
 with probabilities cast to the value type, f32 logits from the tied
@@ -42,7 +44,8 @@ each layer in the backward (``torch.utils.checkpoint``, JAX's
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Iterator, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -295,14 +298,19 @@ def _alignment_selector(arch: WhisperArch) -> np.ndarray:
     return sel
 
 
+def cross_kv_layers(model: Whisper, enc_out: torch.Tensor
+                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each decoder layer's cross-attention K/V in turn: (B, H, T, dh) each."""
+    for layer in model.decoder.layers:
+        ca = layer.cross_attn
+        yield (ca.heads(ca.k, enc_out).transpose(1, 2),
+               ca.heads(ca.v, enc_out).transpose(1, 2))
+
+
 def compute_cross_kv(model: Whisper, enc_out: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of every decoder layer: (L, B, H, T, dh) each."""
-    ks, vs = [], []
-    for layer in model.decoder.layers:
-        ca = layer.cross_attn
-        ks.append(ca.heads(ca.k, enc_out).transpose(1, 2))
-        vs.append(ca.heads(ca.v, enc_out).transpose(1, 2))
+    ks, vs = zip(*cross_kv_layers(model, enc_out))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -493,27 +501,46 @@ def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
     return _logits(model, x), cache, align
 
 
-def decoder_step(model: Whisper, token: torch.Tensor, position: int,
+def step_position(position, device) -> torch.Tensor:
+    """A decode step's cache slot as a (1,) int64 tensor on ``device``: a
+    host int is filled in (no synchronisation), a one-element integer
+    tensor is taken as it is."""
+    if isinstance(position, torch.Tensor):
+        return position.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(position), dtype=torch.long, device=device)
+
+
+def decoder_step(model: Whisper, token: torch.Tensor, position,
                  cache: DecodeCache
                  ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
-    """One decode step for ``token`` (B, 1) at cache slot ``position``.
+    """One decode step for ``token`` (B, 1) at cache slot ``position``, a
+    host int or a one-element integer tensor on the model's device (JAX's
+    device scalar): the step's shapes do not depend on it, so one CUDA
+    graph of the step serves every position.
 
-    Attends the cache slots below ``position`` plus the token's own fresh
-    k/v as one extra logit, then writes that k/v into slot ``position``.
-    Returns (logits (B, V) f32, cache, align (B, A, T_enc))."""
+    The token is embedded at that row of the position table (clamped to its
+    last, as JAX's ``dynamic_slice`` clamps). The step attends all S_max
+    cache slots under the mask ``slot < position`` plus the token's own
+    fresh k/v as one extra logit, then writes that k/v into slot
+    ``position`` (``index_copy_`` at the device index, JAX's where-iota
+    write). Returns (logits (B, V) f32, cache, align (B, A, T_enc))."""
     dec = model.decoder
-    x = embed_tokens(model, token, position)
+    b = token.shape[0]
+    s_max = cache.self_k.shape[3]
+    pos = step_position(position, token.device)
+    x = embed_tokens_at(model, token, pos.expand(b))
+    mask = (torch.arange(s_max, device=token.device) < pos)[None, None, None, :]
     sel = _selector(model)
     align = 0.0
     for l, layer in enumerate(dec.layers):
         q, k, v = _self_qkv(layer, x)                         # (B, H, 1, dh)
         dh = q.shape[-1]
         self_logit = ((q * dh ** -0.5).float() * k.float()).sum(-1, keepdim=True)
-        a, _ = _attend(q, cache.self_k[l, :, :, :position].to(q.dtype),
-                       cache.self_v[l, :, :, :position].to(q.dtype),
+        a, _ = _attend(q, cache.self_k[l].to(q.dtype),
+                       cache.self_v[l].to(q.dtype), mask,
                        extra_logit=self_logit, extra_v=v)
-        cache.self_k[l, :, :, position] = k[:, :, 0]
-        cache.self_v[l, :, :, position] = v[:, :, 0]
+        cache.self_k[l].index_copy_(2, pos, k.to(cache.self_k.dtype))
+        cache.self_v[l].index_copy_(2, pos, v.to(cache.self_v.dtype))
         x = x + layer.self_attn.out(_merge_heads(a))
         x, al = _cross_and_mlp(x, layer, _layer(cache.cross_k, l),
                                _layer(cache.cross_v, l), sel[l])

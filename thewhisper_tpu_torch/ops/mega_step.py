@@ -16,6 +16,17 @@ fresh k/v into cache slot ``pos``; on a CPU tensor it runs
 same operands. The engine packs the operands at batch 1 for any decoder
 depth (:func:`mega_pays`).
 
+The cache slot is a Python ``int`` or, as the TPU kernel takes ``pos``
+from SMEM, a one-element integer tensor on the card, which the kernel
+reads when it runs: a CUDA graph of a step replays it at whatever slot the
+device holds then. The host plans the self-attention chunks and the
+scratch for a bound on ``pos + W``: ``pos + W`` itself for an ``int``, the
+cache's length for a tensor. A tensor slot outside ``[0, S - W]`` makes
+the launch do nothing but set an error word, which the wrapper reads after an eager launch (a caller that passes
+``check=False``, as the decode loop does, reads it with
+:func:`raise_position_errors` at its own host checks; a captured launch
+leaves it to whoever replays the graph).
+
 ``mega_decoder_verify`` is K3 over a window of W <= 16 tokens at slots
 ``pos .. pos + W - 1`` (``models.whisper.decoder_verify`` at batch 1,
 without alignment): row r attends the cache below ``pos`` plus the
@@ -46,7 +57,7 @@ engine init and the layers' modules rebound to views of the stack).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,15 +72,21 @@ from thewhisper_tpu_torch.models.whisper import (
     DecodeCache,
     Whisper,
     _gelu,
-    embed_tokens,
     embed_tokens_at,
+    step_position,
 )
 from thewhisper_tpu_torch.ops import _build
 
 # Launches of the CUDA kernels (not of the plain versions) since import:
-# K3 (the step) and K4 (the verify window).
+# K3 (the step) and K4 (the verify window). A launch captured into a CUDA
+# graph counts when the graph replays (engine.graphs.StepGraph adds what
+# its capture recorded), not when it is captured.
 MEGA_LAUNCHES = 0
 MEGA_VERIFY_LAUNCHES = 0
+
+# A cache slot: a host int, or a one-element integer tensor on the device.
+Position = Union[int, torch.Tensor]
+
 # K4's widest window (its per-row accumulators live in registers).
 MAX_WINDOW = 16
 
@@ -184,13 +201,15 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _rows_plain(mp: MegaParams, x: torch.Tensor, pos: int,
+def _rows_plain(mp: MegaParams, x: torch.Tensor, pos: Position,
                 cache: DecodeCache, arch: WhisperArch, capture_align: bool,
                 gelu=_gelu) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 and K4 in plain torch: the W rows of ``x`` (W, D) are the tokens
     at slots ``pos .. pos + W - 1`` of the batch-1 self cache, written here;
-    row r attends slots ``[0, pos + r]``. Returns (logits (W, V) f32,
-    align (W, max(A, 1), T) f32, zeros unless ``capture_align``)."""
+    row r attends slots ``[0, pos + r]``. A tensor ``pos`` is read on the
+    host. Returns (logits (W, V) f32, align (W, max(A, 1), T) f32, zeros
+    unless ``capture_align``)."""
+    pos = int(pos)
     dt = x.dtype
     w = x.shape[0]
     n_layers, d = mp.o_w.shape[:2]
@@ -245,7 +264,7 @@ def _rows_plain(mp: MegaParams, x: torch.Tensor, pos: int,
     return torch.matmul(x.float(), mp.emb_q.float().t()) * mp.emb_s, align
 
 
-def mega_step_plain(mp: MegaParams, x: torch.Tensor, pos: int,
+def mega_step_plain(mp: MegaParams, x: torch.Tensor, pos: Position,
                     cache: DecodeCache, arch: WhisperArch,
                     capture_align: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,7 +276,7 @@ def mega_step_plain(mp: MegaParams, x: torch.Tensor, pos: int,
     return logits, align[0]
 
 
-def mega_reference(mp: MegaParams, x: torch.Tensor, pos: int,
+def mega_reference(mp: MegaParams, x: torch.Tensor, pos: Position,
                    cache: DecodeCache, arch: WhisperArch
                    ) -> Tuple[torch.Tensor, torch.Tensor, DecodeCache]:
     """K3's and K4's function with every rounding point in f32: the int8
@@ -273,7 +292,7 @@ def mega_reference(mp: MegaParams, x: torch.Tensor, pos: int,
     return logits, align, ref
 
 
-def mega_verify_plain(mp: MegaParams, x: torch.Tensor, pos: int,
+def mega_verify_plain(mp: MegaParams, x: torch.Tensor, pos: Position,
                       cache: DecodeCache, arch: WhisperArch) -> torch.Tensor:
     """The K4 function in plain torch: K3 over a window. ``x`` (W, D) is
     the embedded window whose first token sits at slot ``pos``; writes
@@ -379,6 +398,8 @@ def work_bytes(n_layers: int, w: int, d: int, f: int, h: int, sn: int,
 
 _scratch = {}
 _sms = {}
+_slots: Dict[int, torch.Tensor] = {}
+_errors: Dict[int, torch.Tensor] = {}
 
 
 def _work(device: torch.device, n: int) -> torch.Tensor:
@@ -390,14 +411,62 @@ def _work(device: torch.device, n: int) -> torch.Tensor:
     return _scratch[key]
 
 
-def _launch_plan(x: torch.Tensor, n_layers: int, w: int, pos: int, d: int,
-                 f: int, h: int, t: int, a: int):
+def _device_buffer(cache: Dict[int, torch.Tensor],
+                   device: torch.device) -> torch.Tensor:
+    """A zeroed one-element int32 tensor on ``device``, made once a device
+    (before any capture: a decode's warm-up launch makes it)."""
+    key = device.index or 0
+    if key not in cache:
+        cache[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return cache[key]
+
+
+def _slot(pos: Position, w: int, s_max: int,
+          device: torch.device) -> Tuple[torch.Tensor, int, bool]:
+    """(int32 slot tensor, bound on pos + w, whether the kernel's error word
+    must be read): a host slot is checked here and filled into the device's
+    slot tensor (a fill launch, no synchronisation); a tensor slot is the
+    kernel's to check, against the cache's length."""
+    if isinstance(pos, torch.Tensor):
+        _check(pos.numel() == 1 and pos.device == device
+               and not pos.is_floating_point(),
+               f"slot tensor of {pos.numel()} elements on {pos.device} "
+               f"(takes one integer on {device})")
+        if pos.dtype != torch.int32:
+            pos = pos.to(torch.int32)
+        return pos.reshape(1), s_max, True
+    pos = int(pos)
+    _check(0 <= pos and pos + w <= s_max,
+           f"position {pos} (window {pos}..{pos + w - 1}) outside the "
+           f"{s_max}-slot cache")
+    return _device_buffer(_slots, device).fill_(pos), pos + w, False
+
+
+def raise_position_errors(device: torch.device) -> None:
+    """Read (synchronising) and clear the error word that K3 and K4 set
+    when a device slot fell outside its bound; raise if it was set."""
+    err = _device_buffer(_errors, device)
+    if int(err.item()):
+        err.zero_()
+        raise ValueError("mega_step: a device slot fell outside the bound "
+                         "its launch was planned for (no launch since the "
+                         "last check wrote anything)")
+
+
+def _launch_plan(x: torch.Tensor, n_layers: int, w: int, bound: int,
+                 s_max: int, d: int, f: int, h: int, t: int, a: int):
     """(chunks, scratch) of one launch: the self and cross chunking for the
-    card's SM count (one block an SM) and the scratch they need."""
+    card's SM count (one block an SM) and the scratch they need. The self
+    chunks' length depends on the cache's length alone and their count on
+    ``bound``, so launches planned for pos + W and for the cache's length
+    split a head's slots at the same places (the chunks past pos + W are
+    neutral, and a head of one chunk that it combines gives the bits it
+    writes directly)."""
     key = x.device.index or 0
     if key not in _sms:
         _sms[key] = torch.cuda.get_device_properties(x.device).multi_processor_count
-    sc, sn = attention_chunks(pos + w, h, _sms[key], SELF_MIN_CHUNK)
+    sc = attention_chunks(s_max, h, _sms[key], SELF_MIN_CHUNK)[0]
+    sn = -(-bound // sc)
     cc, cn = attention_chunks(t, h, _sms[key])
     work = _work(x.device, work_bytes(n_layers, w, d, f, h, sn, cn, a, t))
     return (sc, sn, cc, cn), work
@@ -419,34 +488,41 @@ def stamps_tensor(n_layers: int, device) -> torch.Tensor:
                        device=device)
 
 
-def mega_step(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
-              arch: WhisperArch, capture_align: bool = True,
-              stamps: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def mega_step(mp: MegaParams, x: torch.Tensor, pos: Position,
+              cache: DecodeCache, arch: WhisperArch, capture_align: bool = True,
+              stamps: Optional[torch.Tensor] = None,
+              check: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's wrapper, the contract of :func:`mega_step_plain`. CPU tensors
     take the plain version; CUDA tensors one launch of csrc/mega_step.cu,
-    which raises on anything the kernel does not take. ``stamps`` (from
-    :func:`stamps_tensor`, CUDA only) records where the launch's time
-    goes."""
+    which raises on anything the kernel does not take. ``pos`` is a host
+    int or a device slot tensor; with a tensor and ``check``, an eager launch reads
+    the kernel's error word (a synchronisation) and raises if it is set.
+    ``stamps`` (from :func:`stamps_tensor`, CUDA only) records where the
+    launch's time goes."""
     global MEGA_LAUNCHES
     if x.device.type == "cpu":
         return mega_step_plain(mp, x, pos, cache, arch, capture_align)
     n_layers, d, f, n_heads, v, s_max, t = _operands(mp, x, cache, arch)
     _check(x.shape[0] == 1, f"x of shape {tuple(x.shape)} (takes batch 1)")
-    _check(0 <= pos < s_max, f"position {pos} outside the {s_max}-slot cache")
+    slot, bound, device_slot = _slot(pos, 1, s_max, x.device)
     n_align = mp.heads.shape[0]
-    chunks, work = _launch_plan(x, n_layers, 1, pos, d, f, n_heads, t, n_align)
+    chunks, work = _launch_plan(x, n_layers, 1, bound, s_max, d, f, n_heads,
+                                t, n_align)
+    err = _device_buffer(_errors, x.device)
     logits = torch.empty(1, v, device=x.device)
     align = torch.empty(max(1, n_align), t, device=x.device)
     x = x.clone()                       # the residual stream, in place
     code = _build.lib().twt_mega_step(
         *_pointers(mp, cache), mp.heads.data_ptr(), x.data_ptr(),
         work.data_ptr(), work.numel(), logits.data_ptr(), align.data_ptr(),
-        _stamps_ptr(stamps, n_layers, x), n_layers, d, f, n_heads, v, s_max,
-        t, n_align, int(pos), int(capture_align), *chunks,
-        x.device.index or 0, _build.stream_handle(x.device))
+        _stamps_ptr(stamps, n_layers, x), slot.data_ptr(), err.data_ptr(),
+        n_layers, d, f, n_heads, v, s_max, t, n_align, bound,
+        int(capture_align), *chunks, x.device.index or 0,
+        _build.stream_handle(x.device))
     _build.check(code, "twt_mega_step")
     MEGA_LAUNCHES += 1
+    if device_slot and check and not torch.cuda.is_current_stream_capturing():
+        raise_position_errors(x.device)
     return logits, align
 
 
@@ -461,31 +537,37 @@ def _stamps_ptr(stamps: Optional[torch.Tensor], n_layers: int,
     return stamps.data_ptr()
 
 
-def mega_verify(mp: MegaParams, x: torch.Tensor, pos: int, cache: DecodeCache,
-                arch: WhisperArch, stamps: Optional[torch.Tensor] = None
+def mega_verify(mp: MegaParams, x: torch.Tensor, pos: Position,
+                cache: DecodeCache, arch: WhisperArch,
+                stamps: Optional[torch.Tensor] = None, check: bool = True
                 ) -> torch.Tensor:
     """K4's wrapper, the contract of :func:`mega_verify_plain`. CPU tensors
     take the plain version; CUDA tensors one launch of csrc/mega_verify.cu,
     which raises on anything the kernel does not take (a window of 1 to
-    16 rows that fits the cache). ``stamps`` as for :func:`mega_step`."""
+    16 rows that fits the cache). ``pos`` and ``check`` as for
+    :func:`mega_step`: a host int is filled into a device slot without a
+    synchronisation. ``stamps`` as for :func:`mega_step`."""
     global MEGA_VERIFY_LAUNCHES
     if x.device.type == "cpu":
         return mega_verify_plain(mp, x, pos, cache, arch)
     n_layers, d, f, n_heads, v, s_max, t = _operands(mp, x, cache, arch)
     w = x.shape[0]
     _check(1 <= w <= MAX_WINDOW, f"window of {w} rows (takes 1..{MAX_WINDOW})")
-    _check(0 <= pos and pos + w <= s_max,
-           f"window at {pos}..{pos + w - 1} outside the {s_max}-slot cache")
-    chunks, work = _launch_plan(x, n_layers, w, pos, d, f, n_heads, t, 0)
+    slot, bound, device_slot = _slot(pos, w, s_max, x.device)
+    chunks, work = _launch_plan(x, n_layers, w, bound, s_max, d, f, n_heads,
+                                t, 0)
+    err = _device_buffer(_errors, x.device)
     logits = torch.empty(w, v, device=x.device)
     x = x.clone()                       # the residual stream, in place
     code = _build.lib().twt_mega_verify(
         *_pointers(mp, cache), x.data_ptr(), work.data_ptr(), work.numel(),
-        logits.data_ptr(), _stamps_ptr(stamps, n_layers, x), n_layers, d, f, n_heads, v, s_max,
-        t, w, int(pos), *chunks, x.device.index or 0,
-        _build.stream_handle(x.device))
+        logits.data_ptr(), _stamps_ptr(stamps, n_layers, x), slot.data_ptr(),
+        err.data_ptr(), n_layers, d, f, n_heads, v, s_max, t, w, bound,
+        *chunks, x.device.index or 0, _build.stream_handle(x.device))
     _build.check(code, "twt_mega_verify")
     MEGA_VERIFY_LAUNCHES += 1
+    if device_slot and check and not torch.cuda.is_current_stream_capturing():
+        raise_position_errors(x.device)
     return logits
 
 
@@ -496,29 +578,38 @@ def _packed(model: Whisper) -> MegaParams:
     return model.mega
 
 
-def _run(model: Whisper, token: torch.Tensor, position: int,
-         cache: DecodeCache, capture_align: bool, plain: bool):
-    x = embed_tokens(model, token, position)[:, 0]              # (1, D)
-    step = mega_step_plain if plain else mega_step
-    logits, align = step(_packed(model), x, int(position), cache,
-                         model.arch, capture_align)
+def _run(model: Whisper, token: torch.Tensor, position: Position,
+         cache: DecodeCache, capture_align: bool, plain: bool,
+         check: bool = True):
+    x = embed_tokens_at(model, token,
+                        step_position(position, token.device))[:, 0]  # (1, D)
+    mp = _packed(model)
+    if plain:
+        logits, align = mega_step_plain(mp, x, position, cache, model.arch,
+                                        capture_align)
+    else:
+        logits, align = mega_step(mp, x, position, cache, model.arch,
+                                  capture_align, check=check)
     return logits, cache, align[None]
 
 
-def mega_decoder_step(model: Whisper, token: torch.Tensor, position: int,
-                      cache: DecodeCache, capture_align: bool = True
+def mega_decoder_step(model: Whisper, token: torch.Tensor, position: Position,
+                      cache: DecodeCache, capture_align: bool = True,
+                      check: bool = True
                       ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
     """One decode step of a packed model at batch 1: ``token`` (1, 1) at
-    cache slot ``position``. The contract of ``models.whisper
-    .decoder_step``: returns (logits (1, V) f32, cache with slot
-    ``position`` written, align (1, A, T_enc) f32, zeros unless
+    cache slot ``position`` (a host int or a device slot tensor, embedded
+    at that row of the position table, clamped to its last). The contract
+    of ``models.whisper.decoder_step``: returns (logits (1, V) f32, cache
+    with slot ``position`` written, align (1, A, T_enc) f32, zeros unless
     ``capture_align``). CPU tensors take :func:`mega_decoder_step_plain`;
-    CUDA tensors launch K3 or raise."""
-    return _run(model, token, position, cache, capture_align, plain=False)
+    CUDA tensors launch K3 or raise. ``check`` as for :func:`mega_step`."""
+    return _run(model, token, position, cache, capture_align, plain=False,
+                check=check)
 
 
 def mega_decoder_step_plain(model: Whisper, token: torch.Tensor,
-                            position: int, cache: DecodeCache,
+                            position: Position, cache: DecodeCache,
                             capture_align: bool = True
                             ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
     """:func:`mega_decoder_step` in plain torch, on any device."""
@@ -530,7 +621,8 @@ def mega_decoder_verify(model: Whisper, tokens: torch.Tensor, position: int,
                         ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
     """One speculative-verify window of a packed model at batch 1:
     ``tokens`` (1, W) whose first token sits at cache slot ``position``
-    (a host int). The contract of ``models.whisper.decoder_verify`` at
+    (a host int, which K4 reads from a device slot filled without a
+    synchronisation). The contract of ``models.whisper.decoder_verify`` at
     batch 1: returns (logits (1, W, V) f32, cache with slots ``position ..
     position + W - 1`` written, align (1, W, A, T_enc) of zeros: K4 keeps
     no alignment, so decodes that need it take ``decoder_verify``). CPU

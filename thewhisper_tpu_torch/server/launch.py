@@ -30,21 +30,28 @@ from typing import Optional, Tuple
 import numpy as np
 
 from thewhisper_tpu_torch.config import SAMPLE_RATE, ServerConfig
+from thewhisper_tpu_torch.engine.engine import _bucket_batch
 from thewhisper_tpu_torch.server.http import SessionManager, StreamingServer
 from thewhisper_tpu_torch.streaming.batching import BatchedTranscriber
 
 
 def warm_up(asr, chunk_length_s: float, max_new_tokens: int = 128,
             max_batch: int = 8) -> None:
-    """One ``transcribe_batch`` of a full rolling window at each batch size
-    the coalescer can form, 1 to ``max_batch``: the kernels are built and
-    run (batch 1 takes K3 where the engine packed it), and the caching
-    allocator holds the blocks of each size, before the first request."""
+    """Make the engine's decode programs for every batch bucket that a
+    coalesced batch of 1 to ``max_batch`` windows falls in, at the
+    pipeline's window, with word timestamps, as the transcriber calls it
+    (``engine.warmup``: on the card each captures its CUDA graph, so no
+    request pays a capture); then one ``transcribe_batch`` of a full
+    rolling window runs the rest of the path (the featurizer, DTW) once."""
+    engine = asr.engine
+    buckets = sorted({_bucket_batch(n, engine.batch_buckets)
+                      for n in range(1, max_batch + 1)})
+    engine.warmup(asr.featurizer.num_mel_frames(), batches=buckets,
+                  max_new_tokens=max_new_tokens, timestamps=True)
     one = np.zeros(int((chunk_length_s - 1) * SAMPLE_RATE), np.float32)
-    gk = {"max_new_tokens": max_new_tokens, "language": "en"}
-    for nb in range(1, max_batch + 1):
-        asr.transcribe_batch([one] * nb, return_timestamps="word",
-                             generate_kwargs=dict(gk))
+    asr.transcribe_batch([one], return_timestamps="word",
+                         generate_kwargs={"max_new_tokens": max_new_tokens,
+                                          "language": "en"})
 
 
 def serve_pipeline(asr, config: ServerConfig, warmup: bool = True,

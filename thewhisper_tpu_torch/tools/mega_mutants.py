@@ -24,7 +24,7 @@ checks).
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
 the card's name and power limit and, for each copy, whether the tests
-failed and the first failing test. Needs a card; the ten K3/K4 mutants take
+failed and the first failing test. Needs a card; the eleven K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
 the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
 twenty K2 and K2 backward mutants about 10:
@@ -108,9 +108,11 @@ MEGA_MUTANTS = (
     ("fragment", "the A fragment's middle registers are swapped",
      "mma_bf16(c[jj & 1][nt], a0, a1, a2, a3,", "mma_bf16(c[jj & 1][nt], a0, a2, a1, a3,"),
     ("cache-slot", "every window row's k and v land in slot pos",
-     "p.S + p.pos + n) * kDh", "p.S + p.pos) * kDh"),
+     "p.S + pos + n) * kDh", "p.S + pos) * kDh"),
     ("residual-round", "the residual adds y unrounded",
      "__float2bfloat16(xr + round_bf16(y))", "__float2bfloat16(xr + y)"),
+    ("pos-bound", "the device slot's check lets pos + W reach bound + 1",
+     "pos > p.bound - p.W", "pos > p.bound - p.W + 1"),
 )
 
 # P1's tensor-core route.
