@@ -39,6 +39,19 @@ is false. Phases, each of which raises on failure:
    capture time and device memory.
    [BEAM] The same at batch 2 x 4 beams with word timestamps; the best
    beam's sum_logprob equals the sum of its token_logprobs.
+   [LONGFORM] The bench's long-form protocol through the port's pipeline
+   (``phase_longform``): a 600 s synthetic file, 10 s pipelines, 9 s call
+   windows on a 9 s latency bucket, 32 new tokens, EOT suppressed. bf16
+   turbo at batch 32 (depth 2, the offset path), then one batch-32 call
+   with word timestamps; after [turbo S], turbo "S" at batch 1 (depth 0;
+   depth 2 in groups of 4 windows) and at batch 32 (depth 2, groups of 3
+   batches, the first-window fast path). Each arm warm once, then timed
+   in turns: wall, RTFx, first result, and the K1, K2 and K3 launches,
+   which must be one K1 an engine call, one K2 an encoder layer of each
+   and a K3 every step call at batch 1. The batch-1 texts must be equal;
+   window 0 of the fast path must equal a batch-1
+   ``transcribe_window_async`` of it, bit for bit; K1 at 9 s and K2 at
+   S = 450 on the path's inputs against their plain versions.
    [turbo S] Then the same model quantized as ``"int8-all"`` with int8
    cross K/V (the engine warmed first): the 20 s WAV at batch 1, every
    step call of the loop one K3 launch, replayed from its graph; then
@@ -181,6 +194,7 @@ from thewhisper_tpu_torch.config import (
 )
 from thewhisper_tpu_torch.engine import WhisperEngine
 from thewhisper_tpu_torch.engine.decode import STEPS_PER_CHECK
+from thewhisper_tpu_torch.engine.engine import PendingResult, to_device
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
 from thewhisper_tpu_torch.models.checkpoint import save_hf_checkpoint
 from thewhisper_tpu_torch.models.load import load_checkpoint
@@ -533,11 +547,13 @@ def phase_main_path() -> dict:
         launches = {"logmel": logmel.LOGMEL_LAUNCHES,
                     "encoder_attention": attn.ATTN_LAUNCHES}
     print(f"[main] kernel launches on the main path: {launches}", flush=True)
-    # Three engine calls, each featurizes once (K1) and encodes one batch
-    # (K2 in each of the 32 encoder layers).
-    check(launches["logmel"] == 3, f"K1 launches {launches['logmel']} != 3")
-    check(launches["encoder_attention"] == 3 * arch.encoder_layers,
-          f"K2 launches {launches['encoder_attention']} != 3 x 32")
+    # Four engine calls, each featurizes once (K1) and encodes one batch
+    # (K2 in each of the 32 encoder layers): the 20 s WAV, the 70 s WAV's
+    # three windows on the offset path (split 2 + 1 to the batch buckets,
+    # as JAX's _tail_fit splits a short tail), the batch of four.
+    check(launches["logmel"] == 4, f"K1 launches {launches['logmel']} != 4")
+    check(launches["encoder_attention"] == 4 * arch.encoder_layers,
+          f"K2 launches {launches['encoder_attention']} != 4 x 32")
 
     check_word_chunks(r20, 20.0, ordered=True)
     # The merged 70 s transcript is not checked for order: with random
@@ -604,6 +620,186 @@ def encoder_drift(model, featurizer) -> None:
     check(math.isfinite(rel), "encoder drift not finite")
     print(f"[main] bf16 encoder with K2 against an f32 encoder with the plain "
           f"attention, 30 s window: relative L2 {rel:.3e}", flush=True)
+
+
+LONGFORM_SECONDS = 600
+LONGFORM_KW = {"language": "en", "max_new_tokens": 32}
+LONGFORM_TURNS = 2       # timed calls of each arm, in turns, after a warm one
+
+
+def longform_arms(model, quantized: bool) -> dict:
+    """The bench's long-form arms (``bench.py`` 355-520) on ``model``:
+    10 s pipelines, 9 s call windows on a 9 s latency bucket, EOT
+    suppressed by an engine of its own. Name -> (pipeline, batch size)."""
+    eot = SpecialTokens.for_vocab(model.arch.vocab_size).eot
+    engine = WhisperEngine(model, cross_kv_int8=quantized, suppress_tokens=[eot])
+
+    def pipe(**kw):
+        return ASRPipeline(engine, chunk_length_s=10, latency_buckets=[9.0],
+                           pipeline_depth=kw.pop("depth"), **kw)
+
+    if not quantized:
+        return {"bf16 B32 depth 2": (pipe(depth=2), 32)}
+    return {"S B1 depth 0": (pipe(depth=0), 1),
+            "S B1 depth 2 wpp 4": (pipe(depth=2, windows_per_program=4), 1),
+            "S B32 depth 2 wpp 3 first-window": (pipe(
+                depth=2, windows_per_program=3, first_window_fast=True), 32)}
+
+
+def longform_call(pipe, bsz: int, audio: np.ndarray, **kw) -> dict:
+    """One 600 s call with the launches zeroed just before: its wall, its
+    first result's seconds, K1/K2/K3 launches, the engine calls it
+    dispatched (rows each), the window-0 handle's result, and the host
+    seconds spent queueing encoders (featurizer and encoder launches) and
+    in the decode loops."""
+    engine = pipe.engine
+    rows, firsts = [], []
+    host = {"encode": 0.0, "decode": 0.0}
+
+    def timing(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[name] += time.perf_counter() - t
+        return run
+
+    dispatch, window = engine._dispatch, engine.transcribe_window_async
+    engine._dispatch = lambda x, *a, **k: rows.append(x.shape[0]) or dispatch(x, *a, **k)
+    engine.transcribe_window_async = lambda *a, **k: firsts.append(window(*a, **k)) or firsts[-1]
+    engine._decode = timing("decode", engine._decode)
+    encode = PendingResult.encode
+    PendingResult.encode = timing("encode", encode)
+    torch.cuda.synchronize()
+    logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = mega.MEGA_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        out = pipe(audio, chunk_length_s=9, generate_kwargs=dict(LONGFORM_KW),
+                   batch_size=bsz, **kw)
+        torch.cuda.synchronize()
+    finally:
+        del engine._dispatch, engine.transcribe_window_async, engine._decode
+        PendingResult.encode = encode
+    return {"out": out, "wall": time.perf_counter() - t0,
+            "first": pipe.last_first_result_s, "rows": rows, "host": host,
+            "window0": firsts[0].result() if firsts else None,
+            "launches": (logmel.LOGMEL_LAUNCHES, attn.ATTN_LAUNCHES,
+                         mega.MEGA_LAUNCHES)}
+
+
+def check_longform_launches(name: str, run: dict, model) -> None:
+    """K1 once an engine call, K2 once an encoder layer of each, K3 every
+    step call at batch 1 of a K3 engine (a window's 31 steps, rounded up to
+    the host checks, replays counted)."""
+    calls = len(run["rows"])
+    steps = STEPS_PER_CHECK * math.ceil((LONGFORM_KW["max_new_tokens"] - 1)
+                                        / STEPS_PER_CHECK)
+    k3 = steps * run["rows"].count(1) if model.mega is not None else 0
+    want = (calls, calls * model.arch.encoder_layers, k3)
+    check(run["launches"] == want,
+          f"[LONGFORM] {name}: launches K1, K2, K3 {run['launches']} != {want}")
+
+
+def longform_kernels_against_plain(engine, full, offsets, bucket) -> None:
+    """K1 on the path's 9 s windows (B = 32) and K2 on layer 0's q, k, v
+    at S = 450 against their plain versions, [K1]'s and [K2]'s bounds."""
+    x = engine._window_audio(full, offsets[:32], 9 * SAMPLE_RATE, bucket)
+    captured = []
+
+    def first_layer(q, k, v):
+        if not captured:
+            captured.append((q, k, v))
+        return attn.encoder_attention(q, k, v)
+
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(x, engine._mel_fb, engine._window)
+        ref = log_mel_spectrogram_plain(x, engine._mel_fb, engine._window)
+        k1_err = (mel - ref).abs().max().item()
+        encoder_forward(engine.model, mel, attention=first_layer)
+        q, k, v = captured[0]
+        out = attn.encoder_attention(q, k, v)
+        ref = attn.encoder_attention_plain(q, k, v)
+        k2_rel = ((out.float() - ref.float()).abs().max()
+                  / out.float().abs().max()).item()
+    check(mel.shape == (32, engine.arch.n_mels, 900) and k1_err <= 5e-4,
+          f"[LONGFORM] K1 at 9 s: shape {tuple(mel.shape)}, err {k1_err}")
+    check(q.shape[1] == 450 and k2_rel <= 2e-2,
+          f"[LONGFORM] K2 at S = {q.shape[1]}: rel err {k2_rel}")
+    print(f"[LONGFORM] on the path's inputs: K1 B=32 x 9 s max abs err "
+          f"{k1_err:.3e}; K2 {str(q.dtype)[6:]} B=32 S={q.shape[1]} max abs "
+          f"err relative to the output's max {k2_rel:.3e}", flush=True)
+
+
+def phase_longform(model, smi: str, quantized: bool) -> None:
+    """[LONGFORM] The bench's long-form protocol through the port's
+    pipeline: a 600 s file, 9 s windows on a 9 s bucket, 32 new tokens,
+    EOT suppressed. bf16 turbo (``quantized`` False) at batch 32, depth 2,
+    and one batch-32 call with word timestamps (DTW on the offset path); or
+    turbo "S" at batch 1 depth 0, batch 1 depth 2 in groups of 4 windows,
+    and batch 32 depth 2 in groups of 3 batches with the first-window fast
+    path. Each arm warm once, then ``LONGFORM_TURNS`` timed calls in turns:
+    wall, RTFx, first result, K1/K2/K3 launches (checked). The batch-1
+    arms give the same text; window 0 of the fast path equals a batch-1
+    ``transcribe_window_async`` of it, bit for bit."""
+    t_phase = time.perf_counter()
+    audio = synth_audio(LONGFORM_SECONDS, seed=60)
+    arms = longform_arms(model, quantized)
+    engine = next(iter(arms.values()))[0].engine
+    for pipe, bsz in arms.values():
+        # Warm: captures each key's graph (its warm-up step is one more K3).
+        longform_call(pipe, bsz, audio)
+    runs = {name: [] for name in arms}
+    for _ in range(LONGFORM_TURNS):
+        for name, (pipe, bsz) in arms.items():
+            run = longform_call(pipe, bsz, audio)
+            check_longform_launches(name, run, model)
+            check(run["out"]["text"].strip() != "", f"[LONGFORM] {name}: no text")
+            runs[name].append(run)
+    for name, rs in runs.items():
+        first = [r["first"] for r in rs if r["first"] is not None]
+        print(f"[LONGFORM] {name}: walls "
+              f"{', '.join(f'{r['wall']:.3f}' for r in rs)} s, RTFx "
+              f"{', '.join(f'{LONGFORM_SECONDS / r['wall']:.1f}' for r in rs)}, "
+              f"first result "
+              f"{', '.join(f'{s:.4f}' for s in first) if first else 'n/a'} s; "
+              f"K1, K2, K3 launches {rs[-1]['launches']} over "
+              f"{len(rs[-1]['rows'])} engine calls (rows {sorted(set(rs[-1]['rows']))}); "
+              f"host seconds queueing encoders "
+              f"{', '.join(f'{r['host']['encode']:.3f}' for r in rs)}, in the "
+              f"decode loops {', '.join(f'{r['host']['decode']:.3f}' for r in rs)}; "
+              f"{smi}", flush=True)
+    texts = {name: rs[-1]["out"]["text"] for name, rs in runs.items()}
+    win_model = 10 * SAMPLE_RATE
+    full = to_device(audio, engine.device, length=len(audio) + win_model)
+    offsets = ASRPipeline._window_offsets(len(audio), 9 * SAMPLE_RATE,
+                                          6 * SAMPLE_RATE)
+    bucket = 9 * SAMPLE_RATE
+    if quantized:
+        b1 = [texts[n] for n in arms if " B1 " in n]
+        check(b1[0] == b1[1], "[LONGFORM] the batch-1 arms' texts differ")
+        fast = [rs[-1] for n, rs in runs.items() if "first-window" in n][0]
+        one = engine.transcribe_window_async(
+            full, 0, 9 * SAMPLE_RATE, bucket, GenerationOptions(**LONGFORM_KW)).result()
+        for field in ("tokens", "num_generated", "sum_logprob", "token_logprobs"):
+            check(np.array_equal(getattr(fast["window0"], field), getattr(one, field)),
+                  f"[LONGFORM] window 0 of the fast path: {field} differs from "
+                  "a batch-1 transcribe_window_async")
+        print(f"[LONGFORM] batch-1 texts equal; window 0 of the fast path equals "
+              f"a batch-1 transcribe_window_async, bit for bit; batch 32 "
+              f"merged text {'equals' if texts[list(arms)[-1]] == b1[0] else 'differs from'} "
+              f"batch 1's (bf16 GEMMs of other shapes)", flush=True)
+    else:
+        pipe, bsz = arms["bf16 B32 depth 2"]
+        run = longform_call(pipe, bsz, audio, return_timestamps="word")
+        check_word_chunks(run["out"], LONGFORM_SECONDS, ordered=False)
+        print(f"[LONGFORM] bf16 B32 with word timestamps (DTW on the offset "
+              f"path): wall {run['wall']:.3f} s, {len(run['out']['chunks'])} "
+              f"words", flush=True)
+    longform_kernels_against_plain(engine, full, offsets, bucket)
+    print(f"[LONGFORM] reference H100 turbo \"S\" (SURVEY §6, context only): "
+          f"bs=1 RTFx 161.45, bs=64 2016.18; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def phase_turbo_s(model, smi: str) -> WhisperEngine:
@@ -2555,8 +2751,10 @@ def main() -> None:
     launches, turbo = phase_main_path()
     phase_graph(turbo, smi)
     phase_beam(turbo, smi)
+    phase_longform(turbo, smi, quantized=False)
     torch.cuda.empty_cache()
     turbo_s = phase_turbo_s(turbo, smi)
+    phase_longform(turbo, smi, quantized=True)
     phase_stream(turbo_s, smi)
     phase_server(turbo_s, smi)
     del turbo, turbo_s

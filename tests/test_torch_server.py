@@ -422,6 +422,8 @@ def test_warm_up_runs_every_batch_size_of_a_full_window():
         pipe.transcribe_batch = lambda audios, **kw: calls.append(
             ([len(a) for a in audios], kw))
         pipe.featurizer = SimpleNamespace(num_mel_frames=lambda: 1000)
+        pipe.latency_buckets = [10.0]
+        pipe._featurizer_for = lambda s, _f=pipe.featurizer: _f
         pipe.engine = SimpleNamespace(
             batch_buckets=(1, 2, 4, 8, 16, 32, 64),
             warmup=lambda *a, **kw: warmed.append((a, kw)))
@@ -449,6 +451,34 @@ def test_warm_up_makes_each_bucket_program_on_the_tiny_checkpoint(tiny_ckpt):
     asr.transcribe_batch([np.zeros(16000, np.float32)] * 3,
                          generate_kwargs={"max_new_tokens": 3, "language": "en"})
     assert len(asr.engine.programs()) == 3
+
+
+def test_serve_pipeline_keeps_every_warmed_program(tiny_ckpt):
+    """Latency buckets 2.5 and 5 s beside the 10 s chunk, at ``max_batch``
+    8: the warm-up makes 3 x 4 programs, more than ``MAX_PROGRAMS``, and the
+    engine keeps every one of them, also after requests of other shapes."""
+    from thewhisper_tpu_torch.engine.engine import MAX_PROGRAMS
+    from thewhisper_tpu_torch.pipeline import ASRPipeline
+    from thewhisper_tpu_torch.server.launch import serve_pipeline
+
+    asr = ASRPipeline(tiny_ckpt, chunk_length_s=10, device="cpu",
+                      compute_dtype=torch.float32, latency_buckets=[2.5, 5])
+    server, transcriber = serve_pipeline(
+        asr, ServerConfig(host="127.0.0.1", port=0), max_batch=8,
+        max_new_tokens=3)
+    server.start_background()
+    server.shutdown()
+    transcriber.close()
+    warmed = {(b, frames, 4, 3, True, 1) for b in (1, 2, 4, 8)
+              for frames in (250, 500, 1000)}
+    assert len(warmed) > MAX_PROGRAMS
+    assert warmed <= {p["key"] for p in asr.engine.programs()}
+    for n in range(1, MAX_PROGRAMS + 2):        # another shape each
+        asr.transcribe_batch([np.zeros(16000, np.float32)],
+                             generate_kwargs={"max_new_tokens": 3 + n,
+                                              "language": "en"})
+    keys = {p["key"] for p in asr.engine.programs()}
+    assert warmed <= keys and len(keys - warmed) == MAX_PROGRAMS
 
 
 def test_served_sessions_on_the_tiny_checkpoint(tiny_ckpt):
@@ -507,11 +537,26 @@ def test_served_sessions_on_the_tiny_checkpoint(tiny_ckpt):
 
 
 def test_entry_point_refuses_what_is_not_ported(monkeypatch):
+    """``ASR_LATENCY_BUCKETS`` reaches the pipeline as JAX's example passes
+    it; a value that is not seconds, or no ``ASR_MODEL``, stops the entry
+    point; the remote backend needs neither."""
+    from thewhisper_tpu_torch import pipeline
     from thewhisper_tpu_torch.server import launch
 
     monkeypatch.delenv("ASR_BACKEND_TYPE", raising=False)
+    monkeypatch.delenv("ASR_WARMUP", raising=False)
+    made = []
+    monkeypatch.setattr(pipeline, "ASRPipeline", lambda model, **kw: (
+        made.append((model, kw)) or "asr"))
+    monkeypatch.setattr(launch, "serve_pipeline", lambda asr, config, warmup: (
+        asr, warmup))
+    monkeypatch.setenv("ASR_MODEL", "/nonexistent/checkpoint")
     monkeypatch.setenv("ASR_LATENCY_BUCKETS", "2.5,5")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    assert launch.build_server(device="cpu") == ("asr", True)
+    assert made[0][0] == "/nonexistent/checkpoint"
+    assert made[0][1]["latency_buckets"] == [2.5, 5.0]
+    monkeypatch.setenv("ASR_LATENCY_BUCKETS", "2.5,five")
+    with pytest.raises(SystemExit, match="ASR_LATENCY_BUCKETS"):
         launch.build_server(device="cpu")
     monkeypatch.delenv("ASR_LATENCY_BUCKETS")
     monkeypatch.delenv("ASR_MODEL", raising=False)

@@ -131,7 +131,15 @@ class LogMelFeaturizer:
         return audio
 
     def __call__(self, audio) -> torch.Tensor:
-        x = torch.from_numpy(self.pad(audio)).to(self.device)
+        """Host audio, or a tensor on ``device`` (padded or cut there)."""
+        if isinstance(audio, torch.Tensor):
+            if audio.device != self.device:
+                raise ValueError(f"audio on {audio.device}, the featurizer "
+                                 f"on {self.device}")
+            x = audio.float().reshape(-1, audio.shape[-1])[:, : self.n_samples]
+            x = torch.nn.functional.pad(x, (0, self.n_samples - x.shape[1]))
+        else:
+            x = torch.from_numpy(self.pad(audio)).to(self.device)
         return log_mel_spectrogram(x, self.mel_fb, self.window)
 
     def num_mel_frames(self) -> int:

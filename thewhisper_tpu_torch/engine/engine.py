@@ -9,12 +9,29 @@ prompt and runs the greedy, sampled or beam loop (``engine.decode``), then
 copies the result to the host, cut back to the batch, as an
 :class:`EngineResult` with the JAX engine's fields.
 
+Every call is a dispatch and a decode, as in the JAX engine: the
+``*_async`` entry points return a :class:`PendingResult` with the call's
+featurizer and encoder queued on the device, and its ``result()`` decodes
+(the synchronous entry points call it at once). A handle owns its encoder
+states, and only its ``result()``, under the engine's lock, computes them
+into its key's program, so handles in flight never share buffers. While
+other handles are pending, a dispatch leaves its encoder to be queued by
+the next ``result()``, behind that decode and the copy of its rows: the
+card encodes the next call while the host unpacks, aligns and merges the
+last. Audio, features and the long-form file may be host arrays (copied
+through pinned memory without waiting for the queue) or tensors on the
+engine's device. The offset entry points slice their windows from one
+file on the device; a group (``transcribe_window_scan_async``,
+``transcribe_batch_scan_async``) is those calls queued one after another
+under one handle, where JAX compiles a scan.
+
 The decode loop runs on a program kept for each static shape, keyed as
 JAX's ``_jit_cache`` is (bucket, mel frames, prompt length, new tokens,
 timestamps, beams): its own self cache, cross K/V (computed into it layer
 by layer, quantized there in the "S" modes, tiled per beam), tokens,
-alignment and loop state. The engine keeps the ``MAX_PROGRAMS`` programs
-used last and frees the others' buffers and graphs. On the card a greedy
+alignment and loop state. The engine keeps the programs :meth:`warmup`
+made and the ``MAX_PROGRAMS`` others used last, and frees the rest's
+buffers and graphs. On the card a greedy
 (temperature 0) or beam call replays a CUDA graph of ``STEPS_PER_CHECK``
 steps (``engine.graphs``), captured at the key's first call or by
 :meth:`WhisperEngine.warmup`, the host reading the stop flag between
@@ -27,8 +44,7 @@ and a batch-1 bf16 "S" engine, at any decoder depth, decodes through the
 K3 kernel (``ops.mega_step``), its position a device operand. With a
 draft model, ngram drafting or proposal tokens a greedy call decodes
 speculatively and eagerly (``engine.speculative``; its batch-1 "S" verify
-rounds run K4). Int4, the async handles and the window-scan programs are
-not ported yet.
+rounds run K4). Int4 is not ported.
 """
 
 from __future__ import annotations
@@ -38,8 +54,9 @@ import json
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +68,7 @@ from thewhisper_tpu_torch.audio.features import (
     mel_filter_bank,
 )
 from thewhisper_tpu_torch.config import (
+    HOP_LENGTH,
     GenerationOptions,
     LANGUAGES,
     SpecialTokens,
@@ -88,8 +106,9 @@ from thewhisper_tpu_torch.ops.mega_step import mega_pays, pack_mega_params
 # nearest (the JAX engine's buckets).
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
-# Decode programs an engine keeps, the ones used last: every default bucket
-# at one setting of the other keys, as a server warms them, and one more.
+# Decode programs an engine keeps beside those its warmup made, the ones
+# used last: every default bucket at one setting of the other keys, and one
+# more.
 MAX_PROGRAMS = 8
 
 
@@ -103,6 +122,45 @@ def _bucket_batch(b: int, buckets: Sequence[int]) -> int:
 def _pad_batch(x: torch.Tensor, bb: int) -> torch.Tensor:
     """Zero rows up to ``bb`` along the batch axis, on x's device."""
     return torch.cat([x, x.new_zeros((bb - x.shape[0], *x.shape[1:]))])
+
+
+def to_device(x, device, length: Optional[int] = None) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``. A host array goes to
+    the card through pinned memory, queued on the current stream without
+    waiting for the work queued there (a copy from pageable memory makes
+    the host wait). ``length``: the first axis zero-padded to it. A tensor
+    on another accelerator raises ``ValueError``: a call never carries on
+    where its input does not lie."""
+    device = torch.device(device)
+    if not isinstance(x, torch.Tensor):
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
+    if x.device.type != "cpu" and x.device != device:
+        raise ValueError(f"input on {x.device}, the engine on {device}")
+    if length is None and x.device == device:
+        return x
+    if device.type == "cuda" and x.device.type == "cpu":
+        x = x.pin_memory()
+    out = torch.zeros((x.shape[0] if length is None else length,
+                       *x.shape[1:]), dtype=x.dtype, device=device)
+    out[: x.shape[0]].copy_(x, non_blocking=True)
+    return out
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the host; from the card, into pinned memory,
+    queued behind the stream's work (wait for it before reading)."""
+    if not t.is_cuda:
+        return t.to("cpu", copy=True)
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def _greedy_only(name: str, options: GenerationOptions) -> None:
+    if options.num_beams != 1 or options.temperature:
+        raise ValueError(
+            f"{name} is greedy-only (num_beams=1, temperature=0); use "
+            "transcribe_audio for beam/sampled decoding")
 
 
 class EngineResult(NamedTuple):
@@ -121,6 +179,100 @@ class EngineResult(NamedTuple):
     # route; up to STEPS_PER_CHECK - 1 of them after the stop, which change
     # nothing); None when speculative.
     decode_steps: Optional[int] = None
+
+
+class PendingResult:
+    """An engine call dispatched and not yet decoded (the JAX engine's
+    ``PendingResult``): its audio or features on the device, its encoder
+    queued or left for the next ``result()`` to queue (see the module
+    docstring). :meth:`result` decodes it and returns what the synchronous
+    call returns, ``decode_time_s`` counted from the dispatch; a second
+    call returns the same result. :meth:`release` gives the call up and
+    frees its tensors."""
+
+    def __init__(self, engine: "WhisperEngine", x: torch.Tensor, audio: bool,
+                 b: int, options: GenerationOptions, languages, t0: float,
+                 draft_tokens=None, count: bool = True):
+        self._engine = engine
+        self._x, self._audio = x, audio      # (bb, N) audio or (bb, n_mels, T)
+        self._enc: Optional[torch.Tensor] = None
+        self.mel_frames = x.shape[-1] // HOP_LENGTH if audio else x.shape[-1]
+        self.b, self.options, self.languages = b, options, languages
+        self.draft_tokens = draft_tokens
+        self.t0 = t0
+        self.count = count    # adds its decode time to total_time_worked
+        self._result: Optional[EngineResult] = None
+
+    @property
+    def queued(self) -> bool:
+        """Whether its encoder is still to be queued."""
+        return self._x is not None
+
+    def encode(self) -> torch.Tensor:
+        """The call's encoder states, queued now if they are not yet."""
+        if self._x is not None:
+            eng = self._engine
+            with torch.inference_mode():
+                mel = (log_mel_spectrogram(self._x, eng._mel_fb, eng._window)
+                       if self._audio else self._x)
+                self._enc = encoder_forward(eng.model, mel)
+            self._x = None
+        if self._enc is None:
+            raise RuntimeError("this call was released")
+        return self._enc
+
+    def result(self, queue_next: bool = True) -> EngineResult:
+        """``queue_next=False``: return without queueing the next pending
+        call's encoder first (its launches fill the card's queue, and the
+        host waits for them: a result wanted at once skips them)."""
+        if self._result is None:
+            self._result = self._engine._generate(self, queue_next)
+            self._enc = None
+        return self._result
+
+    def release(self) -> None:
+        self._engine._forget(self)
+        self._x = self._enc = None
+
+
+class PendingGroup:
+    """Calls dispatched one after another under one handle: the GPU's form
+    of JAX's window-scan programs. :meth:`result` decodes them in order and
+    returns their rows stacked as one :class:`EngineResult` (the steps
+    summed, ``decode_time_s`` from the first dispatch)."""
+
+    def __init__(self, engine: "WhisperEngine", parts: List[PendingResult],
+                 t0: float):
+        self._engine, self._parts, self.t0 = engine, parts, t0
+        self._result: Optional[EngineResult] = None
+
+    def result(self) -> EngineResult:
+        if self._result is None:
+            try:
+                rs = [p.result() for p in self._parts]
+            except BaseException:
+                self.release()
+                raise
+            dt = time.perf_counter() - self.t0
+            self._engine.total_time_worked += dt
+
+            def cat(name):
+                if getattr(rs[0], name) is None:
+                    return None
+                return np.concatenate([getattr(r, name) for r in rs])
+
+            self._result = EngineResult(
+                tokens=cat("tokens"), num_generated=cat("num_generated"),
+                prompt_len=rs[0].prompt_len, sum_logprob=cat("sum_logprob"),
+                align=cat("align"), decode_time_s=dt,
+                token_logprobs=cat("token_logprobs"),
+                no_speech_prob=cat("no_speech_prob"),
+                decode_steps=sum(r.decode_steps for r in rs))
+        return self._result
+
+    def release(self) -> None:
+        for p in self._parts:
+            p.release()
 
 
 class _Program:
@@ -307,9 +459,14 @@ class WhisperEngine:
         self.batch_buckets = tuple(batch_buckets)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         # The decode programs by static shape, the one used last at the end,
-        # and the lock that keeps one call at a time on their buffers.
+        # the keys warmup made (kept beyond MAX_PROGRAMS), and the lock that
+        # keeps one call at a time on their buffers and on the list of
+        # handles not yet decoded, in dispatch order.
         self._programs: "OrderedDict[Tuple, _Program]" = OrderedDict()
+        self._warm_keys: set = set()
         self._lock = threading.Lock()
+        self._pending: List[weakref.ref] = []
+        self._prompts: dict = {}
 
     # -- prompt construction -------------------------------------------------
 
@@ -333,14 +490,18 @@ class WhisperEngine:
 
     # -- public API ----------------------------------------------------------
 
+    def _on_device(self, x) -> torch.Tensor:
+        """Audio or features, host or device, as f32 on the engine's device
+        (see :func:`to_device`)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, dtype=np.float32)
+        return to_device(x, self.device).float()
+
     def _features(self, mel) -> torch.Tensor:
         """(B, n_mels, T_mel) or (n_mels, T_mel) features, host or device,
         as a batched tensor on the engine's device."""
-        if not isinstance(mel, torch.Tensor):
-            mel = torch.from_numpy(np.array(mel, dtype=np.float32))
-        if mel.ndim == 2:
-            mel = mel[None]
-        return mel.to(self.device)
+        mel = self._on_device(mel)
+        return mel[None] if mel.ndim == 2 else mel
 
     def _padded(self, x: torch.Tensor) -> torch.Tensor:
         bb = _bucket_batch(x.shape[0], self.batch_buckets)
@@ -373,7 +534,36 @@ class WhisperEngine:
         arr = np.zeros((b, max_new), np.int64)
         r, c = min(dt.shape[0], b), min(dt.shape[1], max_new)
         arr[:r, :c] = dt[:r, :c]
-        return torch.from_numpy(arr).to(self.device)
+        return to_device(arr, self.device)
+
+    def _device_prompt(self, options: GenerationOptions, bb: int,
+                       languages) -> torch.Tensor:
+        """(bb, P) prompt rows on the device, kept per (bucket, language,
+        task, row languages) as JAX keeps them: no call waits on their
+        upload."""
+        langs = (tuple(str(l) for l in list(languages)[:bb])
+                 if languages is not None and len(languages) else None)
+        key = (bb, options.language, options.task, langs)
+        rows = self._prompts.get(key)
+        if rows is None:
+            if len(self._prompts) >= 512:
+                self._prompts.clear()
+            rows = self._prompts[key] = to_device(
+                self._prompt_rows(options, bb, languages).astype(np.int64),
+                self.device)
+        return rows
+
+    def transcribe_features_async(self, mel, options: GenerationOptions,
+                                  languages: Optional[Sequence[str]] = None,
+                                  draft_tokens=None) -> PendingResult:
+        """Dispatch without decoding; see :class:`PendingResult`."""
+        t0 = time.perf_counter()
+        mel = self._features(mel)
+        b = mel.shape[0]
+        if not self._speculative(options, draft_tokens):
+            mel = self._padded(mel)
+        return self._dispatch(mel, False, b, options, languages, t0,
+                              draft_tokens)
 
     def transcribe_features(
         self,
@@ -382,12 +572,22 @@ class WhisperEngine:
         languages: Optional[Sequence[str]] = None,
         draft_tokens=None,                    # (B, <= max_new) proposals
     ) -> EngineResult:
+        return self.transcribe_features_async(
+            mel, options, languages, draft_tokens).result()
+
+    def transcribe_audio_async(self, audio, options: GenerationOptions,
+                               languages: Optional[Sequence[str]] = None,
+                               draft_tokens=None) -> PendingResult:
+        """Dispatch without decoding; see :class:`PendingResult`."""
         t0 = time.perf_counter()
-        mel = self._features(mel)
-        b = mel.shape[0]
+        x = self._on_device(audio)
+        if x.ndim == 1:
+            x = x[None]
+        b = x.shape[0]
         if not self._speculative(options, draft_tokens):
-            mel = self._padded(mel)
-        return self._generate(mel, b, options, languages, t0, draft_tokens)
+            x = self._padded(x)       # before featurizing, as JAX pads
+        return self._dispatch(x, True, b, options, languages, t0,
+                              draft_tokens)
 
     def transcribe_audio(
         self,
@@ -396,44 +596,214 @@ class WhisperEngine:
         languages: Optional[Sequence[str]] = None,
         draft_tokens=None,                    # (B, <= max_new) proposals
     ) -> EngineResult:
-        """Raw audio (already padded to the chunk, ``n_samples % 160 == 0``)
-        -> features through the K1 kernel -> :meth:`transcribe_features`."""
-        t0 = time.perf_counter()
-        x = torch.from_numpy(np.asarray(audio, np.float32)).to(self.device)
-        if x.ndim == 1:
-            x = x[None]
-        b = x.shape[0]
-        if not self._speculative(options, draft_tokens):
-            x = self._padded(x)       # before featurizing, as JAX pads
-        with torch.inference_mode():
-            mel = log_mel_spectrogram(x, self._mel_fb, self._window)
-        return self._generate(mel, b, options, languages, t0, draft_tokens)
+        """Raw audio (already padded to the chunk, ``n_samples % 160 == 0``;
+        a host array or a tensor on the engine's device) -> features
+        through the K1 kernel -> the decode of :meth:`transcribe_features`."""
+        return self.transcribe_audio_async(
+            audio, options, languages, draft_tokens).result()
 
-    def _generate(self, mel: torch.Tensor, b: int, options: GenerationOptions,
-                  languages, t0: float, draft_tokens=None) -> EngineResult:
-        """Decode ``mel`` (bb rows: the call's ``b`` rows, padded to their
-        bucket unless speculative) and return the first ``b`` rows on the
-        host."""
-        bb = mel.shape[0]
+    def _window_audio(self, full_audio, offsets: Sequence[int],
+                      win_samples: int, bucket_samples: int) -> torch.Tensor:
+        """(len(offsets), bucket_samples) f32 on the device: ``win_samples``
+        of the file at each offset, gathered on the device in one call, then
+        zero-padded to ``bucket_samples`` (never sliced long, which would let
+        the next window's audio in where silence belongs)."""
+        full = self._on_device(full_audio)
+        offs = np.asarray([int(o) for o in offsets], np.int64)
+        if full.ndim != 1 or bucket_samples < win_samples:
+            raise ValueError("a (N,) file and bucket_samples >= win_samples")
+        if offs.min() < 0 or offs.max() + win_samples > full.shape[0]:
+            raise ValueError(
+                f"windows of {win_samples} samples at offsets {offs.min()}.."
+                f"{offs.max()} read past the {full.shape[0]}-sample file "
+                "(pad it by a window)")
+        idx = (to_device(offs, self.device)[:, None]
+               + torch.arange(win_samples, device=self.device))
+        wins = torch.take(full, idx)
+        if bucket_samples != win_samples:
+            wins = torch.nn.functional.pad(wins, (0, bucket_samples - win_samples))
+        return wins
+
+    def _windows(self, full_audio, offsets: Sequence[int], rows: int,
+                 win_samples: int, bucket_samples: int,
+                 options: GenerationOptions, languages, t0: float,
+                 count: bool = True) -> PendingResult:
+        """Dispatch ``offsets``' windows as one call of ``rows`` rows, the
+        last offset repeated into the rows past them (real audio, so those
+        rows stop when the last real row stops)."""
+        offs = list(offsets) + [offsets[-1]] * (rows - len(offsets))
+        x = self._window_audio(full_audio, offs, win_samples, bucket_samples)
+        return self._dispatch(x, True, len(offsets), options, languages, t0,
+                              count=count)
+
+    def transcribe_window_async(
+        self,
+        full_audio,                           # (N,) the file, padded
+        offset: int,
+        win_samples: int,
+        bucket_samples: int,
+        options: GenerationOptions,
+        languages: Optional[Sequence[str]] = None,
+    ) -> PendingResult:
+        """Dispatch one long-form window by its offset into the file, at
+        batch 1 whatever the buckets (JAX's single-window program);
+        greedy only."""
+        _greedy_only("transcribe_window_async", options)
+        return self._windows(full_audio, [offset], 1, win_samples,
+                             bucket_samples, options, languages,
+                             time.perf_counter())
+
+    def transcribe_windows_async(
+        self,
+        full_audio,                           # (N,) the file, padded
+        offsets: Sequence[int],
+        win_samples: int,
+        bucket_samples: int,
+        options: GenerationOptions,
+        languages: Optional[Sequence[str]] = None,
+    ) -> PendingResult:
+        """Dispatch a batch of long-form windows by offset, padded to its
+        bucket by repeating the last offset (a speculative engine's call is
+        not padded); greedy only."""
+        _greedy_only("transcribe_windows_async", options)
+        b = len(offsets)
+        rows = (b if self._speculative(options, None)
+                else _bucket_batch(b, self.batch_buckets))
+        return self._windows(full_audio, offsets, rows, win_samples,
+                             bucket_samples, options, languages,
+                             time.perf_counter())
+
+    def _group(self, full_audio, chunks, rows: int, win_samples: int,
+               bucket_samples: int, options: GenerationOptions,
+               languages) -> PendingGroup:
+        t0 = time.perf_counter()
+        parts: List[PendingResult] = []
+        try:
+            for offs in chunks:
+                parts.append(self._windows(
+                    full_audio, offs, rows, win_samples, bucket_samples,
+                    options, languages, t0, count=False))
+        except BaseException:
+            for p in parts:
+                p.release()
+            raise
+        return PendingGroup(self, parts, t0)
+
+    def _no_speculation(self, name: str, options: GenerationOptions) -> None:
+        _greedy_only(name, options)
+        if self.spec_ngram or self.draft_model is not None:
+            raise ValueError(f"{name} does not support speculative engines; "
+                             "dispatch per window instead")
+
+    def transcribe_window_scan_async(
+        self,
+        full_audio,                           # (N,) the file, padded
+        offsets: Sequence[int],
+        n_windows: int,
+        win_samples: int,
+        bucket_samples: int,
+        options: GenerationOptions,
+        languages: Optional[Sequence[str]] = None,
+    ) -> PendingGroup:
+        """Up to ``n_windows`` long-form windows at batch 1, one after
+        another under one handle (JAX's window-scan program; a short group
+        runs only its windows, where JAX repeats the last and drops its
+        rows); plain greedy only."""
+        name = "transcribe_window_scan_async"
+        self._no_speculation(name, options)
+        if not 1 <= len(offsets) <= n_windows:
+            raise ValueError(f"got {len(offsets)} offsets for a {n_windows}"
+                             "-window scan program")
+        return self._group(full_audio, [[o] for o in offsets], 1,
+                           win_samples, bucket_samples, options, languages)
+
+    def transcribe_batch_scan_async(
+        self,
+        full_audio,                           # (N,) the file, padded
+        offsets: Sequence[int],               # n_groups * batch of them
+        n_groups: int,
+        batch: int,
+        win_samples: int,
+        bucket_samples: int,
+        options: GenerationOptions,
+        languages: Optional[Sequence[str]] = None,
+    ) -> PendingGroup:
+        """``n_groups`` full batches of ``batch`` long-form windows, one
+        after another under one handle (JAX's batch-scan program, each
+        group at exactly ``batch`` rows); plain greedy only."""
+        name = "transcribe_batch_scan_async"
+        self._no_speculation(name, options)
+        if len(offsets) != n_groups * batch:
+            raise ValueError(
+                f"got {len(offsets)} offsets for a {n_groups}x{batch} "
+                "batch-scan program (groups must be full)")
+        chunks = [list(offsets[g * batch: (g + 1) * batch])
+                  for g in range(n_groups)]
+        return self._group(full_audio, chunks, batch, win_samples,
+                           bucket_samples, options, languages)
+
+    def _live(self) -> List[PendingResult]:
+        """The handles not yet decoded, in dispatch order (under the lock)."""
+        live = [r() for r in self._pending]
+        live = [h for h in live if h is not None]
+        self._pending = [weakref.ref(h) for h in live]
+        return live
+
+    def _dispatch(self, x: torch.Tensor, audio: bool, b: int,
+                  options: GenerationOptions, languages, t0: float,
+                  draft_tokens=None, count: bool = True) -> PendingResult:
+        """A handle for ``x`` (bb rows: the call's ``b``, padded unless
+        speculative), its encoder queued now if no other handle is
+        pending, else left for the next decode to queue."""
+        if options.num_beams < 1:
+            raise ValueError(f"num_beams {options.num_beams} < 1")
+        handle = PendingResult(self, x, audio, b, options, languages, t0,
+                               draft_tokens, count)
+        with self._lock:
+            idle = not self._live()
+            self._pending.append(weakref.ref(handle))
+        if idle:
+            handle.encode()
+        return handle
+
+    def _forget(self, handle: PendingResult) -> None:
+        with self._lock:
+            self._pending = [r for r in self._pending if r() is not handle]
+
+    def _generate(self, handle: PendingResult,
+                  queue_next: bool = True) -> EngineResult:
+        """Decode a dispatched call and return its first ``b`` rows on the
+        host. Once its rows are queued for the copy, the encoder of the
+        next handle still to be queued is queued behind them (unless
+        ``queue_next`` is False)."""
+        with self._lock:
+            enc = handle.encode()
+            res, p = self._decode_call(handle, enc)
+            self._pending = [r for r in self._pending if r() is not handle]
+            nxt = next((h for h in self._live() if h.queued and queue_next),
+                       None)
+            return self._unpack(res, handle.b, p, handle.options, handle.t0,
+                                then=nxt.encode if nxt else None,
+                                count=handle.count)
+
+    def _decode_call(self, handle: PendingResult, enc: torch.Tensor):
+        """The decode of ``handle``'s call on its encoder states ``enc``
+        (bb rows): the key's program, or the eager speculative loop.
+        Returns (result on the device, prompt length)."""
+        options = handle.options
+        bb = enc.shape[0]
         max_new = options.max_new_tokens
         beams = options.num_beams
-        if beams < 1:
-            raise ValueError(f"num_beams {beams} < 1")
         temperature = float(options.temperature) if beams == 1 else 0.0
-        props = self._prep_proposals(draft_tokens, options, bb)
-        spec = self._speculative(options, props)
+        props = self._prep_proposals(handle.draft_tokens, options, bb)
+        prompt = self._device_prompt(options, bb, handle.languages)
+        p = prompt.shape[1]
         with torch.inference_mode():
-            prompt = torch.from_numpy(
-                self._prompt_rows(options, bb, languages)).long().to(self.device)
-            p = prompt.shape[1]
-            enc = encoder_forward(self.model, mel)
-            if not spec:
-                key = (bb, mel.shape[-1], p, max_new,
+            if not self._speculative(options, props):
+                key = (bb, handle.mel_frames, p, max_new,
                        bool(options.return_timestamps), beams)
-                with self._lock:
-                    res = self._decode(key, enc, prompt, temperature,
-                                       options.seed)
-                    return self._unpack(res, b, p, options, t0)
+                return self._decode(key, enc, prompt, temperature,
+                                    options.seed), p
             ck, cv = compute_cross_kv(self.model, enc)
             if self.cross_kv_int8:
                 ck, cv = quantize_kv(ck), quantize_kv(cv)
@@ -451,22 +821,24 @@ class WhisperEngine:
                 dck, dcv = (kv.to(self.compute_dtype)
                             for kv in compute_cross_kv(draft, enc))
                 d_cache = make_cache(draft.arch, bb, s_cap, dck, dcv)
-            res = speculative_decode(
+            return speculative_decode(
                 self.model, draft, prompt, cache, d_cache, max_new,
                 self.special.eot, spec_window=w,
                 ngram_draft=self.spec_ngram and props is None,
-                proposal_tokens=props, **common)
-            return self._unpack(res, b, p, options, t0)
+                proposal_tokens=props, **common), p
 
     def _decode(self, key: Tuple, enc: torch.Tensor, prompt: torch.Tensor,
                 temperature: float, seed: int):
         """The loop of ``key``'s program on this call's encoder states and
         prompt: a graph replayed where the engine takes graphs (captured
-        now if the key has none yet), else eager steps."""
+        now if the key has none yet), else eager steps. A new program frees
+        the one used least recently of those ``warmup`` did not make, while
+        they number ``MAX_PROGRAMS``."""
         prog = self._programs.pop(key, None)
         if prog is None:
-            while len(self._programs) >= MAX_PROGRAMS:
-                self._programs.popitem(last=False)
+            cold = [k for k in self._programs if k not in self._warm_keys]
+            for k in cold[: max(0, len(cold) - MAX_PROGRAMS + 1)]:
+                del self._programs[k]
             prog = _Program(self, key, enc.shape[1])
         self._programs[key] = prog
         prog.load(enc)
@@ -478,26 +850,33 @@ class WhisperEngine:
         return prog.decode(prompt, temperature, generator)
 
     def _unpack(self, res, b: int, p: int, options: GenerationOptions,
-                t0: float) -> EngineResult:
+                t0: float, then=None, count: bool = True) -> EngineResult:
         """The first ``b`` rows of a decode result, copied to the host (on
         the CPU too: the rows may be a program's buffers, which its next
-        call overwrites)."""
-        def host(t):
-            return t[:b].to("cpu", copy=True).numpy()
-
-        align = None
+        call overwrites). ``then`` runs once the copies are queued, before
+        the host waits for them."""
+        fields = [res.tokens, res.num_generated, res.sum_logprob,
+                  res.token_logprobs, res.no_speech_prob]
         if options.return_timestamps:
             # Shipped at compute precision, as the JAX engine does.
-            align = host(res.align.to(self.compute_dtype).float())
-        out = [host(t) for t in (
-            res.tokens, res.num_generated, res.sum_logprob,
-            res.token_logprobs, res.no_speech_prob)]
+            fields.append(res.align.to(self.compute_dtype).float())
+        out = [_to_host(t[:b]) for t in fields]
+        copied = None
+        if self.device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record()
+        if then is not None:
+            then()
+        if copied is not None:
+            copied.synchronize()
+        out = [t.numpy() for t in out]
         dt = time.perf_counter() - t0
-        self.total_time_worked += dt
+        if count:
+            self.total_time_worked += dt
         return EngineResult(
             tokens=out[0], num_generated=out[1], prompt_len=p,
-            sum_logprob=out[2], align=align, decode_time_s=dt,
-            token_logprobs=out[3], no_speech_prob=out[4],
+            sum_logprob=out[2], align=out[5] if len(out) > 5 else None,
+            decode_time_s=dt, token_logprobs=out[3], no_speech_prob=out[4],
             spec_rounds=getattr(res, "rounds", None),
             decode_steps=res.steps)
 
@@ -507,11 +886,17 @@ class WhisperEngine:
         """Make the decode programs (on the card: capture their graphs) of
         the buckets of ``batches`` at ``t_mel`` mel frames, by one call of
         zeros each, so that a request of those shapes never pays a capture
-        (JAX's ``warmup``, which compiles)."""
+        (JAX's ``warmup``, which compiles). The engine keeps them whatever
+        it makes after (``MAX_PROGRAMS`` bounds the others)."""
         for b in batches:
             opts = GenerationOptions(
                 max_new_tokens=max_new_tokens, return_timestamps=timestamps,
                 num_beams=num_beams)
+            if not self._speculative(opts, None):
+                bb = _bucket_batch(b, self.batch_buckets)
+                p = len(self.build_prompt(opts.language, opts.task))
+                self._warm_keys.add(
+                    (bb, t_mel, p, max_new_tokens, bool(timestamps), num_beams))
             mel = np.zeros((b, self.arch.n_mels, t_mel), np.float32)
             self.transcribe_features(mel, opts)
 

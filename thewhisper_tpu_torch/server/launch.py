@@ -13,9 +13,9 @@ Environment (the same variables as the JAX example and the reference):
         ``safetensors`` package)
     ASR_MODEL_SIZE (None/"XL", "XL32", "S"), ASR_DRAFT, ASR_REUSE_PREV
         (default 1), ASR_WARMUP (default 1; 0 skips the warm-up)
-
-ASR_LATENCY_BUCKETS is not ported (ROADMAP Queue 1 item 4): setting it
-raises ``NotImplementedError`` rather than serving without it.
+    ASR_LATENCY_BUCKETS: comma-separated seconds (e.g. "2.5,5"), the
+        pipeline's ``latency_buckets``: a short early-stream buffer encodes
+        at the smallest bucket that holds it; off by default
 
 Every session has its own state machine; the decode requests of all
 sessions are batched into single engine calls on the card (or on the CPU
@@ -38,20 +38,25 @@ from thewhisper_tpu_torch.streaming.batching import BatchedTranscriber
 def warm_up(asr, chunk_length_s: float, max_new_tokens: int = 128,
             max_batch: int = 8) -> None:
     """Make the engine's decode programs for every batch bucket that a
-    coalesced batch of 1 to ``max_batch`` windows falls in, at the
-    pipeline's window, with word timestamps, as the transcriber calls it
-    (``engine.warmup``: on the card each captures its CUDA graph, so no
-    request pays a capture); then one ``transcribe_batch`` of a full
-    rolling window runs the rest of the path (the featurizer, DTW) once."""
+    coalesced batch of 1 to ``max_batch`` windows falls in, at the mel
+    frames of every latency bucket of the pipeline, with word timestamps,
+    as the transcriber calls it (``engine.warmup``: on the card each
+    captures its CUDA graph, so no request pays a capture, and the engine
+    keeps them all); then one ``transcribe_batch`` a latency bucket, of a
+    full rolling window or a buffer just inside the bucket, runs the rest of
+    the path (each bucket's featurizer, DTW) once."""
     engine = asr.engine
     buckets = sorted({_bucket_batch(n, engine.batch_buckets)
                       for n in range(1, max_batch + 1)})
-    engine.warmup(asr.featurizer.num_mel_frames(), batches=buckets,
-                  max_new_tokens=max_new_tokens, timestamps=True)
-    one = np.zeros(int((chunk_length_s - 1) * SAMPLE_RATE), np.float32)
-    asr.transcribe_batch([one], return_timestamps="word",
-                         generate_kwargs={"max_new_tokens": max_new_tokens,
-                                          "language": "en"})
+    for b in asr.latency_buckets:
+        engine.warmup(asr._featurizer_for(b).num_mel_frames(), batches=buckets,
+                      max_new_tokens=max_new_tokens, timestamps=True)
+    for b in asr.latency_buckets:
+        seconds = chunk_length_s - 1 if b >= chunk_length_s else b - 0.1
+        one = np.zeros(int(seconds * SAMPLE_RATE), np.float32)
+        asr.transcribe_batch([one], return_timestamps="word",
+                             generate_kwargs={"max_new_tokens": max_new_tokens,
+                                              "language": "en"})
 
 
 def serve_pipeline(asr, config: ServerConfig, warmup: bool = True,
@@ -90,13 +95,16 @@ def build_server(device="cuda", config: Optional[ServerConfig] = None,
                                  chunk_length_s=config.chunk_length_s,
                                  backend_type="whisper")
         return StreamingServer(manager, config), None
-    if os.getenv("ASR_LATENCY_BUCKETS", "").strip():
-        raise NotImplementedError(
-            "ASR_LATENCY_BUCKETS (sub-chunk encoder buckets) is not ported "
-            "yet (ROADMAP Queue 1 item 4)")
     model = os.getenv("ASR_MODEL")
     if not model:
         raise SystemExit("set ASR_MODEL to an HF checkpoint directory")
+    raw = os.getenv("ASR_LATENCY_BUCKETS", "")
+    try:
+        buckets = [float(b) for b in raw.split(",") if b.strip()]
+    except ValueError:
+        raise SystemExit(
+            f"ASR_LATENCY_BUCKETS must be comma-separated seconds "
+            f"(e.g. \"2.5,5\"), got: {raw!r}")
     from thewhisper_tpu_torch.pipeline import ASRPipeline
 
     # ASR_REUSE_PREV defaults on: the previous tick's tokens draft each
@@ -106,6 +114,7 @@ def build_server(device="cuda", config: Optional[ServerConfig] = None,
         model, chunk_length_s=config.chunk_length_s,
         model_size=os.getenv("ASR_MODEL_SIZE") or None,
         draft=os.getenv("ASR_DRAFT") or None,
+        latency_buckets=buckets or None,
         reuse_previous_tokens=os.getenv("ASR_REUSE_PREV", "1") == "1",
         device=device)
     return serve_pipeline(asr, config,
