@@ -36,7 +36,10 @@ is false. Phases, each of which raises on failure:
    windows, 64 new tokens, at batch 1 and at batch 3 (bucket 4): every
    output field equal, bit for bit; ms a step of each route (the decode
    alone, host clock, p50 of 5), the graph's device ms a step, each key's
-   capture time and device memory.
+   capture time and device memory. Then sampled calls at each batch, two
+   seeds at temperature 0.7 and one at 0.3, on one graph: each call's
+   result from the graph equals the eager one, bit for bit, and the
+   seeds' tokens differ.
    [BEAM] The same at batch 2 x 4 beams with word timestamps; the best
    beam's sum_logprob equals the sum of its token_logprobs.
    [LONGFORM] The bench's long-form protocol through the port's pipeline
@@ -55,19 +58,26 @@ is false. Phases, each of which raises on failure:
    [turbo S] Then the same model quantized as ``"int8-all"`` with int8
    cross K/V (the engine warmed first): the 20 s WAV at batch 1, every
    step call of the loop one K3 launch, replayed from its graph; then
-   [GRAPH] on that K3 route at batch 1.
+   [GRAPH] on that K3 route at batch 1, greedy and sampled (K3 once a
+   step call).
    [STREAM] That engine under the streaming pipeline (featurizers built
    under ``torch.inference_mode``; 10 s windows, the
-   neural VAD, cross-tick reuse on and off): 30 s of speech and
-   near-silence in 0.05 s chunks; every tick one K1 and a K2 a layer, the
-   greedy ticks K3, the buffer within the window; tick walls. A third arm
-   decodes three tokens a tick and must commit words, ordered and none
-   after the stream's clock.
+   neural VAD, cross-tick reuse on and off, and on for an engine without
+   graphs): 30 s of speech and near-silence in 0.05 s chunks; every tick
+   one K1 and a K2 a layer, the greedy ticks K3, the drafted ticks from
+   the proposals programs the warm-up made (no tick makes a program), the
+   buffer within the window; tick walls and the drafted ticks' count. A
+   fourth arm decodes three tokens a tick and must commit words, ordered
+   and none after the stream's clock.
    [SERVER] The same engine behind the REST server the entry point
    builds: three sessions at once over stdlib HTTP (every response 200, a
    coalesced batch above 1, K1 and K2 launched; the walls of the
    ``process`` calls that transcribed apart from those that did not),
    then one session alone, equal to the streaming pipeline fed directly.
+   [PAD] What a padded row costs: that engine's proposals call at batch
+   3, padded to bucket 4 with a zero row as the server pads three drafted
+   ticks, against the same call on an engine with a bucket of 3, and the
+   zero row alone: rounds and walls, the drafted tokens greedy's.
 6. [S] The "S" main path at the full width of large-v3 (32 + 32 layers,
    d_model 1280, 20 heads, d_ff 5120, vocab 51866): random bf16 weights,
    biases and LayerNorm parameters,
@@ -97,11 +107,15 @@ is false. Phases, each of which raises on failure:
    stepping the same tokens; times of K4 (eager and from a CUDA graph) and
    the plain verify a round at L = 32 for windows 1, 5 and 16 beside K3's
    time a step, and the phase stamps of one window of 5.
-9. [SPEC] The speculative "S" path at large-v3 width: a second engine on
-   the S model with ngram drafting (``spec_ngram=True``), ``ASRPipeline``
-   on the 20 s WAV without timestamps (batch 1: every verify round is one
-   K4 launch), the K3 greedy call on the same WAV, and a two-layer
-   layer-skip draft; walls, tokens a round and the shared token prefix.
+9. [SPEC] The speculative "S" path at large-v3 width: engines on the S
+   model with ngram drafting (``spec_ngram=True``) and with a two-layer
+   layer-skip draft, each with CUDA graphs (warmed) and without,
+   ``ASRPipeline`` on the 20 s WAV without timestamps (batch 1: every
+   verify round is one K4 launch, replayed from the graph or eager, and
+   no K3), and the K3 greedy call on the same WAV: each draft's graph and
+   eager results equal bit for bit; walls a call, rounds, tokens a round,
+   the shared token prefix and each speculative program's capture
+   seconds and bytes.
 10. [P1] The no-exp attention control (the TPU attention probe's timing
     control) against its plain version at B = 4 and at the probe's B = 32,
     H = 20, S = 1536, bf16, and in f32 at B = 1, S = 1024; the B = 32 bf16
@@ -840,6 +854,7 @@ def phase_turbo_s(model, smi: str) -> WhisperEngine:
                   f"step calls, K3 launches {launches}", flush=True)
     engine._generate = generate
     graph_vs_eager("GRAPH turbo S", model, 1, smi, cross_kv_int8=True)
+    sampled_graph_vs_eager("GRAPH turbo S", model, 1, smi, cross_kv_int8=True)
     return engine
 
 
@@ -951,8 +966,70 @@ def graph_vs_eager(tag: str, model, batch: int, smi: str, beams: int = 1,
 def phase_graph(model, smi: str) -> dict:
     """[GRAPH] bf16 large-v3-turbo at full width, 30 s windows, 64 new
     tokens: the greedy loop from CUDA graphs against the same loop eager
-    (``graph_vs_eager``) at batch 1 and at batch 3 (padded to bucket 4)."""
-    return {b: graph_vs_eager("GRAPH", model, b, smi) for b in (1, 3)}
+    (``graph_vs_eager``) at batch 1 and at batch 3 (padded to bucket 4),
+    then a sampled call of each (``sampled_graph_vs_eager``)."""
+    out = {b: graph_vs_eager("GRAPH", model, b, smi) for b in (1, 3)}
+    for b in (1, 3):
+        sampled_graph_vs_eager("GRAPH", model, b, smi)
+    return out
+
+
+def sampled_graph_vs_eager(tag: str, model, batch: int, smi: str,
+                           cross_kv_int8: bool = False) -> dict:
+    """Sampled calls (64 new tokens, word timestamps, 30 s windows) on an
+    engine with CUDA graphs and on one without: seeds 3 and 4 at
+    temperature 0.7, then seed 3 at 0.3 (the next rung of a fallback
+    ladder). Each call's result from the graph must equal the eager one,
+    bit for bit, the two seeds' tokens differ, and one program serves the
+    three calls (its generator registered with the graph, its temperature
+    a device scalar). On the K3 route K3 must launch once a step call.
+    Prints each call's wall and the program's capture time and memory."""
+    kw = dict(cross_kv_int8=cross_kv_int8)
+    engines = {"graph": WhisperEngine(model, **kw),
+               "eager": WhisperEngine(model, cuda_graphs=False, **kw)}
+    feat = LogMelFeaturizer(n_mels=model.arch.n_mels, device=model.device)
+    mel = feat([synth_audio(30, seed=90 + i) for i in range(batch)])
+    arms = ((3, 0.7), (4, 0.7), (3, 0.3))
+    out, walls = {}, {}
+    for arm in arms:
+        seed, temp = arm
+        opts = GenerationOptions(language="en", max_new_tokens=64,
+                                 return_timestamps=True, temperature=temp,
+                                 seed=seed)
+        for name, engine in engines.items():
+            mega.MEGA_LAUNCHES = 0
+            t0 = time.perf_counter()
+            res = out[name, arm] = engine.transcribe_features(mel, opts)
+            walls[name, arm] = time.perf_counter() - t0
+            # The graph engine's first call captures: its warm-up step
+            # launches K3 once, eagerly.
+            warm = int(name == "graph" and arm == arms[0])
+            if model.mega is not None and batch == 1:
+                check(mega.MEGA_LAUNCHES == res.decode_steps + warm,
+                      f"{tag} sampled: K3 launches {mega.MEGA_LAUNCHES} != "
+                      f"{res.decode_steps} step calls")
+        for field in RESULT_FIELDS:
+            check(np.array_equal(getattr(out["graph", arm], field),
+                                 getattr(out["eager", arm], field)),
+                  f"{tag} sampled, seed {seed} at {temp}: graph and eager "
+                  f"{field} differ")
+        check(bool(np.isfinite(out["graph", arm].token_logprobs).all()),
+              f"{tag} sampled: logprobs not finite")
+    check(not np.array_equal(out["graph", arms[0]].tokens,
+                             out["graph", arms[1]].tokens),
+          f"{tag} sampled: seeds 3 and 4 drew the same tokens")
+    (prog,) = engines["graph"].programs()
+    check(prog["graph"] and prog["key"][6] is True, f"{tag} sampled: no graph")
+    timings = "; ".join(
+        f"seed {s} at {t}: {walls['graph', (s, t)]:.3f} s from the graph, "
+        f"{walls['eager', (s, t)]:.3f} s eager" for s, t in arms)
+    print(f"[{tag}] sampled, batch {batch}, key {prog['key']}: graph == eager "
+          f"for each call (every field), seeds 3 and 4 draw other tokens; "
+          f"{out['graph', arms[0]].decode_steps} step calls; call wall "
+          f"(the first with its capture) {timings}; capture and buffers "
+          f"{prog['seconds']:.3f} s, {prog['bytes'] / 2 ** 20:.1f} MiB; {smi}",
+          flush=True)
+    return out
 
 
 def phase_beam(model, smi: str) -> dict:
@@ -1029,14 +1106,65 @@ def phase_stream(engine: WhisperEngine, smi: str) -> None:
                   f"{sorted(times)[2]:.2f} ms; {smi}", flush=True)
     check(logmel.LOGMEL_LAUNCHES == k1_before + 4,
           "the featurizers built in inference mode did not run K1")
-    # The greedy ticks' programs (CUDA graphs) made before the sessions, as
-    # a server makes them: no tick captures, so a tick's K3 launches are the
-    # step calls its loop ran.
+    # The ticks' programs (CUDA graphs), greedy and drafted, made before
+    # the sessions, as a server makes them: no tick captures, so a tick's
+    # K3 launches are the step calls its loop ran.
+    # The same engine without graphs beside it: reuse on, eagerly.
+    eager = WhisperEngine(engine.model, cross_kv_int8=True, cuda_graphs=False)
     for max_new in (GEN_KW["max_new_tokens"], WORD_TOKENS):
-        engine.warmup(1000, (1,), max_new, True)
+        engine.warmup(1000, (1,), max_new, True, proposals=True)
+    eager.warmup(1000, (1,), GEN_KW["max_new_tokens"], True, proposals=True)
     for reuse in (True, False):
         stream_session(engine, reuse, smi, GEN_KW["max_new_tokens"])
+    stream_session(eager, True, smi, GEN_KW["max_new_tokens"])
     stream_session(engine, True, smi, WORD_TOKENS)
+
+
+def phase_padded_rows(engine: WhisperEngine, smi: str) -> None:
+    """[PAD] What a padded row costs a speculative call (JAX's padding,
+    kept): the turbo "S" engine's proposals call at batch 3, padded to
+    bucket 4 with a zero row (zero audio, zero proposals), as the server
+    sends three coalesced drafted ticks, against the same call on an
+    engine whose buckets hold 3, which pads nothing; then the zero row
+    alone at batch 1. Three 10 s windows, 64 new tokens, word timestamps;
+    each engine's proposals are its own greedy tokens of the rows (a tick
+    whose audio repeats the last one's). Each call, greedy and drafted,
+    made once (capturing its program if it has none), then timed three
+    times (host clock, median): rounds and call walls, and the rows'
+    drafted tokens equal to the greedy call's on each engine."""
+    unpadded = WhisperEngine(engine.model, cross_kv_int8=True,
+                             batch_buckets=(1, 2, 3, 4))
+    opts = GenerationOptions(language="en", return_timestamps=True,
+                             max_new_tokens=GEN_KW["max_new_tokens"])
+    audio = np.stack([synth_audio(10, seed=100 + i) for i in range(3)])
+    zero = np.zeros_like(audio[:1])
+    arms = (("batch 3, padded to bucket 4", engine, audio),
+            ("batch 3, bucket 3", unpadded, audio),
+            ("the zero row alone", engine, zero))
+
+    def median_wall(eng, x, props):
+        """The call's result and median wall of three, after a first call
+        (which captures its program if it has none)."""
+        eng.transcribe_audio(x, opts, draft_tokens=props)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.transcribe_audio(x, opts, draft_tokens=props)
+            walls.append(time.perf_counter() - t0)
+        return res, sorted(walls)[1]
+
+    for name, eng, x in arms:
+        greedy, greedy_s = median_wall(eng, x, None)
+        props = (greedy.tokens[:, greedy.prompt_len:] if x is audio
+                 else np.zeros((1, opts.max_new_tokens), np.int64))
+        res, wall = median_wall(eng, x, props)
+        if x is audio:
+            check(np.array_equal(res.tokens, greedy.tokens),
+                  f"[PAD] {name}: drafted tokens differ from greedy's")
+        print(f"[PAD] {name}, proposals: {res.spec_rounds} rounds, tokens "
+              f"{res.num_generated.tolist()}; call wall {wall:.4f} s, greedy "
+              f"{greedy_s:.4f} s (host clock, median of 3); {smi}", flush=True)
 
 
 # Tokens a tick in [STREAM]'s word arm.
@@ -1055,6 +1183,7 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
     engine._generate = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
     sp = StreamingPipeline(backend=backend, chunk_length_s=10)
     check(type(sp.vad_model).__name__ == "NeuralVAD", "default VAD not neural")
+    warmed = {p["key"] for p in engine.programs()}
     audio = speech_and_silence(30, seed=50)
     step = int(0.05 * SAMPLE_RATE)
     chunks = [audio[i: i + step] for i in range(0, len(audio), step)]
@@ -1078,8 +1207,11 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
                               "res": results[-1], "out": raw[-1]})
     finally:
         engine._generate = generate
-    tag = f"reuse {'on' if reuse else 'off'}, {max_new} tokens"
+    tag = (f"reuse {'on' if reuse else 'off'}, {max_new} tokens"
+           + ("" if engine.cuda_graphs else ", eager (cuda_graphs=False)"))
     check(len(ticks) == len(results) == len(raw), "one engine call a tick")
+    made = {p["key"] for p in engine.programs()} - warmed
+    check(not made, f"{tag}: ticks made programs {made} (captured live)")
     if max_new == WORD_TOKENS:
         check(len(committed) > 0, f"{tag}: no word committed")
     check(0 < sp.stats["chunks_processed"] < len(chunks),
@@ -1124,7 +1256,10 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
           f"K3 {mega.MEGA_LAUNCHES}, K4 {mega.MEGA_VERIFY_LAUNCHES}", flush=True)
     walls = [t["ms"] for t in ticks]
     print(f"[STREAM] {tag}, tick wall (host clock, the call that "
-          f"transcribed): {percentiles(walls)}; first (greedy, K3) "
+          f"transcribed): {percentiles(walls)} over {len(ticks)} ticks, "
+          f"{len(drafted)} of them drafted (no tick made a program"
+          f"{', each replayed its graph' if engine.cuda_graphs else ''}); "
+          f"first (greedy, K3) "
           f"{walls[0]:.1f} ms; drafted ticks "
           f"{percentiles([t['ms'] for t in drafted]) if drafted else 'none'}; "
           f"of each tick the engine call (audio to the host copy of tokens "
@@ -1864,35 +1999,57 @@ def phase_verify(model, enc) -> dict:
     return main
 
 
-def phase_spec(model):
+def spec_call(name: str, engine: WhisperEngine, wav: Path, results: dict,
+              launches: dict, walls: dict) -> None:
+    """One ``ASRPipeline`` call of ``engine`` on ``wav`` (batch 1, no
+    timestamps) with the launch counts zeroed just before it: its result,
+    launches and wall under ``name``."""
+    generate = engine._generate
+    engine._generate = lambda *a, _g=generate, **k: (
+        results.setdefault(name, _g(*a, **k)))
+    pipe = ASRPipeline(engine, chunk_length_s=30)
+    logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
+    mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = timed(f"{name}: 20 s WAV, batch 1, no timestamps", lambda: pipe(
+        str(wav), generate_kwargs=dict(GEN_KW)), tag="SPEC")
+    walls[name] = time.perf_counter() - t0
+    launches[name] = {"logmel": logmel.LOGMEL_LAUNCHES,
+                      "encoder_attention": attn.ATTN_LAUNCHES,
+                      "mega_step": mega.MEGA_LAUNCHES,
+                      "mega_verify": mega.MEGA_VERIFY_LAUNCHES}
+    engine._generate = generate
+    check(out["text"].strip() != "", f"{name}: empty transcript")
+
+
+def phase_spec(model, smi: str):
     """The speculative S path: an ngram engine and a two-layer layer-skip
-    engine on the S model, and the K3 greedy engine, on one 20 s WAV at
-    batch 1 without timestamps. Returns K4's launches on the ngram call,
-    which must equal its verify rounds."""
-    engines = {"ngram": WhisperEngine(model, cross_kv_int8=True,
-                                      spec_ngram=True),
-               "greedy": WhisperEngine(model, cross_kv_int8=True),
-               "layer-skip:2": WhisperEngine(
-                   model, cross_kv_int8=True,
-                   draft_model=make_layer_skip_draft(model, 2))}
-    results, launches = {}, {}
+    engine on the S model, each with CUDA graphs (warmed first, so that
+    its call replays without capturing) and with ``cuda_graphs=False``,
+    and the K3 greedy engine, on one 20 s WAV at batch 1 without
+    timestamps. Each draft's graph and eager calls must give the same
+    result, bit for bit, and K4 must launch once a verify round (from the
+    graph's replays, or eagerly), K3 never. Returns K4's launches on the
+    graph engine's ngram call."""
+    def spec_engine(draft: str, graphs: bool) -> WhisperEngine:
+        kw = ({"spec_ngram": True} if draft == "ngram" else
+              {"draft_model": make_layer_skip_draft(model, 2)})
+        return WhisperEngine(model, cross_kv_int8=True, cuda_graphs=graphs,
+                             **kw)
+
+    engines = {"greedy": WhisperEngine(model, cross_kv_int8=True)}
+    for draft in ("ngram", "layer-skip:2"):
+        engines[f"{draft} graph"] = spec_engine(draft, True)
+        engines[f"{draft} eager"] = spec_engine(draft, False)
+    for name, engine in engines.items():
+        if engine.cuda_graphs:
+            engine.warmup(3000, (1,), GEN_KW["max_new_tokens"], False)
+    results, launches, walls = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         wav20 = Path(tmp) / "speech20.wav"
         write_wav(wav20, synth_audio(20, seed=6))
         for name, engine in engines.items():
-            generate = engine._generate
-            engine._generate = lambda *a, _g=generate, _n=name, **k: (
-                results.setdefault(_n, _g(*a, **k)))
-            pipe = ASRPipeline(engine, chunk_length_s=30)
-            logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
-            mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = 0
-            out = timed(f"{name}: 20 s WAV, batch 1, no timestamps", lambda: pipe(
-                str(wav20), generate_kwargs=dict(GEN_KW)), tag="SPEC")
-            launches[name] = {"logmel": logmel.LOGMEL_LAUNCHES,
-                              "encoder_attention": attn.ATTN_LAUNCHES,
-                              "mega_step": mega.MEGA_LAUNCHES,
-                              "mega_verify": mega.MEGA_VERIFY_LAUNCHES}
-            check(out["text"].strip() != "", f"{name}: empty transcript")
+            spec_call(name, engine, wav20, results, launches, walls)
     ref = results["greedy"]
     p, n_ref = ref.prompt_len, int(ref.num_generated[0])
     for name, res in results.items():
@@ -1907,20 +2064,40 @@ def phase_spec(model):
         rounds = res.spec_rounds
         per_round = f", {(n - 1) / rounds:.3f} tokens a round after the " \
             f"prefill's first ({rounds} rounds)" if rounds else ""
-        print(f"[SPEC] {name}: {n} tokens{per_round}; kernel launches "
-              f"{launches[name]}; {shared} leading tokens shared with "
-              f"greedy's {n_ref}", flush=True)
-    for name in ("ngram", "layer-skip:2"):
-        rounds = results[name].spec_rounds
-        check(rounds is not None and rounds > 0, f"{name}: no verify round")
-        check(launches[name]["mega_verify"] == rounds,
-              f"{name}: K4 launches {launches[name]['mega_verify']} != "
-              f"{rounds} verify rounds")
-        check(launches[name]["mega_step"] == 0, f"{name}: K3 launched")
-        check(launches[name]["logmel"] == 1
-              and launches[name]["encoder_attention"] == model.arch.encoder_layers,
-              f"{name}: K1/K2 launches {launches[name]}")
-    return launches["ngram"]["mega_verify"]
+        print(f"[SPEC] {name}: {n} tokens{per_round}; call wall "
+              f"{walls[name]:.3f} s; kernel launches {launches[name]}; "
+              f"{shared} leading tokens shared with greedy's {n_ref}",
+              flush=True)
+    for draft in ("ngram", "layer-skip:2"):
+        g, e = results[f"{draft} graph"], results[f"{draft} eager"]
+        for field in ("tokens", "num_generated", "sum_logprob",
+                      "token_logprobs", "no_speech_prob"):
+            check(np.array_equal(getattr(g, field), getattr(e, field)),
+                  f"{draft}: graph and eager {field} differ")
+        check(g.spec_rounds == e.spec_rounds,
+              f"{draft}: rounds {g.spec_rounds} (graph) != {e.spec_rounds}")
+        for name in (f"{draft} graph", f"{draft} eager"):
+            rounds = results[name].spec_rounds
+            check(rounds is not None and rounds > 0, f"{name}: no verify round")
+            check(launches[name]["mega_verify"] == rounds,
+                  f"{name}: K4 launches {launches[name]['mega_verify']} != "
+                  f"{rounds} verify rounds")
+            check(launches[name]["mega_step"] == 0, f"{name}: K3 launched")
+            check(launches[name]["logmel"] == 1
+                  and launches[name]["encoder_attention"]
+                  == model.arch.encoder_layers,
+                  f"{name}: K1/K2 launches {launches[name]}")
+        (prog,) = [q for q in engines[f"{draft} graph"].programs()
+                   if len(q["key"]) > 6]
+        check(prog["graph"], f"{draft}: no graph captured")
+        print(f"[SPEC] {draft}: graph == eager (tokens, num_generated, "
+              f"sum_logprob, token_logprobs, no_speech_prob), {g.spec_rounds} "
+              f"rounds each, K4 launches == rounds; call wall "
+              f"{walls[draft + ' graph']:.3f} s from the graph, "
+              f"{walls[draft + ' eager']:.3f} s eager; program {prog['key']}: "
+              f"capture and buffers {prog['seconds']:.3f} s, "
+              f"{prog['bytes'] / 2 ** 20:.1f} MiB; {smi}", flush=True)
+    return launches["ngram graph"]["mega_verify"]
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
@@ -2757,13 +2934,14 @@ def main() -> None:
     phase_longform(turbo, smi, quantized=True)
     phase_stream(turbo_s, smi)
     phase_server(turbo_s, smi)
+    phase_padded_rows(turbo_s, smi)
     del turbo, turbo_s
     torch.cuda.empty_cache()
     phase_small_reference()
     model, encs, k3_launches = phase_s_path()
     k3 = phase_mega(model, encs)
     k4 = phase_verify(model, encs[30])
-    k4_launches = phase_spec(model)
+    k4_launches = phase_spec(model, smi)
     del model, encs
     torch.cuda.empty_cache()
     p1 = phase_control(smi)

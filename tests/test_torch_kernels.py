@@ -12,7 +12,10 @@ decode step) and K4 (the verify window) at a small arch, d_model 384 with
 heads of 64 and 2 layers, with T and cache lengths that are and are not
 multiples of their attention chunks (chip_smoke.py holds them at large-v3
 width; ``python -m thewhisper_tpu_torch.tools.mega_mutants`` checks that
-these tests fail on broken copies of their engine). The
+these tests fail on broken copies of their engine), and the decode loops
+that run them captured into CUDA graphs: greedy steps, sampled steps
+(the generator registered with the graph) and speculative rounds (K4 at
+a device window position), each replayed equal to the eager loop. The
 probe kernels (P1-P5) at small sizes: the no-exp attention control at
 S = 512 (one block's query rows past S), 1024 and 1536 and at the probe's 20
 heads (``mega_mutants`` checks these tests too against broken copies of
@@ -702,6 +705,91 @@ def test_captured_greedy_steps_replay_the_eager_steps(cuda_device, route):
                  "token_logprobs", "no_speech_prob"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert torch.equal(ak, bk) and torch.equal(av, bv)
+
+
+@pytest.mark.parametrize("route", ["k4", "plain"])
+def test_captured_spec_rounds_replay_the_eager_rounds(cuda_device, route):
+    """Speculative rounds (ngram drafts, W = 3) captured two to a CUDA
+    graph and replayed from the loop's device state give, bit for bit,
+    what the same rounds give eagerly: every output, the round count and
+    the cache; through K4 at a device window position (batch 1, bf16,
+    packed: each replay counts its two K4 launches and no K3) and through
+    the plain verify."""
+    from thewhisper_tpu_torch.engine.graphs import StepGraph
+    from thewhisper_tpu_torch.engine.speculative import SpecLoop
+
+    model, cache = _k3_case(cuda_device, 4 + 13 + 4)
+    if route == "plain":
+        model.mega = None
+    prompt = torch.tensor([[1, 2, 3, 4]], device=cuda_device)
+    results = []
+    for graphed in (False, True):
+        fresh = tw.make_cache(K3_ARCH, 1, 4 + 13 + 4, cache.cross_k,
+                              cache.cross_v, dtype=torch.bfloat16)
+        loop = SpecLoop(model, None, fresh, None, 4, 13, -1, 3,
+                        ngram_draft=True)
+        assert loop.mega == (route == "k4")
+        loop.park()
+        replay = None
+        if graphed:
+            graph = StepGraph(lambda: loop.steps(2), lambda: loop.steps(1),
+                              cuda_device)
+            assert graph.verify_launches == (2 if route == "k4" else 0)
+            assert graph.launches == 0
+            replay = graph.replay
+        else:
+            loop.steps(1)          # the graph's warm-up round, eagerly
+        before = tm.MEGA_VERIFY_LAUNCHES
+        loop.start(prompt)
+        calls = loop.run(2, replay=replay)
+        res = loop.result()
+        if route == "k4":
+            assert tm.MEGA_VERIFY_LAUNCHES - before == calls
+        assert 0 < res.rounds <= calls
+        results.append((res, fresh.self_k.clone(), fresh.self_v.clone()))
+    (a, ak, av), (b, bk, bv) = results
+    for name in ("tokens", "num_generated", "sum_logprob", "token_logprobs",
+                 "no_speech_prob"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert a.rounds == b.rounds
+    assert torch.equal(ak, bk) and torch.equal(av, bv)
+
+
+def test_sampled_graph_replays_the_eager_steps(cuda_device):
+    """Sampled steps captured as a CUDA graph that registers the generator
+    and reads the temperature from a device scalar (as the engine's
+    sampled program does), replayed from the loop's state: for two seeds
+    at temperature 1 and one at 0.5 the tokens and numbers the same steps
+    draw eagerly, bit for bit, through K3 (batch 1, bf16, packed)."""
+    from thewhisper_tpu_torch.engine.decode import GreedyLoop
+    from thewhisper_tpu_torch.engine.graphs import StepGraph
+
+    model, cache = _k3_case(cuda_device, 4 + 13)
+    prompt = torch.tensor([[1, 2, 3, 4]], device=cuda_device)
+    gen = torch.Generator(cuda_device)
+    temperature = torch.ones((), device=cuda_device)
+    kw = {"temperature": temperature, "generator": gen}
+    loops = [GreedyLoop(model, tw.make_cache(K3_ARCH, 1, 4 + 13, cache.cross_k,
+                                             cache.cross_v, dtype=torch.bfloat16),
+                        4, 13, -1, capture_alignment=True) for _ in range(2)]
+    loops[1].park()
+    graph = StepGraph(lambda: loops[1].steps(4, **kw),
+                      lambda: loops[1].steps(1, **kw), cuda_device, gen)
+    assert graph.launches == 4
+    tokens = []
+    for seed, t in ((5, 1.0), (6, 1.0), (5, 0.5)):
+        temperature.fill_(t)
+        out = []
+        for loop, replay in zip(loops, (None, graph.replay)):
+            gen.manual_seed(seed)
+            loop.start(prompt, temperature, gen)
+            assert loop.run(4, replay=replay, **kw) == 12
+            out.append(loop.result())
+        for name in ("tokens", "num_generated", "sum_logprob", "align",
+                     "token_logprobs", "no_speech_prob"):
+            assert torch.equal(getattr(out[0], name), getattr(out[1], name)), name
+        tokens.append(out[0].tokens.clone())
+    assert not torch.equal(tokens[0], tokens[1])
 
 
 def _rel(got, ref):

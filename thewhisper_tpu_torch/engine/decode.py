@@ -23,13 +23,20 @@ int8 cross K/V, where ``ops.mega_step.mega_pays``) goes to
 ``mega_decoder_step``, as the JAX loop sends it to its decode megakernel,
 with the position as K3's device operand. Beam search uses
 ``decoder_step`` only, as JAX's does. Sampling (``temperature > 0``)
-draws from a ``torch.Generator`` and stays eager: the engine captures no
-graph of it. Speculative decoding is ``engine.speculative``.
+draws from a ``torch.Generator`` on the device by the exponential race
+(``torch.multinomial``'s one-sample draw, without its host check of the
+probabilities), so a sampled step is captured and replayed like a greedy
+one: a graph registers the generator and replays its draws from the
+generator's seed and offset at each replay, the eager draws' sequence.
+The temperature may be a 0-dim device tensor, which a graph reads at
+each replay: the engine's one sampled program serves every temperature.
+Speculative decoding is ``engine.speculative``'s ``SpecLoop``, a loop of
+the same pattern.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -148,6 +155,19 @@ class _Loop:
             self.align.zero_()
             self.align[:, :, :self.p] = align_p.transpose(1, 2)
 
+    def _put_align(self, slot: torch.Tensor, rows: torch.Tensor,
+                   ok: torch.Tensor) -> None:
+        """Alignment ``rows`` (rows, A, T) into slot ``slot`` ((1,) or
+        (rows,) device index) of each row where ``ok`` ((1,) or (rows,)),
+        else unchanged; a slot past the buffer is dropped."""
+        if not self.capture:
+            return
+        n, a, _, t = self.align.shape
+        idx = slot.clamp(max=self.s_tok - 1).view(-1, 1, 1, 1).expand(n, a, 1, t)
+        keep = (ok & (slot < self.s_tok)).view(-1, 1, 1)
+        old = self.align.gather(2, idx)[:, :, 0]
+        self.align.scatter_(2, idx, torch.where(keep, rows, old)[:, :, None])
+
     def _active(self, done: torch.Tensor) -> torch.Tensor:
         """(1,) bool: the JAX loop's condition, on the device."""
         return (self.step < self.max_new) & ~done.all()
@@ -211,18 +231,26 @@ class GreedyLoop(_Loop):
         self.token_lp = torch.zeros(b, max_new_tokens, device=dev)
         self.no_speech_prob = torch.zeros(b, device=dev)
 
-    def _pick(self, logits: torch.Tensor, first: bool, temperature: float,
+    def _pick(self, logits: torch.Tensor, first: bool,
+              temperature: Union[float, torch.Tensor],
               generator: Optional[torch.Generator]):
+        """The next tokens and their logprobs: the argmax, or a draw at
+        ``temperature`` (a float > 0, or a 0-dim device tensor, which a
+        graph reads at each replay)."""
         x = _masked(logits, self.suppress, self.begin_suppress, first)
         logprobs = torch.log_softmax(x, dim=-1)
-        if temperature:
+        if torch.is_tensor(temperature) or temperature:
+            # torch.multinomial's one-sample draw (p / q, q ~ Exp(1), its
+            # argmax) without its host read of the probabilities' range.
             probs = torch.softmax(x / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            q = torch.empty_like(probs).exponential_(1, generator=generator)
+            nxt = torch.argmax(probs / q, dim=-1)
         else:
             nxt = torch.argmax(x, dim=-1)
         return nxt, logprobs.gather(-1, nxt[:, None])[:, 0]
 
-    def start(self, prompt: torch.Tensor, temperature: float = 0.0,
+    def start(self, prompt: torch.Tensor,
+              temperature: Union[float, torch.Tensor] = 0.0,
               generator: Optional[torch.Generator] = None) -> None:
         """Prefill ``prompt`` (B, P) and set the state to step 1."""
         p = self.p
@@ -242,7 +270,7 @@ class GreedyLoop(_Loop):
         self.step.fill_(1)
         self.calls = 0
 
-    def _step(self, temperature: float = 0.0,
+    def _step(self, temperature: Union[float, torch.Tensor] = 0.0,
               generator: Optional[torch.Generator] = None) -> None:
         b = self.tokens.shape[0]
         active = self._active(self.done)
@@ -263,10 +291,7 @@ class GreedyLoop(_Loop):
             active, self.sum_lp + torch.where(finished, 0.0, lp), self.sum_lp))
         _set_column(self.token_lp, self.step.clamp(max=self.max_new - 1),
                     torch.where(self.done, 0.0, lp), active)
-        if self.capture:
-            old = self.align.index_select(2, pos)[:, :, 0]
-            self.align.index_copy_(
-                2, pos, torch.where(active, align_step, old)[:, :, None])
+        self._put_align(pos, align_step, active)
         self.done.copy_(torch.where(active, finished, self.done))
         self.step.add_(active.long())
 
@@ -295,7 +320,8 @@ def greedy_decode(
 ) -> GreedyResult:
     """Greedy (``temperature == 0``) or sampled decode, eagerly, the host
     reading the loop's flag once every ``steps_per_check`` steps (the
-    outputs do not depend on it). Sampling draws from ``generator`` (a
+    outputs do not depend on it, sampled tokens included: a step past the
+    stop draws, and changes nothing). Sampling draws from ``generator`` (a
     ``torch.Generator`` on the model's device)."""
     loop = GreedyLoop(model, cache, prompt.shape[1], max_new_tokens, eot,
                       suppress, begin_suppress, capture_alignment,
@@ -406,10 +432,7 @@ class BeamLoop(_Loop):
         pos = self.p + self.step - 1
         last = self.tokens.view(b * k, -1).gather(1, pos.expand(b * k, 1))
         logits, _, align_step = decoder_step(self.model, last, pos, self.cache)
-        if self.capture:
-            old = self.align.index_select(2, pos)[:, :, 0]
-            self.align.index_copy_(
-                2, pos, torch.where(active, align_step, old)[:, :, None])
+        self._put_align(pos, align_step, active)
         logp = self._logprobs(logits, False, self.done)
         new_sum, parent, tok, rows = self._select(self.sum_lp, logp)
         rows = torch.where(active, rows, self._identity)

@@ -1,13 +1,13 @@
 """WhisperEngine: features or audio in, decoded tokens out (port of
 thewhisper_tpu's ``engine/engine.py``).
 
-A call (a speculative one excepted) pads its batch up to a bucket
-(``batch_buckets``, JAX's ``DEFAULT_BATCH_BUCKETS``), featurizes (the K1
-kernel on the card), encodes (K2 in every encoder layer), computes the
-cross K/V, prefills the
-prompt and runs the greedy, sampled or beam loop (``engine.decode``), then
-copies the result to the host, cut back to the batch, as an
-:class:`EngineResult` with the JAX engine's fields.
+A call pads its batch up to a bucket (``batch_buckets``, JAX's
+``DEFAULT_BATCH_BUCKETS``), featurizes (the K1 kernel on the card),
+encodes (K2 in every encoder layer), computes the cross K/V, prefills the
+prompt and runs the greedy, sampled, beam or speculative loop
+(``engine.decode``, ``engine.speculative``), then copies the result to
+the host, cut back to the batch, as an :class:`EngineResult` with the JAX
+engine's fields.
 
 Every call is a dispatch and a decode, as in the JAX engine: the
 ``*_async`` entry points return a :class:`PendingResult` with the call's
@@ -27,24 +27,27 @@ under one handle, where JAX compiles a scan.
 
 The decode loop runs on a program kept for each static shape, keyed as
 JAX's ``_jit_cache`` is (bucket, mel frames, prompt length, new tokens,
-timestamps, beams): its own self cache, cross K/V (computed into it layer
-by layer, quantized there in the "S" modes, tiled per beam), tokens,
-alignment and loop state. The engine keeps the programs :meth:`warmup`
-made and the ``MAX_PROGRAMS`` others used last, and frees the rest's
-buffers and graphs. On the card a greedy
-(temperature 0) or beam call replays a CUDA graph of ``STEPS_PER_CHECK``
-steps (``engine.graphs``), captured at the key's first call or by
-:meth:`WhisperEngine.warmup`, the host reading the stop flag between
-replays; the encoder and the prefill stay eager. ``cuda_graphs=False``
-runs the same steps eagerly, as a CPU engine always does, and so does a
-sampled call (its generator stays eager).
+timestamps, beams; a sampled or speculative key adds whether it samples
+and the speculative mode, "proposals", "ngram" or "draft"): its own self
+cache (and a model draft's), cross K/V (computed into it layer by layer,
+quantized there in the "S" modes, tiled per beam), tokens, alignment and
+loop state. The engine keeps the programs :meth:`warmup` made and the
+``MAX_PROGRAMS`` others used last, and frees the rest's buffers and
+graphs. On the card every call replays a CUDA graph of its loop
+(``engine.graphs``): ``STEPS_PER_CHECK`` greedy, sampled or beam steps or
+``ROUNDS_PER_CHECK`` speculative rounds, captured at the key's first call
+or by :meth:`WhisperEngine.warmup`, the host reading the stop flag
+between replays; the encoder and the prefill stay eager. A capture that
+fails raises. ``cuda_graphs=False`` runs the same steps eagerly, as a
+CPU engine always does.
 
 The "S" modes quantize the model (``models.quant``) and the cross K/V,
 and a batch-1 bf16 "S" engine, at any decoder depth, decodes through the
 K3 kernel (``ops.mega_step``), its position a device operand. With a
 draft model, ngram drafting or proposal tokens a greedy call decodes
-speculatively and eagerly (``engine.speculative``; its batch-1 "S" verify
-rounds run K4). Int4 is not ported.
+speculatively (``engine.speculative``; the verify rounds of a batch-1 "S"
+call without timestamps run K4 at a device window position). Int4 is not
+ported.
 """
 
 from __future__ import annotations
@@ -82,9 +85,10 @@ from thewhisper_tpu_torch.engine.decode import (
 )
 from thewhisper_tpu_torch.engine.graphs import StepGraph
 from thewhisper_tpu_torch.engine.speculative import (
+    ROUNDS_PER_CHECK,
+    SpecLoop,
     load_draft,
     make_layer_skip_draft,
-    speculative_decode,
 )
 from thewhisper_tpu_torch.models.quant import (
     QuantizedKV,
@@ -175,9 +179,9 @@ class EngineResult(NamedTuple):
     token_logprobs: Optional[np.ndarray] = None  # (B, max_new)
     no_speech_prob: Optional[np.ndarray] = None  # (B,)
     spec_rounds: Optional[int] = None  # verify rounds run (speculative)
-    # Step calls the greedy or beam loop ran (each one K3 launch on the K3
-    # route; up to STEPS_PER_CHECK - 1 of them after the stop, which change
-    # nothing); None when speculative.
+    # Step calls the greedy, sampled or beam loop ran (each one K3 launch
+    # on the K3 route; up to STEPS_PER_CHECK - 1 of them after the stop,
+    # which change nothing); None when speculative.
     decode_steps: Optional[int] = None
 
 
@@ -277,25 +281,30 @@ class PendingGroup:
 
 class _Program:
     """The decode loop of one static shape ``key`` = (bucket, mel frames,
-    prompt length, new tokens, timestamps, beams) over ``t_enc`` encoder
-    frames: its buffers on the device and, once captured, the CUDA graph of
-    ``steps`` of its steps. ``seconds`` and ``bytes``: the wall time to make
-    it (buffers and capture) and the device memory it holds (its buffers,
-    and the graph's private pool)."""
+    prompt length, new tokens, timestamps, beams), or that plus (sampled,
+    speculative mode) for a sampled or speculative call, over ``t_enc``
+    encoder frames: its buffers on the device and, once captured, the
+    CUDA graph of ``per_check`` of its steps or rounds. A sampled program
+    reads the call's temperature from a device scalar, so one graph
+    serves every temperature of the fallback ladder.
+    ``seconds`` and ``bytes``: the wall time to make it (buffers and
+    capture) and the device memory it holds (its buffers, and the graph's
+    private pool)."""
 
     def __init__(self, engine: "WhisperEngine", key: Tuple, t_enc: int):
-        bb, _, p, max_new, timestamps, beams = key
+        bb, _, p, max_new, timestamps, beams = key[:6]
+        sampled, mode = key[6:] if len(key) > 6 else (False, None)
         self.key = key
         self.model = engine.model
+        self.draft = engine.draft_model if mode == "draft" else None
         self.device = engine.device
         self.graph: Optional[StepGraph] = None
         arch = engine.arch
         rows = bb * beams
-        shape = (arch.decoder_layers, rows, arch.decoder_heads, t_enc,
-                 arch.head_dim)
 
-        def cross():
-            if engine.cross_kv_int8:
+        def cross(a: WhisperArch, quantized: bool):
+            shape = (a.decoder_layers, rows, a.decoder_heads, t_enc, a.head_dim)
+            if quantized:
                 return QuantizedKV(
                     torch.empty(shape, dtype=torch.int8, device=self.device),
                     torch.empty(shape[:3] + shape[4:], device=self.device))
@@ -305,13 +314,30 @@ class _Program:
         cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
         a0 = torch.cuda.memory_allocated(self.device) if cuda else 0
-        self.cache = make_cache(arch, rows, p + max_new, cross(), cross(),
-                                dtype=engine.compute_dtype)
+        w = engine.spec_window
+        slots = p + max_new + (w + 1 if mode else 0)
+        q = engine.cross_kv_int8
+        self.cache = make_cache(arch, rows, slots, cross(arch, q),
+                                cross(arch, q), dtype=engine.compute_dtype)
         common = dict(suppress=engine._suppress,
                       begin_suppress=engine._begin_suppress,
                       capture_alignment=timestamps,
                       no_speech_id=engine.special.no_speech)
-        if beams > 1:
+        self.per_check = ROUNDS_PER_CHECK if mode else STEPS_PER_CHECK
+        self.temperature = (torch.ones((), device=self.device) if sampled
+                            else 0.0)
+        self.generator = torch.Generator(self.device) if sampled else None
+        if mode:
+            d_cache = None
+            if self.draft is not None:
+                d = self.draft.arch
+                d_cache = make_cache(d, rows, slots, cross(d, False),
+                                     cross(d, False))
+            self.loop = SpecLoop(engine.model, self.draft, self.cache, d_cache,
+                                 p, max_new, engine.special.eot, w,
+                                 ngram_draft=mode == "ngram",
+                                 proposals=mode == "proposals", **common)
+        elif beams > 1:
             self.loop = BeamLoop(engine.model, self.cache, p, beams,
                                  max_new, engine.special.eot, **common)
         else:
@@ -326,7 +352,8 @@ class _Program:
         rows) into the program's, a layer at a time (quantized there in the
         "S" modes: ``quantize_kv`` reduces over frames alone, so a layer's
         scales are those of the whole stack), each row repeated for every
-        beam (JAX's ``jnp.repeat`` on the batch axis)."""
+        beam (JAX's ``jnp.repeat`` on the batch axis); a model draft's from
+        its own projections, in the compute type."""
         beams = self.key[5]
         for l, kv in enumerate(cross_kv_layers(self.model, enc)):
             for src, dst in zip(kv, (self.cache.cross_k, self.cache.cross_v)):
@@ -338,29 +365,47 @@ class _Program:
                 for a, b in pairs:
                     b.view(a.shape[0], beams, *b.shape[1:]).copy_(
                         a.unsqueeze(1))
+        if self.draft is not None:
+            dc = self.loop.draft_cache
+            for l, (k, v) in enumerate(cross_kv_layers(self.draft, enc)):
+                dc.cross_k[l].copy_(k)
+                dc.cross_v[l].copy_(v)
 
-    def capture(self, steps: int) -> None:
-        """Capture ``steps`` step calls of the parked loop (every step a
-        no-op until :meth:`decode` starts it), after one warm-up step."""
-        loop = self.loop
+    def capture(self, steps: Optional[int] = None) -> None:
+        """Capture ``steps`` (``per_check``) step calls of the parked loop
+        (every step a no-op until :meth:`decode` starts it), after one
+        warm-up step; a sampled loop's graph registers its generator."""
+        loop, kw = self.loop, self._step_args()
+        steps = steps or self.per_check
         loop.park()
         t0 = time.perf_counter()
-        self.graph = StepGraph(
-            lambda: loop.steps(steps), lambda: loop.steps(1), self.device)
+        gens = (self.generator,) if self.generator is not None else ()
+        self.graph = StepGraph(lambda: loop.steps(steps, **kw),
+                               lambda: loop.steps(1, **kw), self.device, *gens)
         self.seconds += time.perf_counter() - t0
         self.bytes += self.graph.bytes
 
-    def decode(self, prompt: torch.Tensor, temperature: float = 0.0,
-               generator: Optional[torch.Generator] = None):
+    def _step_args(self) -> dict:
+        if isinstance(self.loop, GreedyLoop):
+            return {"temperature": self.temperature,
+                    "generator": self.generator}
+        return {}
+
+    def decode(self, prompt: torch.Tensor, seed: int = 0,
+               proposals: Optional[torch.Tensor] = None,
+               temperature: float = 0.0):
         loop = self.loop
-        if isinstance(loop, BeamLoop):
+        if isinstance(loop, SpecLoop):
+            loop.start(prompt, proposals)
+        elif isinstance(loop, BeamLoop):
             loop.start(prompt)
-            kw = {}
         else:
-            loop.start(prompt, temperature, generator)
-            kw = {"temperature": temperature, "generator": generator}
-        replay = None if (self.graph is None or temperature) else self.graph.replay
-        loop.run(STEPS_PER_CHECK, replay=replay, **kw)
+            if self.generator is not None:
+                self.generator.manual_seed(seed)
+                self.temperature.fill_(temperature)
+            loop.start(prompt, self.temperature, self.generator)
+        replay = self.graph.replay if self.graph is not None else None
+        loop.run(self.per_check, replay=replay, **self._step_args())
         return loop.result()
 
 
@@ -383,17 +428,18 @@ class WhisperEngine:
     compute type. ``draft_int8`` quantizes the draft's decoder (weight-only
     int8, in place; layers it shares with the target are copied first).
 
-    A greedy, sampled or beam call is padded up to the nearest of
-    ``batch_buckets`` (:meth:`_speculative` says why a speculative one is
-    not). On the card (``cuda_graphs``), greedy and beam calls replay a
-    CUDA graph of ``STEPS_PER_CHECK`` decode steps for each static shape,
-    captured at its first call or by :meth:`warmup`; ``cuda_graphs=False``
-    runs the same steps eagerly. The host reads the loop's stop flag once
-    every ``STEPS_PER_CHECK`` steps either way, and the outputs do not
-    depend on it. The device buffers and graph of each static shape stay
-    with the engine for its next call of that shape, for the
-    ``MAX_PROGRAMS`` shapes used last; making one more frees the least
-    recently used."""
+    Every call is padded up to the nearest of ``batch_buckets``, as JAX
+    pads it (a speculative call's padded rows get zero proposals and cost
+    rounds, as in JAX). On the card (``cuda_graphs``), every call replays
+    a CUDA graph of ``STEPS_PER_CHECK`` decode steps (``ROUNDS_PER_CHECK``
+    speculative rounds) for each static shape, captured at its first call
+    or by :meth:`warmup`; ``cuda_graphs=False`` runs the same steps
+    eagerly. The host reads the loop's stop flag once every
+    ``STEPS_PER_CHECK`` steps (``ROUNDS_PER_CHECK`` rounds) either way,
+    and the outputs do not depend on it. The device buffers and graph of
+    each static shape stay with the engine for its next call of that
+    shape, for the ``MAX_PROGRAMS`` shapes used last; making one more
+    frees the least recently used."""
 
     def __init__(
         self,
@@ -507,17 +553,32 @@ class WhisperEngine:
         bb = _bucket_batch(x.shape[0], self.batch_buckets)
         return x if bb == x.shape[0] else _pad_batch(x, bb)
 
-    def _speculative(self, options: GenerationOptions, draft_tokens) -> bool:
-        """Whether a call decodes speculatively: greedy, with a draft model,
-        ngram drafting or proposal tokens. Such a call runs eagerly and is
-        not padded to a bucket (no program is shared by a bucket's shapes,
-        and a padded row's zero proposals would cost a verify round a
-        token); JAX pads it for its compiled program. Its rows' tokens are
-        greedy's either way; its verify-round count may differ from JAX's
-        at a batch that is no bucket."""
-        return (options.num_beams == 1 and not options.temperature and (
-            self.draft_model is not None or self.spec_ngram
-            or draft_tokens is not None))
+    def _spec_mode(self, options: GenerationOptions,
+                   draft_tokens) -> Optional[str]:
+        """How a call decodes speculatively ("proposals", "ngram" or
+        "draft"), or None: only greedy calls do, with proposal tokens, an
+        ngram engine or a draft model (proposals first)."""
+        if options.num_beams != 1 or options.temperature:
+            return None
+        if draft_tokens is not None:
+            return "proposals"
+        if self.spec_ngram:
+            return "ngram"
+        return "draft" if self.draft_model is not None else None
+
+    def _key(self, bb: int, mel_frames: int, p: int,
+             options: GenerationOptions, mode: Optional[str]) -> Tuple:
+        """A call's program key: JAX's ``_generate_fn`` key (bucket, mel
+        frames, prompt length, new tokens, timestamps, beams), with whether
+        it samples and its proposals flag (here the speculative mode) added
+        where they are not False and None. JAX keys the temperature itself;
+        here a sampled program reads it from the device, so the rungs of
+        the fallback ladder share one program and its memory."""
+        beams = options.num_beams
+        sampled = beams == 1 and bool(options.temperature)
+        key = (bb, mel_frames, p, options.max_new_tokens,
+               bool(options.return_timestamps), beams)
+        return key + (sampled, mode) if sampled or mode else key
 
     def _prep_proposals(self, draft_tokens, options: GenerationOptions,
                         b: int) -> Optional[torch.Tensor]:
@@ -560,10 +621,8 @@ class WhisperEngine:
         t0 = time.perf_counter()
         mel = self._features(mel)
         b = mel.shape[0]
-        if not self._speculative(options, draft_tokens):
-            mel = self._padded(mel)
-        return self._dispatch(mel, False, b, options, languages, t0,
-                              draft_tokens)
+        return self._dispatch(self._padded(mel), False, b, options, languages,
+                              t0, draft_tokens)
 
     def transcribe_features(
         self,
@@ -584,10 +643,9 @@ class WhisperEngine:
         if x.ndim == 1:
             x = x[None]
         b = x.shape[0]
-        if not self._speculative(options, draft_tokens):
-            x = self._padded(x)       # before featurizing, as JAX pads
-        return self._dispatch(x, True, b, options, languages, t0,
-                              draft_tokens)
+        # Padded before featurizing, as JAX pads.
+        return self._dispatch(self._padded(x), True, b, options, languages,
+                              t0, draft_tokens)
 
     def transcribe_audio(
         self,
@@ -663,12 +721,9 @@ class WhisperEngine:
         languages: Optional[Sequence[str]] = None,
     ) -> PendingResult:
         """Dispatch a batch of long-form windows by offset, padded to its
-        bucket by repeating the last offset (a speculative engine's call is
-        not padded); greedy only."""
+        bucket by repeating the last offset; greedy only."""
         _greedy_only("transcribe_windows_async", options)
-        b = len(offsets)
-        rows = (b if self._speculative(options, None)
-                else _bucket_batch(b, self.batch_buckets))
+        rows = _bucket_batch(len(offsets), self.batch_buckets)
         return self._windows(full_audio, offsets, rows, win_samples,
                              bucket_samples, options, languages,
                              time.perf_counter())
@@ -752,9 +807,9 @@ class WhisperEngine:
     def _dispatch(self, x: torch.Tensor, audio: bool, b: int,
                   options: GenerationOptions, languages, t0: float,
                   draft_tokens=None, count: bool = True) -> PendingResult:
-        """A handle for ``x`` (bb rows: the call's ``b``, padded unless
-        speculative), its encoder queued now if no other handle is
-        pending, else left for the next decode to queue."""
+        """A handle for ``x`` (bb rows: the call's ``b``, padded), its
+        encoder queued now if no other handle is pending, else left for
+        the next decode to queue."""
         if options.num_beams < 1:
             raise ValueError(f"num_beams {options.num_beams} < 1")
         handle = PendingResult(self, x, audio, b, options, languages, t0,
@@ -788,47 +843,21 @@ class WhisperEngine:
 
     def _decode_call(self, handle: PendingResult, enc: torch.Tensor):
         """The decode of ``handle``'s call on its encoder states ``enc``
-        (bb rows): the key's program, or the eager speculative loop.
-        Returns (result on the device, prompt length)."""
+        (bb rows) by its key's program. Returns (result on the device,
+        prompt length)."""
         options = handle.options
         bb = enc.shape[0]
-        max_new = options.max_new_tokens
-        beams = options.num_beams
-        temperature = float(options.temperature) if beams == 1 else 0.0
         props = self._prep_proposals(handle.draft_tokens, options, bb)
         prompt = self._device_prompt(options, bb, handle.languages)
         p = prompt.shape[1]
+        key = self._key(bb, handle.mel_frames, p, options,
+                        self._spec_mode(options, props))
         with torch.inference_mode():
-            if not self._speculative(options, props):
-                key = (bb, handle.mel_frames, p, max_new,
-                       bool(options.return_timestamps), beams)
-                return self._decode(key, enc, prompt, temperature,
-                                    options.seed), p
-            ck, cv = compute_cross_kv(self.model, enc)
-            if self.cross_kv_int8:
-                ck, cv = quantize_kv(ck), quantize_kv(cv)
-            common = dict(suppress=self._suppress,
-                          begin_suppress=self._begin_suppress,
-                          capture_alignment=options.return_timestamps,
-                          no_speech_id=self.special.no_speech)
-            w = self.spec_window
-            s_cap = p + max_new + w + 1
-            cache = make_cache(self.arch, bb, s_cap, ck, cv,
-                               dtype=self.compute_dtype)
-            draft = d_cache = None
-            if props is None and not self.spec_ngram:
-                draft = self.draft_model
-                dck, dcv = (kv.to(self.compute_dtype)
-                            for kv in compute_cross_kv(draft, enc))
-                d_cache = make_cache(draft.arch, bb, s_cap, dck, dcv)
-            return speculative_decode(
-                self.model, draft, prompt, cache, d_cache, max_new,
-                self.special.eot, spec_window=w,
-                ngram_draft=self.spec_ngram and props is None,
-                proposal_tokens=props, **common), p
+            return self._decode(key, enc, prompt, options, props), p
 
     def _decode(self, key: Tuple, enc: torch.Tensor, prompt: torch.Tensor,
-                temperature: float, seed: int):
+                options: GenerationOptions,
+                proposals: Optional[torch.Tensor]):
         """The loop of ``key``'s program on this call's encoder states and
         prompt: a graph replayed where the engine takes graphs (captured
         now if the key has none yet), else eager steps. A new program frees
@@ -842,12 +871,10 @@ class WhisperEngine:
             prog = _Program(self, key, enc.shape[1])
         self._programs[key] = prog
         prog.load(enc)
-        if self.cuda_graphs and not temperature and prog.graph is None:
-            prog.capture(STEPS_PER_CHECK)
-        generator = None
-        if temperature:
-            generator = torch.Generator(self.device).manual_seed(seed)
-        return prog.decode(prompt, temperature, generator)
+        if self.cuda_graphs and prog.graph is None:
+            prog.capture()
+        return prog.decode(prompt, options.seed, proposals,
+                           float(options.temperature))
 
     def _unpack(self, res, b: int, p: int, options: GenerationOptions,
                 t0: float, then=None, count: bool = True) -> EngineResult:
@@ -882,23 +909,29 @@ class WhisperEngine:
 
     def warmup(self, t_mel: int, batches: Sequence[int] = (1,),
                max_new_tokens: int = 128, timestamps: bool = True,
-               num_beams: int = 1) -> None:
+               num_beams: int = 1, proposals: bool = False) -> None:
         """Make the decode programs (on the card: capture their graphs) of
         the buckets of ``batches`` at ``t_mel`` mel frames, by one call of
         zeros each, so that a request of those shapes never pays a capture
-        (JAX's ``warmup``, which compiles). The engine keeps them whatever
-        it makes after (``MAX_PROGRAMS`` bounds the others)."""
+        (JAX's ``warmup``, which compiles). ``proposals=True`` also makes
+        the proposal-token programs (calls with ``draft_tokens``, the
+        streaming path's cross-tick reuse) of a greedy warm-up. The engine
+        keeps them whatever it makes after (``MAX_PROGRAMS`` bounds the
+        others)."""
         for b in batches:
             opts = GenerationOptions(
                 max_new_tokens=max_new_tokens, return_timestamps=timestamps,
                 num_beams=num_beams)
-            if not self._speculative(opts, None):
-                bb = _bucket_batch(b, self.batch_buckets)
-                p = len(self.build_prompt(opts.language, opts.task))
-                self._warm_keys.add(
-                    (bb, t_mel, p, max_new_tokens, bool(timestamps), num_beams))
+            p = len(self.build_prompt(opts.language, opts.task))
+            bb = _bucket_batch(b, self.batch_buckets)
             mel = np.zeros((b, self.arch.n_mels, t_mel), np.float32)
-            self.transcribe_features(mel, opts)
+            drafts = [None]
+            if proposals and self._spec_mode(opts, True) == "proposals":
+                drafts.append(np.zeros((b, max_new_tokens), np.int64))
+            for dt in drafts:
+                self._warm_keys.add(
+                    self._key(bb, t_mel, p, opts, self._spec_mode(opts, dt)))
+                self.transcribe_features(mel, opts, draft_tokens=dt)
 
     def programs(self) -> list:
         """One dict a decode program, the one used last at the end: its

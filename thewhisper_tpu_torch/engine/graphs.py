@@ -7,11 +7,18 @@ position from the device) once, after a warm-up, and replays it. Nothing
 in a captured step reads back to the host, so a replay is one launch of
 the whole run; a capture that fails raises (no eager fallback).
 
-K3's wrapper counts its launches in ``ops.mega_step.MEGA_LAUNCHES`` when
-it launches; a replay launches what the capture recorded without passing
-through the wrapper, so the graph adds that to the counter at each
-replay, and the capture itself, which launches nothing, leaves it as it
-was.
+K3's and K4's wrappers count their launches in
+``ops.mega_step.MEGA_LAUNCHES`` and ``MEGA_VERIFY_LAUNCHES`` when they
+launch; a replay launches what the capture recorded without passing
+through the wrappers, so the graph adds that to the counters at each
+replay, and the capture itself, which launches nothing, leaves them as
+they were.
+
+A captured step that draws random numbers (a sampled step) draws from a
+``torch.Generator`` that the graph registers (``generators``): each
+replay then reads the generator's seed and offset when it runs and
+advances the offset as the eager draws would, so a replay draws what the
+same steps draw eagerly, for whatever seed the generator holds.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ class StepGraph:
     ``capture_s`` is the capture's wall time, ``bytes`` the device memory
     the caching allocator reserved for the graph's private pool (the
     capture empties the allocator's cache first, as ``torch.cuda.graph``
-    does, so that the difference is the pool's)."""
+    does, so that the difference is the pool's). ``launches`` and
+    ``verify_launches`` are K3's and K4's launches a replay makes."""
 
     def __init__(self, run: Callable[[], None], warm: Callable[[], None],
-                 device: torch.device):
+                 device: torch.device, *generators: torch.Generator):
         self.device = device
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -44,17 +52,20 @@ class StepGraph:
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
-        before = mega_step.MEGA_LAUNCHES
+        before = (mega_step.MEGA_LAUNCHES, mega_step.MEGA_VERIFY_LAUNCHES)
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
         try:
             with torch.cuda.graph(self.graph):
                 run()
         finally:
             # What one replay launches.
-            self.launches = mega_step.MEGA_LAUNCHES - before
-            mega_step.MEGA_LAUNCHES = before
+            self.launches = mega_step.MEGA_LAUNCHES - before[0]
+            self.verify_launches = mega_step.MEGA_VERIFY_LAUNCHES - before[1]
+            mega_step.MEGA_LAUNCHES, mega_step.MEGA_VERIFY_LAUNCHES = before
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
         self.bytes = torch.cuda.memory_reserved(device) - reserved
@@ -62,3 +73,4 @@ class StepGraph:
     def replay(self) -> None:
         self.graph.replay()
         mega_step.MEGA_LAUNCHES += self.launches
+        mega_step.MEGA_VERIFY_LAUNCHES += self.verify_launches

@@ -17,12 +17,16 @@ caller-supplied proposal tokens. The bookkeeping (accept count, bonus
 token, the first EOT in the accepted run, the in-budget logprob sum, the
 final EOT fill) is the JAX loop's, so the round count matches it too.
 
-The loop runs on the host, one round per iteration, and reads back one
-small tensor a round: the all-done flag and, on the K4 route, the batch-1
-window position. A batch-1 bf16 decode of a model packed for K3/K4 (an "S"
-engine with int8 cross K/V) without alignment capture and with W + 1 <= 16
-sends each verify round to ``ops.mega_step.mega_decoder_verify`` (K4), as
-the JAX loop sends it to its verify megakernel.
+JAX runs the loop as one ``lax.while_loop``. Here :class:`SpecLoop` keeps
+its state in device tensors, as ``engine.decode``'s loops do, and a round
+is the same function on fixed shapes that reads nothing back to the host
+(``decoder_verify``'s cache write and K4's window position live on the
+device): the engine captures rounds into a CUDA graph and replays them,
+the host reading the stop flag between replays. A batch-1 bf16 decode of a
+model packed for K3/K4 (an "S" engine with int8 cross K/V) without
+alignment capture and with W + 1 <= 16 sends each verify round to
+``ops.mega_step.mega_decoder_verify`` (K4), as the JAX loop sends it to
+its verify megakernel.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 import torch.nn as nn
 
 from thewhisper_tpu_torch.config import WhisperArch
-from thewhisper_tpu_torch.engine.decode import GreedyResult
+from thewhisper_tpu_torch.engine.decode import GreedyResult, _Loop, _masked
 from thewhisper_tpu_torch.models.quant import (
     Int8Embedding,
     QuantizedKV,
@@ -49,6 +53,13 @@ from thewhisper_tpu_torch.models.whisper import (
     decoder_verify,
 )
 from thewhisper_tpu_torch.ops.mega_step import MAX_WINDOW, mega_decoder_verify
+
+# Rounds between two host reads of the loop's stop flag. A round is a
+# verify pass of the whole decoder (and, with a model draft, W + 1 draft
+# passes): more than the read it would save (about 0.035 ms, PERF.md §6),
+# so the host reads the flag after every round and no round runs past
+# the stop (K4's launches are then the verify rounds).
+ROUNDS_PER_CHECK = 1
 
 
 def make_layer_skip_draft(model: Whisper, n_layers: int) -> Whisper:
@@ -206,6 +217,217 @@ def ngram_propose(tokens: torch.Tensor, feed_pos: torch.Tensor,
     return tokens.gather(1, rows)
 
 
+class SpecLoop(_Loop):
+    """The speculative loop over ``cache`` (B rows of at least
+    P + max_new + W + 1 slots, the cross K/V in place) and, for a model
+    draft, ``draft_cache`` (the same slots, the draft's cross K/V in
+    place): :meth:`start` prefills and picks the first token, :meth:`run`
+    runs rounds to the stop, :meth:`result` reads the outputs. The state
+    lives in device tensors: the token buffer, accepted counts, done
+    flags, logprob sums, per-token logprobs, alignment and the round
+    counter. A round gates every write of the state on its row being
+    live, so with every row done it changes nothing (the self caches of
+    finished rows aside, which no output reads), and the host reads the
+    stop flag once every ``steps_per_check`` rounds without changing an
+    output; ``steps(n)``, n rounds, is what the engine captures into a
+    CUDA graph. As JAX's ``while_loop`` tests its condition first, a loop
+    whose rows are all done after the prefill runs no round.
+
+    ``ngram_draft`` drafts by prompt lookup; ``proposals`` takes the
+    drafts from a (B, max_new + W) buffer that :meth:`start` fills (model
+    free, either way: ``draft_model`` and ``draft_cache`` may be None).
+    A batch-1 bf16 loop of a model packed for K3/K4 (an "S" engine with
+    int8 cross K/V) without alignment capture and with W + 1 <= 16 sends
+    each verify to ``ops.mega_step.mega_decoder_verify`` (K4), its window
+    position the device tensor ``P + n_acc - 1``, clamped into the cache
+    (a round past the stop verifies somewhere, and writes nothing that is
+    read), as the JAX loop sends it to its verify megakernel."""
+
+    def __init__(self, model: Whisper, draft_model: Optional[Whisper],
+                 cache: DecodeCache, draft_cache: Optional[DecodeCache],
+                 prompt_len: int, max_new_tokens: int, eot: int,
+                 spec_window: int = 4, suppress=None, begin_suppress=None,
+                 capture_alignment: bool = False,
+                 no_speech_id: Optional[int] = None,
+                 ngram_draft: bool = False, proposals: bool = False):
+        super().__init__(model, cache, prompt_len, max_new_tokens, eot,
+                         suppress, begin_suppress, capture_alignment,
+                         no_speech_id)
+        w = self.w = spec_window
+        b = cache.self_k.shape[1]
+        s_buf = self.s_buf = cache.self_k.shape[3]
+        if s_buf < prompt_len + max_new_tokens + w + 1:
+            raise ValueError(
+                f"cache has {s_buf} slots; speculative decoding needs "
+                f"{prompt_len + max_new_tokens + w + 1}")
+        dev = self.device
+        self.draft_model, self.draft_cache = draft_model, draft_cache
+        self.proposals = (torch.zeros(b, max_new_tokens + w, dtype=torch.long,
+                                      device=dev) if proposals else None)
+        self.ngram = ngram_draft and not proposals
+        self.model_free = ngram_draft or proposals
+        # The JAX loop's verify-megakernel conditions; the engine packs the
+        # model (model.mega) only where mega_pays, so packed means it pays.
+        self.mega = (b == 1 and model.dtype == torch.bfloat16
+                     and not capture_alignment and w + 1 <= MAX_WINDOW
+                     and model.mega is not None
+                     and isinstance(cache.cross_k, QuantizedKV))
+        self.lp_buf = max_new_tokens + w + 1
+        self.tokens = torch.zeros(b, s_buf, dtype=torch.long, device=dev)
+        self.n_acc = torch.ones(b, dtype=torch.long, device=dev)
+        self.done = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.sum_lp = torch.zeros(b, device=dev)
+        self.token_lp = torch.zeros(b, self.lp_buf, device=dev)
+        self.no_speech_prob = torch.zeros(b, device=dev)
+        self._j = torch.arange(w + 1, device=dev)[None, :]
+
+    def _active(self, done: torch.Tensor) -> torch.Tensor:
+        """(1,) bool: the JAX loop's condition, on the device."""
+        return ~done.all().reshape(1)
+
+    def park(self) -> None:
+        """Make every round a no-op (every row done)."""
+        self.done.fill_(True)
+
+    def start(self, prompt: torch.Tensor,
+              proposals: Optional[torch.Tensor] = None) -> None:
+        """Prefill ``prompt`` (B, P) into the target's cache and a model
+        draft's, pick the first token and set the state to round 0.
+        ``proposals`` (B, >= max_new; row i the guessed i-th generated
+        token) fill the loop's proposal buffer, zero-padded or cut."""
+        p = self.p
+        logits_p, _, align_p = decoder_prefill(self.model, prompt, self.cache)
+        if not self.model_free:
+            decoder_prefill(self.draft_model, prompt, self.draft_cache)
+        self._start_align(align_p)
+        if self.proposals is not None:
+            n = min(proposals.shape[1], self.proposals.shape[1])
+            self.proposals.zero_()
+            self.proposals[:, :n] = proposals[:, :n]
+        x0 = _masked(logits_p[:, -1], self.suppress, self.begin_suppress, True)
+        first = x0.argmax(dim=-1)
+        first_lp = torch.log_softmax(x0, dim=-1).gather(1, first[:, None])[:, 0]
+        if self.no_speech_id is not None:
+            self.no_speech_prob.copy_(
+                torch.softmax(logits_p[:, 0], dim=-1)[:, self.no_speech_id])
+        self.tokens.zero_()
+        self.tokens[:, :p] = prompt
+        self.tokens[:, p] = first
+        self.done.copy_((first == self.eot) | (self.max_new <= 1))
+        self.token_lp.zero_()
+        self.token_lp[:, 0] = first_lp
+        self.sum_lp.copy_(torch.where(first == self.eot, 0.0, first_lp))
+        self.n_acc.fill_(1)
+        self.step.zero_()
+        self.calls = 0
+
+    def run(self, steps_per_check: int = ROUNDS_PER_CHECK, replay=None,
+            **kw) -> int:
+        """Rounds to the stop (``_Loop.run``), none if every row is done
+        after the prefill: one host read of the flag before the first."""
+        if not bool(self._active(self.done)):
+            return self.calls
+        return super().run(steps_per_check, replay, **kw)
+
+    def _draft(self, feed_pos: torch.Tensor, w0: torch.Tensor) -> torch.Tensor:
+        """The round's W drafted tokens (B, W)."""
+        w = self.w
+        if self.proposals is not None:
+            rows = (self.n_acc[:, None] + self._j[:, :w]).clamp(
+                max=self.proposals.shape[1] - 1)
+            return self.proposals.gather(1, rows)
+        if self.ngram:
+            return ngram_propose(self.tokens, feed_pos, w0, w)
+        # W + 1 steps, not W: the last only writes d_W's k/v into the draft
+        # cache. Without it a round that accepts the whole window leaves a
+        # hole below every later window start.
+        cur, outs = w0, []
+        for j in range(w + 1):
+            dl, _, _ = decoder_verify(self.draft_model, cur, feed_pos + j,
+                                      self.draft_cache)
+            cur = _masked(dl[:, 0], self.suppress, None, False).argmax(
+                dim=-1, keepdim=True)
+            outs.append(cur)
+        return torch.cat(outs[:w], dim=1)
+
+    def _step(self) -> None:
+        """One round: draft, verify, accept (the JAX loop's body)."""
+        w, eot, jidx = self.w, self.eot, self._j
+        live = ~self.done
+        n_acc = self.n_acc
+        feed_pos = self.p + n_acc - 1                        # (B,)
+        w0 = self.tokens.gather(1, feed_pos[:, None])
+        drafts = self._draft(feed_pos, w0)
+
+        # Verify the window in one target pass.
+        window = torch.cat([w0, drafts], dim=1)              # (B, W + 1)
+        if self.mega:
+            pos = feed_pos[:1].clamp(0, self.s_buf - w - 1)
+            vlogits, _, valign = mega_decoder_verify(
+                self.model, window, pos, self.cache, check=False)
+        else:
+            vlogits, _, valign = decoder_verify(self.model, window, feed_pos,
+                                                self.cache)
+        sl = _masked(vlogits, self.suppress, None, False)
+        pred = sl.argmax(dim=-1)                             # (B, W + 1)
+        logp = torch.log_softmax(sl, dim=-1)
+
+        match = pred[:, :w] == drafts
+        m = match.long().cumprod(dim=1).sum(dim=1)           # accepted drafts
+        bonus = pred.gather(1, m[:, None])
+        drafts_pad = torch.cat([drafts, drafts.new_zeros(drafts.shape[0], 1)],
+                               dim=1)
+        new_tok = torch.where(jidx < m[:, None], drafts_pad, bonus)
+        lp_tok = logp.gather(2, new_tok[:, :, None])[:, :, 0]
+
+        # Stop at the first EOT of the accepted run: written, not counted.
+        is_eot = (new_tok == eot) & (jidx <= m[:, None])
+        has_eot = is_eot.any(dim=1)
+        first_e = is_eot.long().argmax(dim=1)
+        n_new = torch.where(has_eot, first_e + 1, m + 1)     # tokens to write
+        wsel = (jidx < n_new[:, None]) & live[:, None]       # (B, W + 1)
+
+        # New tokens at feed_pos + 1 + j and logprobs at generated index
+        # n_acc + j: a live row's slots lie inside the buffers; a finished
+        # row's may clamp onto one slot, which each of them rewrites with
+        # what it held.
+        for buf, col, val in ((self.tokens, feed_pos[:, None] + 1 + jidx,
+                               new_tok),
+                              (self.token_lp, n_acc[:, None] + jidx, lp_tok)):
+            col = col.clamp(max=buf.shape[1] - 1)
+            buf.scatter_(1, col, torch.where(wsel, val, buf.gather(1, col)))
+        # Alignment rows j <= m at slot feed_pos + j, one column at a time.
+        fed = (jidx <= m[:, None]) & live[:, None]
+        for j in range(w + 1):
+            self._put_align(feed_pos + j, valign[:, j], fed[:, j])
+
+        # Greedy sums the non-EOT logprobs and never past max_new tokens
+        # (the last round may overshoot).
+        in_budget = n_acc[:, None] + jidx < self.max_new
+        inc = torch.where(wsel & in_budget & (new_tok != eot), lp_tok,
+                          0.0).sum(dim=1)
+        self.sum_lp.copy_(torch.where(live, self.sum_lp + inc, self.sum_lp))
+        self.step.add_(live.any().long())
+        n_acc.add_(torch.where(live, n_new, 0))
+        self.done.copy_(self.done | (has_eot & live)
+                        | (n_acc >= self.max_new))
+
+    def result(self) -> GreedyResult:
+        """The outputs (``rounds`` read from the device's round counter)."""
+        p, max_new = self.p, self.max_new
+        gen = self.tokens[:, p:p + max_new]
+        is_eot = gen == self.eot
+        stop = torch.where(is_eot.any(dim=1), is_eot.long().argmax(dim=1),
+                           max_new)
+        # Past the first EOT everything is EOT, as greedy keeps feeding it.
+        past = torch.arange(max_new, device=self.device)[None, :] > stop[:, None]
+        gen = torch.where(past, self.eot, gen)
+        toks = torch.cat([self.tokens[:, :p], gen], dim=1)
+        return GreedyResult(toks.int(), stop.int(), self.sum_lp, self.align,
+                            self.token_lp[:, :max_new], self.no_speech_prob,
+                            rounds=int(self.step))
+
+
 def speculative_decode(
     model: Whisper,
     draft_model: Optional[Whisper],
@@ -222,162 +444,17 @@ def speculative_decode(
     ngram_draft: bool = False,
     proposal_tokens: Optional[torch.Tensor] = None,  # (B, >= max_new) int
 ) -> GreedyResult:
-    """Greedy decode by draft and verify; the output is
-    ``greedy_decode``'s, with ``rounds`` the verify rounds run.
+    """Greedy decode by draft and verify, eagerly (a :class:`SpecLoop`
+    whose host reads the stop flag every ``ROUNDS_PER_CHECK`` rounds); the
+    output is ``greedy_decode``'s, with ``rounds`` the verify rounds run.
 
     ``proposal_tokens`` (row i: the guessed i-th generated token) take
     precedence over ``ngram_draft``; both need no draft model or cache
     (``draft_model`` and ``draft_cache`` may be None)."""
-    w = spec_window
-    b, p = prompt.shape
-    dev = prompt.device
-    s_buf = cache.self_k.shape[3]
-    if s_buf < p + max_new_tokens + w + 1:
-        raise ValueError(f"cache has {s_buf} slots; speculative decoding "
-                         f"needs {p + max_new_tokens + w + 1}")
-    ck = cache.cross_k
-    t_enc = (ck.q if isinstance(ck, QuantizedKV) else ck).shape[3]
-    n_align = max(1, len(model.arch.alignment_heads))
-    lp_buf = max_new_tokens + w + 1
-    model_free = ngram_draft or proposal_tokens is not None
-    if proposal_tokens is not None:
-        # Indexed by generated position; padded so that every read is in range.
-        proposal_tokens = torch.nn.functional.pad(
-            proposal_tokens.long(),
-            (0, max(0, max_new_tokens + w - proposal_tokens.shape[1])))
-    # The JAX loop's verify-megakernel conditions; the engine packs the
-    # model (model.mega) only where mega_pays, so packed means it pays.
-    use_mega = (b == 1 and model.dtype == torch.bfloat16
-                and not capture_alignment and w + 1 <= MAX_WINDOW
-                and model.mega is not None and isinstance(ck, QuantizedKV))
-
-    logits_p, cache, align_p = decoder_prefill(model, prompt, cache)
-    if not model_free:
-        decoder_prefill(draft_model, prompt, draft_cache)
-    if capture_alignment:
-        align = torch.zeros(b, n_align, s_buf, t_enc, device=dev)
-        align[:, :, :p] = align_p.transpose(1, 2)
-    else:
-        align = torch.zeros(b, 1, 1, 1, device=dev)
-
-    def masked(x, first: bool):
-        if suppress is not None:
-            x = x + suppress
-        if first and begin_suppress is not None:
-            x = x + begin_suppress
-        return x
-
-    x0 = masked(logits_p[:, -1], True)
-    first_tok = x0.argmax(dim=-1)
-    first_lp = torch.log_softmax(x0, dim=-1).gather(1, first_tok[:, None])[:, 0]
-    if no_speech_id is not None:
-        no_speech_prob = torch.softmax(logits_p[:, 0], dim=-1)[:, no_speech_id]
-    else:
-        no_speech_prob = torch.zeros(b, device=dev)
-
-    tokens = torch.zeros(b, s_buf, dtype=torch.long, device=dev)
-    tokens[:, :p] = prompt
-    tokens[:, p] = first_tok
-    done = (first_tok == eot) | (max_new_tokens <= 1)
-    token_lp = torch.zeros(b, lp_buf, device=dev)
-    token_lp[:, 0] = first_lp
-    sum_lp = torch.where(first_tok == eot, 0.0, first_lp)
-    n_acc = torch.ones(b, dtype=torch.long, device=dev)
-    rows_b = torch.arange(b, device=dev)
-    jidx = torch.arange(w + 1, device=dev)[None, :]
-    rounds = 0
-
-    while True:
-        # One read-back a round: all done, and row 0's accepted count.
-        all_done, n0 = torch.stack([done.all().long(), n_acc[0]]).tolist()
-        if all_done:
-            break
-        feed_pos = p + n_acc - 1                             # (B,)
-        w0 = tokens.gather(1, feed_pos[:, None])
-
-        # Draft W tokens.
-        if proposal_tokens is not None:
-            rows = (n_acc[:, None] + jidx[:, :w]).clamp(
-                0, proposal_tokens.shape[1] - 1)
-            drafts = proposal_tokens.gather(1, rows)
-        elif ngram_draft:
-            drafts = ngram_propose(tokens, feed_pos, w0, w)
-        else:
-            # W + 1 steps, not W: the last only writes d_W's k/v into the
-            # draft cache. Without it a round that accepts the whole window
-            # leaves a hole below every later window start.
-            cur, outs = w0, []
-            for j in range(w + 1):
-                dl, _, _ = decoder_verify(draft_model, cur, feed_pos + j,
-                                          draft_cache)
-                cur = masked(dl[:, 0], False).argmax(dim=-1, keepdim=True)
-                outs.append(cur)
-            drafts = torch.cat(outs[:w], dim=1)
-
-        # Verify the window in one target pass.
-        window = torch.cat([w0, drafts], dim=1)              # (B, W + 1)
-        if use_mega:
-            vlogits, _, valign = mega_decoder_verify(
-                model, window, p + n0 - 1, cache)
-        else:
-            vlogits, _, valign = decoder_verify(model, window, feed_pos, cache)
-        sl = masked(vlogits, False)
-        pred = sl.argmax(dim=-1)                             # (B, W + 1)
-        logp = torch.log_softmax(sl, dim=-1)
-
-        match = pred[:, :w] == drafts
-        m = match.long().cumprod(dim=1).sum(dim=1)           # accepted drafts
-        bonus = pred.gather(1, m[:, None])
-        drafts_pad = torch.cat([drafts, drafts.new_zeros(b, 1)], dim=1)
-        new_tok = torch.where(jidx < m[:, None], drafts_pad, bonus)
-        lp_tok = logp.gather(2, new_tok[:, :, None])[:, :, 0]
-
-        # Stop at the first EOT of the accepted run: written, not counted.
-        is_eot = (new_tok == eot) & (jidx <= m[:, None])
-        has_eot = is_eot.any(dim=1)
-        first_e = is_eot.long().argmax(dim=1)
-        n_new = torch.where(has_eot, first_e + 1, m + 1)     # tokens to write
-        live = ~done
-        wsel = (jidx < n_new[:, None]) & live[:, None]       # (B, W + 1)
-
-        # New tokens at feed_pos + 1 + j, logprobs at generated index
-        # n_acc + j, alignment rows j <= m at slot feed_pos + j; one column
-        # of the window at a time, each row writing one slot.
-        for j in range(w + 1):
-            ok = wsel[:, j]
-            slot = (feed_pos + 1 + j).clamp(max=s_buf - 1)
-            tokens[rows_b, slot] = torch.where(ok, new_tok[:, j],
-                                               tokens[rows_b, slot])
-            g = (n_acc + j).clamp(max=lp_buf - 1)
-            token_lp[rows_b, g] = torch.where(ok, lp_tok[:, j],
-                                              token_lp[rows_b, g])
-            if capture_alignment:
-                fed = ((j <= m) & live)[:, None, None]
-                slot = (feed_pos + j).clamp(max=s_buf - 1)
-                align[rows_b, :, slot] = torch.where(
-                    fed, valign[:, j], align[rows_b, :, slot])
-
-        # Greedy sums the non-EOT logprobs and never past max_new tokens
-        # (the last round may overshoot).
-        in_budget = n_acc[:, None] + jidx < max_new_tokens
-        inc = torch.where(wsel & in_budget & (new_tok != eot), lp_tok,
-                          0.0).sum(dim=1)
-        sum_lp = torch.where(live, sum_lp + inc, sum_lp)
-        n_acc = n_acc + torch.where(live, n_new, 0)
-        done = done | (has_eot & live) | (n_acc >= max_new_tokens)
-        rounds += 1
-
-    s_out = p + max_new_tokens
-    gen = tokens[:, p:s_out]
-    is_eot = gen == eot
-    any_eot = is_eot.any(dim=1)
-    stop = torch.where(any_eot, is_eot.long().argmax(dim=1), max_new_tokens)
-    # Past the first EOT everything is EOT, as greedy keeps feeding it.
-    past = torch.arange(max_new_tokens, device=dev)[None, :] > stop[:, None]
-    gen = torch.where(past, eot, gen)
-    toks = torch.cat([tokens[:, :p], gen], dim=1)
-    if capture_alignment:
-        align = align[:, :, :s_out]
-    return GreedyResult(toks.int(), stop.int(), sum_lp, align,
-                        token_lp[:, :max_new_tokens], no_speech_prob,
-                        rounds=rounds)
+    loop = SpecLoop(model, draft_model, cache, draft_cache, prompt.shape[1],
+                    max_new_tokens, eot, spec_window, suppress, begin_suppress,
+                    capture_alignment, no_speech_id, ngram_draft=ngram_draft,
+                    proposals=proposal_tokens is not None)
+    loop.start(prompt, proposal_tokens)
+    loop.run(ROUNDS_PER_CHECK)
+    return loop.result()

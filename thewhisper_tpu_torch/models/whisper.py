@@ -560,7 +560,11 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
     the window's own keys causally (no slot at or past the start is read).
     The window's k/v are then written in place at ``positions[b] + j``;
     writes at or past the cache's end are dropped, as JAX's one-hot write
-    drops them. Returns (logits (B, W, V) f32, cache, align (B, W, A,
+    drops them. The write's shapes do not depend on the positions (nothing
+    is read back to the host, so a CUDA graph of it replays at any
+    position): each row rewrites the W slots from ``min(positions[b],
+    S - W)``, each with the window's k/v that belongs there or with what
+    it held. Returns (logits (B, W, V) f32, cache, align (B, W, A,
     T_enc))."""
     dec = model.decoder
     b, w = tokens.shape
@@ -572,9 +576,13 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
     win_causal = torch.ones(w, w, dtype=torch.bool, device=dev).tril()
     mask = torch.cat([cache_mask.expand(b, 1, w, s_max),
                       win_causal.expand(b, 1, w, w)], dim=-1)
-    slots = positions[:, None] + torch.arange(w, device=dev)   # (B, W)
-    bi, ji = (slots < s_max).nonzero(as_tuple=True)
-    si = slots[bi, ji]
+    start = positions.clamp(max=s_max - w)
+    shift = (positions - start)[:, None]                       # (B, 1)
+    ji = torch.arange(w, device=dev)[None, :]
+    fresh = (ji >= shift)[:, None, :, None]                    # (B, 1, W, 1)
+    heads, dh = cache.self_k.shape[2], cache.self_k.shape[4]
+    slot_idx = (start[:, None] + ji)[:, None, :, None].expand(b, heads, w, dh)
+    row_idx = (ji - shift).clamp(min=0)[:, None, :, None].expand(b, heads, w, dh)
     sel = _selector(model)
     align = 0.0
     for l, layer in enumerate(dec.layers):
@@ -582,8 +590,10 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
         keys = torch.cat([cache.self_k[l].to(q.dtype), k], dim=2)
         vals = torch.cat([cache.self_v[l].to(q.dtype), v], dim=2)
         a, _ = _attend(q, keys, vals, mask)
-        cache.self_k[l][bi, :, si] = k[bi, :, ji].to(cache.self_k.dtype)
-        cache.self_v[l][bi, :, si] = v[bi, :, ji].to(cache.self_v.dtype)
+        for buf, new in ((cache.self_k[l], k), (cache.self_v[l], v)):
+            new = new.to(buf.dtype).gather(2, row_idx)
+            buf.scatter_(2, slot_idx,
+                         torch.where(fresh, new, buf.gather(2, slot_idx)))
         x = x + layer.self_attn.out(_merge_heads(a))
         x, al = _cross_and_mlp(x, layer, _layer(cache.cross_k, l),
                                _layer(cache.cross_v, l), sel[l])

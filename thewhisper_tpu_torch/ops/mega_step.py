@@ -616,22 +616,29 @@ def mega_decoder_step_plain(model: Whisper, token: torch.Tensor,
     return _run(model, token, position, cache, capture_align, plain=True)
 
 
-def mega_decoder_verify(model: Whisper, tokens: torch.Tensor, position: int,
-                        cache: DecodeCache, plain: bool = False
+def mega_decoder_verify(model: Whisper, tokens: torch.Tensor,
+                        position: Position, cache: DecodeCache,
+                        plain: bool = False, check: bool = True
                         ) -> Tuple[torch.Tensor, DecodeCache, torch.Tensor]:
     """One speculative-verify window of a packed model at batch 1:
     ``tokens`` (1, W) whose first token sits at cache slot ``position``
-    (a host int, which K4 reads from a device slot filled without a
-    synchronisation). The contract of ``models.whisper.decoder_verify`` at
-    batch 1: returns (logits (1, W, V) f32, cache with slots ``position ..
-    position + W - 1`` written, align (1, W, A, T_enc) of zeros: K4 keeps
-    no alignment, so decodes that need it take ``decoder_verify``). CPU
-    tensors (or ``plain``) take :func:`mega_verify_plain`; CUDA tensors
-    launch K4 or raise."""
-    pos = torch.full((1,), int(position), device=tokens.device)
-    x = embed_tokens_at(model, tokens, pos)[0]                  # (W, D)
-    verify = mega_verify_plain if plain else mega_verify
-    logits = verify(_packed(model), x, int(position), cache, model.arch)
+    (a host int or a device slot tensor, as for
+    :func:`mega_decoder_step`: a tensor is read by K4 when it runs, the
+    self-attention planned for the cache's length). The contract of
+    ``models.whisper.decoder_verify`` at batch 1: returns (logits (1, W, V)
+    f32, cache with slots ``position .. position + W - 1`` written, align
+    (1, W, A, T_enc) of zeros: K4 keeps no alignment, so decodes that need
+    it take ``decoder_verify``). CPU tensors (or ``plain``) take
+    :func:`mega_verify_plain`; CUDA tensors launch K4 or raise. ``check``
+    as for :func:`mega_step`."""
+    x = embed_tokens_at(model, tokens,
+                        step_position(position, tokens.device))[0]  # (W, D)
+    if plain:
+        logits = mega_verify_plain(_packed(model), x, position, cache,
+                                   model.arch)
+    else:
+        logits = mega_verify(_packed(model), x, position, cache, model.arch,
+                             check=check)
     t = cache.cross_k.q.shape[3]
     align = torch.zeros(1, tokens.shape[1], max(1, len(model.arch.alignment_heads)),
                         t, device=tokens.device)

@@ -42,15 +42,18 @@ def warm_up(asr, chunk_length_s: float, max_new_tokens: int = 128,
     frames of every latency bucket of the pipeline, with word timestamps,
     as the transcriber calls it (``engine.warmup``: on the card each
     captures its CUDA graph, so no request pays a capture, and the engine
-    keeps them all); then one ``transcribe_batch`` a latency bucket, of a
-    full rolling window or a buffer just inside the bucket, runs the rest of
-    the path (each bucket's featurizer, DTW) once."""
+    keeps them all), and with cross-tick reuse on the proposal-token
+    programs its drafted ticks run (``proposals=True``, as JAX's example
+    server warms them); then one ``transcribe_batch`` a latency bucket, of
+    a full rolling window or a buffer just inside the bucket, runs the rest
+    of the path (each bucket's featurizer, DTW) once."""
     engine = asr.engine
     buckets = sorted({_bucket_batch(n, engine.batch_buckets)
                       for n in range(1, max_batch + 1)})
+    reuse = {"proposals": True} if getattr(asr, "_reuse_previous", False) else {}
     for b in asr.latency_buckets:
         engine.warmup(asr._featurizer_for(b).num_mel_frames(), batches=buckets,
-                      max_new_tokens=max_new_tokens, timestamps=True)
+                      max_new_tokens=max_new_tokens, timestamps=True, **reuse)
     for b in asr.latency_buckets:
         seconds = chunk_length_s - 1 if b >= chunk_length_s else b - 0.1
         one = np.zeros(int(seconds * SAMPLE_RATE), np.float32)

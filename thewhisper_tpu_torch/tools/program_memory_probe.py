@@ -14,8 +14,12 @@ call beyond what they held before (the program, the encoder's
 activations, one layer's cross K/V, the prefill); then the same at the largest bucket for an engine
 without graphs, and the total held once every bucket is warm. First for
 the bf16 model, then for the same model quantized in place as "S" (int8
-decoder and cross K/V, W8A8 encoder). Prints the card's name and power
-limit and one JSON line; sizes in bytes.
+decoder and cross K/V, W8A8 encoder). Then the proposal-token programs
+(``warmup(proposals=True)``, the speculative programs a streaming server
+with cross-tick reuse warms: a cache of W + 1 more slots and the
+speculative loop's buffers) of that "S" model and of large-v3-turbo as
+"S", each beside the greedy program of its bucket, for buckets 1 to 8.
+Prints the card's name and power limit and one JSON line; sizes in bytes.
 
     python -m thewhisper_tpu_torch.tools.program_memory_probe
     python -m thewhisper_tpu_torch.tools.program_memory_probe --buckets 32
@@ -27,7 +31,7 @@ import argparse
 import dataclasses
 import gc
 import json
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -39,6 +43,8 @@ from thewhisper_tpu_torch.tools import _card
 
 T_MEL = 3000
 MAX_NEW = 128
+# The buckets whose proposal-token programs the probe makes.
+PROPOSAL_BUCKETS = (1, 2, 4, 8)
 
 
 def reserved(dev) -> int:
@@ -84,6 +90,27 @@ def measure(model, buckets: List[int], cross_kv_int8: bool) -> dict:
     return out
 
 
+def proposals(model, buckets: Sequence[int] = PROPOSAL_BUCKETS) -> dict:
+    """Each bucket's greedy and proposal-token programs of an "S" engine
+    (int8 cross K/V), warmed together: their bytes, and what the
+    allocator holds after both beyond before."""
+    dev = model.device
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    out = {}
+    for b in buckets:
+        before = reserved(dev)
+        engine.warmup(T_MEL, (b,), MAX_NEW, timestamps=True, proposals=True)
+        progs = {len(p["key"]): p for p in engine.programs() if p["key"][0] == b}
+        out[b] = {"program_bytes": progs[6]["bytes"],
+                  "proposals_bytes": progs[8]["bytes"],
+                  "proposals_seconds": progs[8]["seconds"],
+                  "held_bytes": reserved(dev) - before}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--buckets", default="1,2,4,8,16,32",
@@ -107,6 +134,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["S"] = measure(model, buckets, cross_kv_int8=True)
+    out["S proposals"] = proposals(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    turbo = init_params(dataclasses.replace(ARCH_PRESETS["large-v3-turbo"],
+                                            alignment_heads=((2, 4), (3, 11))),
+                        torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16, device=dev)
+    quantize_params(turbo, components=("decoder",))
+    quantize_params(turbo, components=("encoder",), activation_int8=True)
+    out["turbo S proposals"] = proposals(turbo)
     gib = 2 ** 30
     for mode in ("bf16", "S"):
         m = out[mode]
@@ -119,6 +157,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"{mode}: every bucket warm holds "
               f"{m['all_buckets_held_bytes'] / gib:.3f} GiB beside the "
               f"weights; {out['card']}", flush=True)
+    for mode in ("S proposals", "turbo S proposals"):
+        for b, r in out[mode].items():
+            print(f"{mode} bucket {b}: greedy program "
+                  f"{r['program_bytes'] / gib:.3f} GiB, proposals program "
+                  f"{r['proposals_bytes'] / gib:.3f} GiB (made in "
+                  f"{r['proposals_seconds']:.3f} s), both held "
+                  f"{r['held_bytes'] / gib:.3f} GiB; {out['card']}", flush=True)
     print(json.dumps(out))
     return out
 
