@@ -31,6 +31,15 @@ is false. Phases, each of which raises on failure:
    draft) as greedily, on the card and on the CPU, and the same tokens
    with three beams on both. It prints the bf16
    encoder's relative L2 drift from an f32 copy with the plain attention.
+   [ASR] The offline CLI (``python -m thewhisper_tpu_torch.run_asr``) on
+   that model written as a checkpoint in two shards and an index:
+   ``--model-size XL`` on the 70 s WAV with ``--srt``, its text and word
+   chunks equal, bit for bit, to ``ASRPipeline`` over the in-memory model;
+   ``--model-size S`` on the 20 s WAV at batch 1, K3 once a step call; K1
+   and K2 counted, the SRT cues parsed, DTW in the C++ host runtime
+   (``native_lib``) and timed against its numpy version on the calls' own
+   matrices and on 100 of a 9 s window's shape (equal paths); a FLAC
+   through ``load_audio`` where ``ffmpeg`` is installed.
    [GRAPH] The bf16 turbo greedy loop replayed from CUDA graphs against
    the same loop eager (``WhisperEngine(cuda_graphs=False)``), 30 s
    windows, 64 new tokens, at batch 1 and at batch 3 (bucket 4): every
@@ -45,8 +54,10 @@ is false. Phases, each of which raises on failure:
    [LONGFORM] The bench's long-form protocol through the port's pipeline
    (``phase_longform``): a 600 s synthetic file, 10 s pipelines, 9 s call
    windows on a 9 s latency bucket, 32 new tokens, EOT suppressed. bf16
-   turbo at batch 32 (depth 2, the offset path), then one batch-32 call
-   with word timestamps; after [turbo S], turbo "S" at batch 1 (depth 0;
+   turbo at batch 32 (depth 2, the offset path), then two batch-32 calls
+   with word timestamps (the second timed beside the numpy DTW on the
+   same matrices; the host seconds in the native DTW printed); after
+   [turbo S], turbo "S" at batch 1 (depth 0;
    depth 2 in groups of 4 windows) and at batch 32 (depth 2, groups of 3
    batches, the first-window fast path). Each arm warm once, then timed
    in turns: wall, RTFx, first result, and the K1, K2 and K3 launches,
@@ -66,7 +77,9 @@ is false. Phases, each of which raises on failure:
    graphs): 30 s of speech and near-silence in 0.05 s chunks; every tick
    one K1 and a K2 a layer, the greedy ticks K3, the drafted ticks from
    the proposals programs the warm-up made (no tick makes a program), the
-   buffer within the window; tick walls and the drafted ticks' count. A
+   buffer within the window; tick walls, the native DTW's ms a tick
+   beside the numpy sweep's on the same matrices, and the drafted ticks'
+   count. A
    fourth arm decodes three tokens a tick and must commit words, ordered
    and none after the stream's clock.
    [SERVER] The same engine behind the REST server the entry point
@@ -176,11 +189,15 @@ run uses one card, whatever the machine shows).
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
 import http.client
+import io
 import json
 import math
+import shutil
+import subprocess
 import tempfile
 import threading
 import time
@@ -191,6 +208,7 @@ from urllib.parse import quote
 import numpy as np
 import torch
 
+from thewhisper_tpu_torch import align, native_lib, run_asr
 from thewhisper_tpu_torch.audio.features import (
     LogMelFeaturizer,
     hann_window,
@@ -198,6 +216,7 @@ from thewhisper_tpu_torch.audio.features import (
     log_mel_spectrogram_plain,
     mel_filter_bank,
 )
+from thewhisper_tpu_torch.audio.io import load_audio
 from thewhisper_tpu_torch.config import (
     ARCH_PRESETS,
     LANGUAGES,
@@ -210,7 +229,10 @@ from thewhisper_tpu_torch.engine import WhisperEngine
 from thewhisper_tpu_torch.engine.decode import STEPS_PER_CHECK
 from thewhisper_tpu_torch.engine.engine import PendingResult, to_device
 from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
-from thewhisper_tpu_torch.models.checkpoint import save_hf_checkpoint
+from thewhisper_tpu_torch.models.checkpoint import (
+    save_hf_checkpoint,
+    shard_safetensors,
+)
 from thewhisper_tpu_torch.models.load import load_checkpoint
 from thewhisper_tpu_torch.models.quant import (
     QuantizedKV,
@@ -242,6 +264,7 @@ from thewhisper_tpu_torch.streaming.pipeline import (
     GIBBERISH_THRESHOLD,
     compression_ratio,
 )
+from thewhisper_tpu_torch.streaming.ring import RingBuffer as PlainRingBuffer
 from thewhisper_tpu_torch.training import distill, train
 from thewhisper_tpu_torch.tools import (
     attention_probe,
@@ -636,6 +659,305 @@ def encoder_drift(model, featurizer) -> None:
           f"attention, 30 s window: relative L2 {rel:.3e}", flush=True)
 
 
+class DtwRecorder:
+    """In its ``with`` block, records each cost matrix that
+    ``align.dtw_path`` hands the host runtime (``costs``, by reference:
+    ``align`` builds a new matrix a call and never writes it again) and
+    the host seconds the native DTW takes (``seconds``). Inside a timed
+    wall it adds two clock reads and a list append a call."""
+
+    def __enter__(self):
+        self.costs, self.seconds = [], 0.0
+        self._native = native = align.dtw_path_native
+
+        def recording(cost):
+            t0 = time.perf_counter()
+            try:
+                return native(cost)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.costs.append(cost)
+
+        align.dtw_path_native = recording
+        return self
+
+    def __exit__(self, *exc):
+        align.dtw_path_native = self._native
+
+
+class RingRecorder:
+    """Stands in for a streaming pipeline's rolling buffer: forwards each
+    call to the buffer it wraps and logs it (the written chunks by
+    reference: the pipeline never writes them again), so that
+    :func:`ring_against_plain` can replay the session on both rings. Inside
+    a timed wall it adds one method call and a list append an operation."""
+
+    def __init__(self, buffer):
+        self.buffer, self.ops = buffer, []
+
+    def __len__(self) -> int:
+        self.ops.append(("len", ()))
+        return len(self.buffer)
+
+    def write(self, samples) -> None:
+        self.ops.append(("write", (samples,)))
+        self.buffer.write(samples)
+
+    def peek(self, *args):
+        self.ops.append(("peek", args))
+        return self.buffer.peek(*args)
+
+    def discard(self, n) -> None:
+        self.ops.append(("discard", (n,)))
+        self.buffer.discard(n)
+
+    def clear(self) -> None:
+        self.ops.append(("clear", ()))
+        self.buffer.clear()
+
+
+def ring_against_plain(ops) -> tuple:
+    """A logged session's buffer operations replayed on a fresh
+    ``native_lib.RingBuffer`` and a fresh ``streaming/ring.py`` buffer in
+    step: every ``len`` and ``peek`` must agree. Then each ring alone, timed
+    (median of 3 replays). Returns each one's ms over all the operations."""
+
+    def replay(ring, op, args):
+        return len(ring) if op == "len" else getattr(ring, op)(*args)
+
+    native, plain = native_lib.RingBuffer(), PlainRingBuffer()
+    for i, (op, args) in enumerate(ops):
+        a, b = replay(native, op, args), replay(plain, op, args)
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        check(same, f"the native ring and the numpy ring differ at operation "
+                    f"{i} ({op})")
+    ms = []
+    for make in (native_lib.RingBuffer, PlainRingBuffer):
+        times = []
+        for _ in range(3):
+            ring = make()
+            t0 = time.perf_counter()
+            for op, args in ops:
+                replay(ring, op, args)
+            times.append(time.perf_counter() - t0)
+        ms.append(float(np.median(times)) * 1e3)
+    return tuple(ms)
+
+
+def dtw_against_plain(costs) -> tuple:
+    """The native DTW and its plain numpy version on each matrix: the
+    paths must be equal. Returns each one's ms over all of them."""
+    native = plain = 0.0
+    for cost in costs:
+        t0 = time.perf_counter()
+        got = native_lib.dtw_path_native(cost)
+        t1 = time.perf_counter()
+        want = align.dtw_path_plain(cost)
+        t2 = time.perf_counter()
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"native DTW path differs from the plain version at {cost.shape}")
+        native += t1 - t0
+        plain += t2 - t1
+    return native * 1e3, plain * 1e3
+
+
+ASR_TOKENS = 64
+# A 9 s window's alignment: 32 new tokens and the prompt's rows by 450
+# encoder frames.
+DTW_WINDOW = (40, 450)
+
+
+def parse_srt(text: str) -> list:
+    """(number, start s, end s, text) of each cue of an SRT file."""
+    def seconds(stamp):
+        h, m, rest = stamp.split(":")
+        s, ms = rest.split(",")
+        return int(h) * 3600 + int(m) * 60 + int(s) + int(ms) / 1000
+
+    cues = []
+    for block in text.strip().split("\n\n"):
+        number, span, *words = block.split("\n")
+        start, end = span.split(" --> ")
+        cues.append((int(number), seconds(start), seconds(end), " ".join(words)))
+    return cues
+
+
+def check_srt(path: Path, duration: float, ordered: bool) -> int:
+    """The cues parse and are numbered 1..n, each with text and start <=
+    end, starting within the audio and ending within it or, for an open
+    last word, 0.5 s past its start (``utils/subtitles.py``'s rule); with
+    ``ordered``, cue starts never go back. Returns the number of cues."""
+    cues = parse_srt(path.read_text(encoding="utf-8"))
+    check(len(cues) > 0 and [c[0] for c in cues] == list(range(1, len(cues) + 1)),
+          f"[ASR] {path.name}: cue numbers")
+    for _, start, end, text in cues:
+        check(text.strip() != "" and 0.0 <= start <= min(end, duration)
+              and end <= duration + 0.5, f"[ASR] {path.name}: cue {start}..{end}")
+    if ordered:
+        check(all(a[1] <= b[1] for a, b in zip(cues, cues[1:])),
+              f"[ASR] {path.name}: cues out of order")
+    return len(cues)
+
+
+def run_cli(argv: list, results: list) -> dict:
+    """``run_asr.main(argv)`` with the kernels' and the DTW's counts zeroed
+    just before: its result, what it printed, the wall (checkpoint load
+    included), K1/K2/K3 launches, native DTW calls and the recorder, and
+    the (engine, result) of each engine call it made."""
+    results.clear()
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = mega.MEGA_LAUNCHES = 0
+    native_lib.DTW_CALLS = 0
+    t0 = time.perf_counter()
+    with DtwRecorder() as dtw, contextlib.redirect_stdout(printed):
+        out = run_asr.main(argv)
+    torch.cuda.synchronize()
+    return {"out": out, "printed": printed.getvalue(),
+            "wall": time.perf_counter() - t0, "dtw": dtw,
+            "launches": (logmel.LOGMEL_LAUNCHES, attn.ATTN_LAUNCHES,
+                         mega.MEGA_LAUNCHES),
+            "dtw_calls": native_lib.DTW_CALLS, "calls": list(results)}
+
+
+def phase_asr(model, smi: str) -> None:
+    """[ASR] The offline CLI, ``python -m thewhisper_tpu_torch.run_asr``, on
+    the card at full width. The bf16 turbo model of the main path is
+    written with ``save_hf_checkpoint`` (f32 on disk, so bf16 weights come
+    back bit for bit) and split into two shards and HF's index. ``--model-size
+    XL`` on the 70 s WAV with ``--srt``: text and word chunks equal, bit for
+    bit, to an ``ASRPipeline`` over the in-memory model with the engine
+    options ``from_checkpoint`` gives it, on the same WAV and arguments; K1
+    once an engine call, K2 once an encoder layer of each; the SRT cues
+    parse and lie within the audio; DTW ran in the host runtime
+    (``native_lib.DTW_CALLS``). ``--model-size S`` on the 20 s WAV (batch
+    1, cold): K3 once a step call, plus the one warm-up step of each decode
+    program it captured; ordered cues. Then the native DTW against its
+    plain version on both calls' matrices and on 100 of a 9 s window's
+    shape (paths equal, ms each), and, where ffmpeg is installed, a FLAC
+    of the 20 s WAV through ``load_audio`` against the WAV."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    results: list = []
+    generate = WhisperEngine._generate
+
+    def recording(self, *a, **k):
+        res = generate(self, *a, **k)
+        results.append((self, res))
+        return res
+
+    WhisperEngine._generate = recording
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            ckpt = Path(tmp) / "large-v3-turbo"
+            t0 = time.perf_counter()
+            save_hf_checkpoint(model, model.arch, str(ckpt))
+            shards = shard_safetensors(str(ckpt), 2)
+            print(f"[ASR] checkpoint written and split into {len(shards)} shards "
+                  f"and an index in {time.perf_counter() - t0:.2f} s", flush=True)
+            wav70, wav20 = Path(tmp) / "speech70.wav", Path(tmp) / "speech20.wav"
+            write_wav(wav70, synth_audio(70, seed=2))
+            write_wav(wav20, synth_audio(20, seed=1))
+            common = ["--model", str(ckpt), "--max-new-tokens", str(ASR_TOKENS)]
+
+            srt70 = Path(tmp) / "speech70.srt"
+            xl = run_cli([str(wav70), *common, "--model-size", "XL", "--srt",
+                          str(srt70)], results)
+            with open(ckpt / "generation_config.json") as f:
+                gen = json.load(f)
+            pipe = ASRPipeline(WhisperEngine(
+                model, suppress_tokens=gen.get("suppress_tokens", []) or [],
+                begin_suppress_tokens=gen.get("begin_suppress_tokens", []) or []),
+                chunk_length_s=30)
+            ref = pipe(str(wav70), return_timestamps="word", chunk_length_s=29,
+                       generate_kwargs={"num_beams": 1, "language": "en",
+                                        "max_new_tokens": ASR_TOKENS})
+            del pipe
+            calls = len(xl["calls"])
+            check(xl["out"]["text"] == ref["text"]
+                  and xl["out"]["chunks"] == ref["chunks"],
+                  "[ASR] XL: the CLI's text or word chunks differ from the "
+                  "in-memory pipeline's")
+            check(xl["launches"] == (calls, calls * model.arch.encoder_layers, 0),
+                  f"[ASR] XL: launches K1, K2, K3 {xl['launches']} over {calls} "
+                  "engine calls")
+            check(xl["dtw_calls"] == len(xl["dtw"].costs) > 0,
+                  f"[ASR] XL: native DTW calls {xl['dtw_calls']}")
+            check_word_chunks(xl["out"], 70.0, ordered=False)
+            cues70 = check_srt(srt70, 70.0, ordered=False)
+            print(f"[ASR] --model-size XL, 70 s WAV: text and {len(ref['chunks'])} "
+                  f"word chunks equal to the in-memory pipeline's, bit for bit; "
+                  f"{calls} engine calls, launches K1, K2, K3 {xl['launches']}; "
+                  f"{xl['dtw_calls']} native DTW calls, "
+                  f"{xl['dtw'].seconds * 1e3:.2f} ms; {cues70} SRT cues; "
+                  f"{xl['printed'].strip().splitlines()[-1]}, wall with the "
+                  f"checkpoint load {xl['wall']:.2f} s; {smi}", flush=True)
+
+            srt20 = Path(tmp) / "speech20.srt"
+            s20 = run_cli([str(wav20), *common, "--model-size", "S", "--srt",
+                           str(srt20)], results)
+            engine = s20["calls"][0][0]
+            check(engine.model.mega is not None, "[ASR] S: K3's operands not packed")
+            steps = sum(r.decode_steps for _, r in s20["calls"])
+            captured = sum(p["graph"] for p in engine.programs())
+            calls = len(s20["calls"])
+            check(all(r.tokens.shape[0] == 1 for _, r in s20["calls"]),
+                  "[ASR] S: a call not at batch 1")
+            check(steps > 0 and s20["launches"] == (
+                calls, calls * model.arch.encoder_layers, steps + captured),
+                f"[ASR] S: launches K1, K2, K3 {s20['launches']}, {calls} engine "
+                f"calls, {steps} step calls, {captured} programs captured")
+            check(s20["dtw_calls"] == len(s20["dtw"].costs) > 0,
+                  f"[ASR] S: native DTW calls {s20['dtw_calls']}")
+            check_word_chunks(s20["out"], 20.0, ordered=True)
+            cues20 = check_srt(srt20, 20.0, ordered=True)
+            print(f"[ASR] --model-size S, 20 s WAV, batch 1: {steps} step calls, "
+                  f"launches K1, K2, K3 {s20['launches']} (K3 once a step call and "
+                  f"once for each of the {captured} programs' warm-up step); "
+                  f"{len(s20['out']['chunks'])} words, {cues20} ordered SRT cues; "
+                  f"{s20['printed'].strip().splitlines()[-1]}; {smi}", flush=True)
+            del engine
+            results.clear()
+
+            costs = xl["dtw"].costs + s20["dtw"].costs
+            native_ms, plain_ms = dtw_against_plain(costs)
+            print(f"[ASR] DTW on the two calls' {len(costs)} matrices "
+                  f"({', '.join(str(c.shape) for c in costs)}): native "
+                  f"{native_ms:.2f} ms, plain {plain_ms:.2f} ms, paths equal",
+                  flush=True)
+            rng = np.random.default_rng(0)
+            windows = [rng.standard_normal(DTW_WINDOW) for _ in range(100)]
+            native_ms, plain_ms = dtw_against_plain(windows)
+            print(f"[ASR] DTW on 100 matrices of a 9 s window's shape "
+                  f"{DTW_WINDOW}: native {native_ms / 100:.3f} ms a window, plain "
+                  f"{plain_ms / 100:.3f} ms a window ({plain_ms / native_ms:.1f}x), "
+                  f"paths equal; host CPU", flush=True)
+
+            exe = shutil.which("ffmpeg")
+            if exe is None:
+                print("[ASR] ffmpeg: not on this machine's PATH; the non-WAV "
+                      "route of load_audio was not run", flush=True)
+            else:
+                flac = Path(tmp) / "speech20.flac"
+                subprocess.run([exe, "-v", "error", "-y", "-i", str(wav20), str(flac)],
+                               check=True, timeout=60)
+                got, want = load_audio(str(flac)), load_audio(str(wav20))
+                err = float(np.abs(got - want).max()) if got.shape == want.shape else None
+                check(err is not None and err <= 1e-6,
+                      f"[ASR] ffmpeg: FLAC {got.shape} against WAV {want.shape}, "
+                      f"max abs err {err}")
+                print(f"[ASR] ffmpeg: a FLAC of the 20 s WAV through load_audio "
+                      f"equals the WAV ({len(got)} samples, max abs err {err:.1e})",
+                      flush=True)
+    finally:
+        WhisperEngine._generate = generate
+        results.clear()
+    torch.cuda.empty_cache()
+    print(f"[ASR] phase {time.perf_counter() - t_phase:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB", flush=True)
+
+
 LONGFORM_SECONDS = 600
 LONGFORM_KW = {"language": "en", "max_new_tokens": 32}
 LONGFORM_TURNS = 2       # timed calls of each arm, in turns, after a warm one
@@ -804,12 +1126,26 @@ def phase_longform(model, smi: str, quantized: bool) -> None:
               f"merged text {'equals' if texts[list(arms)[-1]] == b1[0] else 'differs from'} "
               f"batch 1's (bf16 GEMMs of other shapes)", flush=True)
     else:
+        # Word timestamps: the first call captures its programs, the second
+        # is timed beside the plain DTW on the same matrices.
         pipe, bsz = arms["bf16 B32 depth 2"]
-        run = longform_call(pipe, bsz, audio, return_timestamps="word")
-        check_word_chunks(run["out"], LONGFORM_SECONDS, ordered=False)
-        print(f"[LONGFORM] bf16 B32 with word timestamps (DTW on the offset "
-              f"path): wall {run['wall']:.3f} s, {len(run['out']['chunks'])} "
-              f"words", flush=True)
+        for call in (1, 2):
+            with DtwRecorder() as dtw:
+                run = longform_call(pipe, bsz, audio, return_timestamps="word")
+            check_word_chunks(run["out"], LONGFORM_SECONDS, ordered=False)
+            check(len(dtw.costs) > 0, "[LONGFORM] no DTW with word timestamps")
+            shown = ""
+            if call == 2:
+                native_ms, plain_ms = dtw_against_plain(dtw.costs)
+                shown = (f"; again on the same {len(dtw.costs)} matrices: native "
+                         f"{native_ms:.1f} ms, the plain numpy sweep "
+                         f"{plain_ms:.1f} ms, paths equal")
+            print(f"[LONGFORM] bf16 B32 with word timestamps (DTW on the "
+                  f"offset path), call {call}: wall {run['wall']:.3f} s, RTFx "
+                  f"{LONGFORM_SECONDS / run['wall']:.1f}, "
+                  f"{len(run['out']['chunks'])} words; host seconds in the "
+                  f"native DTW {dtw.seconds:.4f} over {len(dtw.costs)} "
+                  f"windows{shown}; {smi}", flush=True)
     longform_kernels_against_plain(engine, full, offsets, bucket)
     print(f"[LONGFORM] reference H100 turbo \"S\" (SURVEY §6, context only): "
           f"bs=1 RTFx 161.45, bs=64 2016.18; phase {time.perf_counter() - t_phase:.1f} s",
@@ -1183,6 +1519,9 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
     engine._generate = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
     sp = StreamingPipeline(backend=backend, chunk_length_s=10)
     check(type(sp.vad_model).__name__ == "NeuralVAD", "default VAD not neural")
+    check(isinstance(sp._buffer, native_lib.RingBuffer),
+          "the stream's rolling buffer is not the native ring")
+    sp._buffer = ring = RingRecorder(sp._buffer)
     warmed = {p["key"] for p in engine.programs()}
     audio = speech_and_silence(30, seed=50)
     step = int(0.05 * SAMPLE_RATE)
@@ -1191,20 +1530,24 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
     logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
     mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = 0
     try:
-        for chunk in chunks:
-            before = (logmel.LOGMEL_LAUNCHES, attn.ATTN_LAUNCHES,
-                      mega.MEGA_LAUNCHES, sp.stats["chunks_processed"])
-            t0 = time.perf_counter()
-            c, _ = sp(chunk)
-            wall = (time.perf_counter() - t0) * 1e3
-            committed.extend(c)
-            max_buffered = max(max_buffered, len(sp._buffer))
-            if sp.stats["chunks_processed"] > before[3]:
-                ticks.append({"ms": wall, "k1": logmel.LOGMEL_LAUNCHES - before[0],
-                              "k2": attn.ATTN_LAUNCHES - before[1],
-                              "k3": mega.MEGA_LAUNCHES - before[2],
-                              "engine_ms": results[-1].decode_time_s * 1e3,
-                              "res": results[-1], "out": raw[-1]})
+        with DtwRecorder() as dtw:
+            for chunk in chunks:
+                before = (logmel.LOGMEL_LAUNCHES, attn.ATTN_LAUNCHES,
+                          mega.MEGA_LAUNCHES, sp.stats["chunks_processed"],
+                          dtw.seconds, len(dtw.costs))
+                t0 = time.perf_counter()
+                c, _ = sp(chunk)
+                wall = (time.perf_counter() - t0) * 1e3
+                committed.extend(c)
+                max_buffered = max(max_buffered, len(ring.buffer))
+                if sp.stats["chunks_processed"] > before[3]:
+                    ticks.append({"ms": wall, "k1": logmel.LOGMEL_LAUNCHES - before[0],
+                                  "k2": attn.ATTN_LAUNCHES - before[1],
+                                  "k3": mega.MEGA_LAUNCHES - before[2],
+                                  "engine_ms": results[-1].decode_time_s * 1e3,
+                                  "dtw_ms": (dtw.seconds - before[4]) * 1e3,
+                                  "costs": dtw.costs[before[5]:],
+                                  "res": results[-1], "out": raw[-1]})
     finally:
         engine._generate = generate
     tag = (f"reuse {'on' if reuse else 'off'}, {max_new} tokens"
@@ -1264,6 +1607,18 @@ def stream_session(engine: WhisperEngine, reuse: bool, smi: str,
           f"{percentiles([t['ms'] for t in drafted]) if drafted else 'none'}; "
           f"of each tick the engine call (audio to the host copy of tokens "
           f"and alignment) {percentiles([t['engine_ms'] for t in ticks])}; "
+          f"{smi}", flush=True)
+    plain = [dtw_against_plain(t["costs"])[1] for t in ticks]
+    print(f"[STREAM] {tag}, host time in the native DTW a tick: "
+          f"{percentiles([t['dtw_ms'] for t in ticks])}; the plain numpy sweep "
+          f"on the same matrices (paths equal): {percentiles(plain)}; "
+          f"{smi}", flush=True)
+    native_ms, plain_ms = ring_against_plain(ring.ops)
+    print(f"[STREAM] {tag}, the rolling buffer's {len(ring.ops)} operations "
+          f"of the session ({sum(op == 'write' for op, _ in ring.ops)} writes, "
+          f"{sum(op == 'peek' for op, _ in ring.ops)} peeks) replayed: "
+          f"native_lib.RingBuffer {native_ms:.3f} ms, streaming/ring.py "
+          f"{plain_ms:.3f} ms (median of 3), every len and peek equal; "
           f"{smi}", flush=True)
 
 
@@ -2926,6 +3281,7 @@ def main() -> None:
     k1 = phase_logmel()
     k2 = phase_attention()
     launches, turbo = phase_main_path()
+    phase_asr(turbo, smi)
     phase_graph(turbo, smi)
     phase_beam(turbo, smi)
     phase_longform(turbo, smi, quantized=False)

@@ -87,14 +87,51 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-def mm(a: torch.Tensor, b: torch.Tensor, terms: int = 3, a_lo: bool = True) -> torch.Tensor:
-    """a @ b on the tensor cores: 3xTF32 (``terms`` 3), or plain TF32
-    (``terms`` 1); ``a_lo`` False leaves out a's lo term (a_lo b_hi)."""
+# The tensor cores' f32 accumulation. None: every product exact, the sums
+# torch's f32 sums. An int n: mma.sync m16n8k8 as the card shows it, each
+# k = 8 step adding the accumulator and its eight exact products after
+# aligning them to the largest exponent among them and cutting each to n
+# fraction bits toward zero, then rounding the sum toward zero to f32; the
+# three products of a 3xTF32 step accumulate in turn (lo hi, hi lo, hi hi),
+# as ``mma3`` in csrc/tf32_common.cuh orders them. n = 25 gives the card's
+# f32 gradient errors (test_the_cards_accumulation_gives_its_gradient_errors).
+ACCUMULATION = None
+
+
+def _rz_f32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_k8(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
+    """c + a b for a (.., M, 8), b (.., 8, N), c (.., M, N) f32, in the
+    modelled accumulation (the aligned, cut addends sum exactly in f64)."""
+    prods = a.double().unsqueeze(-1) * b.double().unsqueeze(-3)
+    vals = torch.cat([c.double().unsqueeze(-2), prods], dim=-2)
+    _, top = torch.frexp(vals.abs().amax(-2, keepdim=True))   # 2^(top-1) <= max < 2^top
+    quantum = torch.ldexp(torch.ones(top.shape, dtype=torch.float64), top - 1 - bits)
+    return _rz_f32((torch.trunc(vals / quantum) * quantum).sum(-2))
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, terms: int = 3, a_lo: bool = True,
+       acc: torch.Tensor = None) -> torch.Tensor:
+    """acc + a @ b on the tensor cores (acc zero when None): 3xTF32
+    (``terms`` 3), or plain TF32 (``terms`` 1); ``a_lo`` False leaves out
+    a's lo term (a_lo b_hi); summed as ``ACCUMULATION`` says."""
     ah, bh = rna(a), rna(b)
-    if terms == 1:
-        return ah @ bh
     al, bl = tf32(a - ah), tf32(b - bh)
-    return (al @ bh if a_lo else 0) + ah @ bl + ah @ bh
+    if ACCUMULATION is not None:
+        c = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+        for k in range(0, a.shape[-1], 8):
+            ks = slice(k, k + 8)
+            pairs = ([(al, bh)] if terms == 3 and a_lo else []) + (
+                [(ah, bl)] if terms == 3 else []) + [(ah, bh)]
+            for x, y in pairs:
+                c = _mma_k8(c, x[..., ks], y[..., ks, :], ACCUMULATION)
+        return c
+    out = ah @ bh if terms == 1 else (al @ bh if a_lo else 0) + ah @ bl + ah @ bh
+    return out if acc is None else acc + out
 
 
 def _pad(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -120,7 +157,7 @@ def emulate_forward(q, k, v, valid, terms=3, q_lo=True):
         corr = torch.exp2((m - m_new) * SCALE_LOG2)
         p = torch.exp2(sc * SCALE_LOG2 - (m_new * SCALE_LOG2)[..., None])
         l = l * corr + p.sum(-1)
-        o = o * corr[..., None] + mm(p, vp[:, :, keys], terms)
+        o = mm(p, vp[:, :, keys], terms, acc=o * corr[..., None])
         m = m_new
     return o / l[..., None], (m * SCALE_LOG2 + torch.log2(l)) * LN2
 
@@ -156,8 +193,8 @@ def emulate_dkv(q, k, v, do, lse, di, valid, terms=3, p_lo=True, guard_lse=True,
         dp_t = mm(v, dot.transpose(-1, -2), terms)
         p = torch.where(live, torch.exp2(s_t * SCALE_LOG2 - lse2[:, :, None, :]),
                         torch.tensor(0.0))
-        dv += mm(p, dot, terms, a_lo=p_lo)
-        dk += mm(p * (dp_t - di_c[:, :, None, :]), qt, terms)
+        dv = mm(p, dot, terms, a_lo=p_lo, acc=dv)
+        dk = mm(p * (dp_t - di_c[:, :, None, :]), qt, terms, acc=dk)
     return dk * 0.125, dv
 
 
@@ -177,7 +214,7 @@ def emulate_dq(q, k, v, do, lse, di, valid, terms=3, ds_lo=True):
         sc = mm(q, kt.transpose(-1, -2), terms)
         dp = mm(do, vt.transpose(-1, -2), terms)
         p = torch.where(keys < valid, torch.exp2(sc * SCALE_LOG2 - lse2), torch.tensor(0.0))
-        dq += mm(p * (dp - di_r), kt, terms, a_lo=ds_lo)
+        dq = mm(p * (dp - di_r), kt, terms, a_lo=ds_lo, acc=dq)
     return dq * 0.125
 
 
@@ -270,6 +307,56 @@ def test_each_dropped_lo_term_breaks_a_bound(s, valid_len):
     assert _errors(q, k, v, do, out, lse, valid_len, q_lo=False)[1] > 1e-5
     assert _errors(q, k, v, do, out, lse, valid_len, p_lo=False)[3] > 1e-4
     assert _errors(q, k, v, do, out, lse, valid_len, ds_lo=False)[4] > 1e-4
+
+
+# The card's f32 gradient errors, dQ, dK and dV relative L2 against the
+# plain backward (chip_smoke.py [TRAIN] at B = 8 x S = 500 and B = 4 x
+# S = 1500, H = 20; NVIDIA H100 80GB HBM3, 700 W).
+CARD_GRADIENT_ERRORS = {500: (4.76e-06, 4.75e-06, 4.39e-06),
+                        1500: (1.17e-05, 1.17e-05, 1.14e-05)}
+
+
+def _gradient_errors(s: int, accumulation, rows: int = None) -> tuple:
+    """dQ, dK, dV relative L2 of the walks at B = 1, H = 2, S = s, with
+    ``ACCUMULATION`` set as given for the call; with ``rows``, dQ alone
+    on the first ``rows`` queries (each query row walks every key on its
+    own, so a subset measures the same error at a fraction of the cost)."""
+    global ACCUMULATION
+    q, k, v, do, out, lse = _case(1, 2, s, None, seed=s)
+    tq, tk, tv, tdo = _bhsd(q, k, v, do)
+    di = (out * do).sum(-1).transpose(1, 2)
+    pq, pk, pv = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, None)
+    part = slice(0, rows or s)
+    was, ACCUMULATION = ACCUMULATION, accumulation
+    try:
+        dq = emulate_dq(tq[:, :, part], tk, tv, tdo[:, :, part], lse[:, :, part],
+                        di[:, :, part], s)
+        if rows:
+            return (_l2(dq.transpose(1, 2), pq[:, part]),)
+        dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, di, s)
+    finally:
+        ACCUMULATION = was
+    return tuple(_l2(g.transpose(1, 2), p) for g, p in ((dq, pq), (dk, pk), (dv, pv)))
+
+
+def test_the_cards_accumulation_gives_its_gradient_errors():
+    """With exact sums the dQ walk sits ten times below the card's dQ
+    error; with the tensor cores' accumulation modelled (each k = 8 step's
+    addends cut to 25 fraction bits after alignment, the sum rounded
+    toward zero) it lands within 10% of it at S = 500, on 128 query rows.
+    ``env PYTHONPATH=. JAX_PLATFORMS=cpu python
+    tests/test_torch_attention_f32_schedule.py`` prints dQ, dK and dV on
+    every row at S = 500 and 1500."""
+    card = CARD_GRADIENT_ERRORS[500][0]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # many small f64 passes: one thread a worker
+    try:
+        exact = _gradient_errors(500, None, rows=128)[0]
+        got = _gradient_errors(500, 25, rows=128)[0]
+    finally:
+        torch.set_num_threads(threads)
+    assert exact < card / 5, exact
+    assert abs(got / card - 1) <= 0.1, (got, card)
 
 
 def _library_dq(q, k, v, do, valid_len):
@@ -485,3 +572,14 @@ def test_a_parity_off_by_one_is_caught(ring):
     _, stages, warps, full_count = RINGS[ring]
     with pytest.raises(AssertionError):
         walk_ring(8, stages, warps, full_count != 1, random.Random(0), parity_shift=1)
+
+
+if __name__ == "__main__":
+    # The accumulation models against the card's gradient errors (a few
+    # minutes on a CPU at S = 1500).
+    for s_len, card in CARD_GRADIENT_ERRORS.items():
+        for bits in (None, 24, 25, 26):
+            errs = _gradient_errors(s_len, bits)
+            print(f"S = {s_len}, accumulation {bits}: dQ, dK, dV relative L2 "
+                  f"{', '.join(f'{e:.2e}' for e in errs)}; card "
+                  f"{', '.join(f'{e:.2e}' for e in card)}", flush=True)

@@ -51,7 +51,10 @@ def test_every_port_module_imports_without_jax():
                  "streaming.streams", "streaming.batching", "server.http",
                  "server.launch", "server.__main__", "run_streaming",
                  "training", "training.train", "training.distill",
-                 "models.checkpoint", "run_finetune", "run_distill"):
+                 "models.checkpoint", "run_finetune", "run_distill",
+                 "native_lib", "run_asr", "utils", "utils.wer",
+                 "utils.normalizers", "utils.subtitles",
+                 "streaming.vad_corpus", "streaming.vad_holdout"):
         assert f"thewhisper_tpu_torch.{name}" in names
 
 

@@ -6,10 +6,11 @@ over token positions, median-filtered over encoder frames, averaged over
 heads and aligned with monotonic DTW; per-token timestamps are the time
 indices at text-index jumps, scaled by ``TIME_PRECISION`` (0.02 s).
 
-Host numpy, once per audio window (at most 448 x 1500 a sample). DTW is
-the anti-diagonal sweep: the O(S*T) recurrence runs as about S + T
-vectorized numpy steps and gives the paths of the JAX package's DTW (its
-C++ host runtime and its numpy sweep alike).
+Host work, once per audio window (at most 448 x 1500 a sample). DTW runs
+in the C++ host runtime (``native_lib.dtw_path_native``), as the JAX
+package's does; ``dtw_path_plain``, the numpy anti-diagonal sweep (the
+O(S*T) recurrence as about S + T vectorized steps), gives the same paths
+and is what tests hold it against.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Tuple
 import numpy as np
 
 from thewhisper_tpu_torch.config import TIME_PRECISION
+from thewhisper_tpu_torch.native_lib import dtw_path_native
 
 # Median-of-7 selection network (Paeth): 13 vectorized compare-exchanges
 # leave the median in column 3, far faster than np.median over a strided
@@ -62,12 +64,17 @@ def median_filter(x: np.ndarray, width: int) -> np.ndarray:
 
 
 def dtw_path(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Monotonic DTW through a (S, T) cost matrix.
+    """Monotonic DTW through a (S, T) cost matrix, in the host runtime.
 
     Allowed moves: diagonal (i-1,j-1), up (i-1,j), left (i,j-1). Returns the
     backtraced (text_indices, time_indices). Matches HF
     ``_dynamic_time_warping`` on the negative alignment matrix.
     """
+    return dtw_path_native(cost)
+
+
+def dtw_path_plain(cost: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`dtw_path` in numpy: the anti-diagonal sweep."""
     s, t = cost.shape
     acc = np.full((s + 1, t + 1), np.inf, dtype=np.float64)
     acc[0, 0] = 0.0

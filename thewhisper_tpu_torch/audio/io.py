@@ -1,11 +1,12 @@
-"""WAV loading and resampling with the standard library, numpy and scipy.
+"""Audio loading and resampling with the standard library, numpy and scipy.
 
-Counterpart of ``thewhisper_tpu/audio/io.py::load_audio`` for the formats
-the port reads: PCM 8/16/24/32-bit and IEEE float WAV through ``wave``
-(float WAV, which ``wave`` refuses, through a small RIFF chunk walk), mixed
-down to mono and resampled with scipy's polyphase filter (numpy linear
-interpolation where scipy is missing). ``wav_bytes`` encodes audio as
-16-bit PCM WAV for the remote streaming backends.
+Counterpart of ``thewhisper_tpu/audio/io.py``: PCM 8/16/24/32-bit and IEEE
+float WAV through ``wave`` (float WAV, which ``wave`` refuses, through a
+small RIFF chunk walk), mixed down to mono and resampled with scipy's
+polyphase filter (the host runtime's linear resampler where scipy is
+missing); any other container (mp3, flac, ogg, m4a, ...) through an
+``ffmpeg`` subprocess when the binary is installed. ``save_wav`` and
+``wav_bytes`` write 16-bit PCM WAV.
 """
 
 from __future__ import annotations
@@ -72,29 +73,81 @@ def _read_wav(data: bytes) -> Tuple[np.ndarray, int]:
 
 
 def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Resample 1-D float audio (polyphase filter; linear without scipy)."""
+    """Resample 1-D float audio: scipy's polyphase filter, or without scipy
+    the host runtime's linear resampler."""
     if orig_sr == target_sr:
         return audio.astype(np.float32, copy=False)
     try:
         from scipy.signal import resample_poly
     except ImportError:
-        n_out = int(round(len(audio) * target_sr / orig_sr))
-        t = np.linspace(0.0, len(audio) - 1.0, n_out)
-        return np.interp(t, np.arange(len(audio)), audio).astype(np.float32)
+        from thewhisper_tpu_torch.native_lib import resample_linear_native
+
+        return resample_linear_native(np.asarray(audio, np.float32),
+                                      target_sr / orig_sr)
     g = np.gcd(int(orig_sr), int(target_sr))
     out = resample_poly(audio.astype(np.float64), target_sr // g, orig_sr // g)
     return out.astype(np.float32)
 
 
+def resample_linear_plain(audio: np.ndarray, ratio: float) -> np.ndarray:
+    """``native_lib.resample_linear_native`` in numpy: ``round(n * ratio)``
+    samples interpolated at ``k / ratio``, the last sample held past the end."""
+    n = len(audio)
+    if n == 0 or ratio <= 0.0:
+        return np.empty(0, np.float32)
+    pos = np.arange(int(n * ratio + 0.5)) / ratio
+    return np.interp(pos, np.arange(n), audio.astype(np.float64)).astype(np.float32)
+
+
+def _ffmpeg_decode(data: bytes, sr: int) -> np.ndarray:
+    """Any container ffmpeg reads, as mono float32 at ``sr``: ``ffmpeg``
+    writes f32le PCM to a pipe. FileNotFoundError when the binary is not on
+    PATH."""
+    import shutil
+    import subprocess
+
+    exe = shutil.which("ffmpeg")
+    if exe is None:
+        raise FileNotFoundError("ffmpeg not found on PATH")
+    proc = subprocess.run(
+        [exe, "-v", "error", "-i", "pipe:0", "-f", "f32le", "-ac", "1",
+         "-ar", str(int(sr)), "pipe:1"],
+        input=data, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        check=False)
+    if proc.returncode != 0 or not proc.stdout:
+        raise ValueError(
+            f"ffmpeg decode failed: {proc.stderr.decode(errors='replace')[:200]}")
+    return np.frombuffer(proc.stdout, dtype="<f4").astype(np.float32)
+
+
 def load_audio(path_or_bytes: Union[str, bytes], sr: int = 16000) -> np.ndarray:
-    """Load a WAV file (path or bytes) as mono float32 in [-1, 1] at ``sr``."""
+    """Load an audio file (path or bytes) as mono float32 in [-1, 1] at
+    ``sr``: WAV in-process, any other container through ``ffmpeg`` (a
+    ValueError naming ffmpeg where it is not installed)."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
     else:
         with open(path_or_bytes, "rb") as f:
             data = f.read()
-    x, rate = _read_wav(data)
+    try:
+        x, rate = _read_wav(data)
+    except (ValueError, EOFError) as wav_err:
+        try:
+            return _ffmpeg_decode(data, sr)
+        except FileNotFoundError:
+            raise ValueError(
+                f"{wav_err}; install ffmpeg for non-WAV formats") from None
     return resample(x.mean(axis=1), rate, sr)
+
+
+def save_wav(path: str, audio: np.ndarray, sr: int = 16000) -> None:
+    """Write mono float32 audio as 16-bit PCM WAV."""
+    pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(sr)
+        wf.writeframes(pcm.tobytes())
 
 
 def wav_bytes(audio: np.ndarray, sr: int = 16000) -> bytes:

@@ -37,6 +37,9 @@ class WhisperArch:
     def head_dim(self) -> int:
         return self.d_model // self.encoder_heads
 
+    def with_source_positions(self, max_source_positions: int) -> "WhisperArch":
+        return dataclasses.replace(self, max_source_positions=max_source_positions)
+
 
 # Architecture presets keyed by the common model names. Dims match the OpenAI /
 # HF checkpoints; used when instantiating random models and in tests.
@@ -188,6 +191,11 @@ CHUNK_LENGTH_S = 30
 FRAMES_PER_SECOND = SAMPLE_RATE // HOP_LENGTH // 2  # 50
 # DTW time resolution in seconds per encoder frame.
 TIME_PRECISION = 0.02
+
+
+def mel_frames_for_seconds(seconds: float) -> int:
+    """Number of mel frames the featurizer produces for `seconds` of audio."""
+    return int(seconds * SAMPLE_RATE) // HOP_LENGTH
 
 
 def source_positions_for_seconds(seconds: float) -> int:

@@ -7,7 +7,8 @@ one ``torch.save`` file (port of thewhisper_tpu's ``models/checkpoint.py``).
   ``load_checkpoint`` of either package and
   ``transformers.WhisperForConditionalGeneration.from_pretrained`` load. The
   file is written by :func:`write_safetensors` with the standard library,
-  so the port needs no ``safetensors`` package to write or read one.
+  so the port needs no ``safetensors`` package to write or read one;
+  :func:`shard_safetensors` splits it into HF's shards and index.
 - :func:`save_train_state` / :func:`load_train_state` persist a fine-tuning
   state (weights, optimizer moments, step) with ``torch.save``, in place of
   JAX's orbax.
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from thewhisper_tpu_torch.config import WhisperArch
-from thewhisper_tpu_torch.models.load import jax_tree_from_model
+from thewhisper_tpu_torch.models.load import jax_tree_from_model, read_safetensors
 from thewhisper_tpu_torch.models.whisper import Whisper
 
 _ST_CODES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
@@ -164,6 +165,34 @@ def save_hf_checkpoint(
     with open(os.path.join(path, "generation_config.json"), "w") as f:
         json.dump(gen_cfg, f, indent=2)
     return path
+
+
+def shard_safetensors(path: str, shards: int = 2) -> list:
+    """Split a checkpoint directory's ``model.safetensors`` into ``shards``
+    files of about equal size, in name order, under HF's names
+    (``model-00001-of-00002.safetensors``), beside HF's
+    ``model.safetensors.index.json`` (``metadata.total_size`` and each
+    tensor's shard in ``weight_map``); the single file is removed. Returns
+    the shards' names."""
+    single = os.path.join(path, "model.safetensors")
+    tensors = read_safetensors(single)
+    names = sorted(tensors)
+    sizes = [tensors[n].numel() * tensors[n].element_size() for n in names]
+    total, done = sum(sizes), 0
+    files = [f"model-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
+    weight_map = {}
+    for name, size in zip(names, sizes):
+        weight_map[name] = files[min(shards - 1, done * shards // max(total, 1))]
+        done += size
+    for file in files:
+        write_safetensors({n: tensors[n].numpy() for n in names
+                           if weight_map[n] == file}, os.path.join(path, file))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map},
+                  f, indent=2)
+    del tensors
+    os.remove(single)
+    return files
 
 
 # ---------------------------------------------------------------------------

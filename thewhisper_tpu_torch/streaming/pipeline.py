@@ -37,7 +37,7 @@ import numpy as np
 
 from thewhisper_tpu_torch.audio.io import wav_bytes
 from thewhisper_tpu_torch.config import StreamingConfig
-from thewhisper_tpu_torch.streaming.ring import RingBuffer
+from thewhisper_tpu_torch.native_lib import RingBuffer
 from thewhisper_tpu_torch.streaming.vad import make_vad
 
 logger = logging.getLogger(__name__)
@@ -341,9 +341,9 @@ class StreamingPipeline:
                 model, model_size=model_size, chunk_length_s=chunk_length_s,
                 language=language, **backend_kwargs)
 
-        # Rolling transcription state. The audio buffer is a numpy ring
-        # buffer (streaming/ring.py): O(1) appends instead of the
-        # reference's np.concatenate-per-chunk rebuild.
+        # Rolling transcription state. The audio buffer is the host
+        # runtime's ring buffer (native_lib.RingBuffer): O(1) appends
+        # instead of the reference's np.concatenate-per-chunk rebuild.
         self._buffer = RingBuffer()
         self.buffer_start_time = 0.0
         self.current_time = 0.0

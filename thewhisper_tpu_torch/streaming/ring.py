@@ -1,9 +1,9 @@
-"""Growable float32 ring buffer for the streaming pipeline's rolling audio.
+"""Growable float32 ring buffer in numpy: the plain version of
+``native_lib.RingBuffer``, which the streaming pipeline's rolling audio
+buffer uses and tests hold to this one.
 
-Counterpart of the JAX package's ``native_lib.RingBuffer`` (which wraps
-``native/whisper_host.cpp`` and falls back to a list of chunks joined on
-every read): one preallocated array with a head and a size, doubled when
-a write does not fit. A write copies only the new samples, so appending a
+One preallocated array with a head and a size, doubled when a write does
+not fit. A write copies only the new samples, so appending a
 0.05 s chunk costs the same at any buffer length; ``peek`` copies what it
 returns, ``discard`` and ``clear`` move the head only.
 """
@@ -53,6 +53,8 @@ class RingBuffer:
     def peek(self, n: Optional[int] = None, offset: int = 0) -> np.ndarray:
         """A copy of ``n`` samples (all when None) from ``offset``, clamped
         to what the buffer holds."""
+        if offset < 0:
+            raise ValueError(f"offset {offset} < 0")
         total = self._size
         n = total - offset if n is None else min(n, total - offset)
         n = max(n, 0)
