@@ -129,6 +129,23 @@ is false. Phases, each of which raises on failure:
    eager results equal bit for bit; walls a call, rounds, tokens a round,
    the shared token prefix and each speculative program's capture
    seconds and bytes.
+9b. [S4] The int4 "S4" path at large-v3 width on [S]'s bf16 weights (the
+    same seed), the decoder quantized with ``quantize_params(bits=4)``
+    (int4 linears, int8 table), the encoder bf16 with K2,
+    ``WhisperEngine(cross_kv_int8=True)``: ``model.mega`` None, so no K3
+    or K4 launch; ``ASRPipeline`` on the 20 s WAV at batch 1 with word
+    timestamps and ``transcribe_batch`` of four buffers, the engine warmed
+    first; Q4 launches 6 x 32 a step, replayed from the graph, 6 x 32 for
+    the prefill and 2 x 32 for the cross K/V of each call; graph against
+    eager at batch 1 and 4 (every output field equal, bit for bit); ms a
+    step from the graph at batch 1 and 4 beside S's plain int8 step
+    (``megakernel=False``) and S's K3 route at batch 1; quantized bytes
+    and peak memory; a small f32 S4 model with the same tokens on the
+    card (Q4) as on the CPU (plain), greedy and layer-skip.
+    [Q4] The kernel alone at large-v3's six decoder linears, 32 layers in
+    one CUDA graph, at M = 1, 4, 32 and 1500 rows, beside its plain
+    version, ``F.linear`` on dense bf16 weights (the yardstick) and its
+    bound; held to the plain version on layer 0 (relative L2 < 1e-2).
 10. [P1] The no-exp attention control (the TPU attention probe's timing
     control) against its plain version at B = 4 and at the probe's B = 32,
     H = 20, S = 1536, bf16, and in f32 at B = 1, S = 1024; the B = 32 bf16
@@ -235,6 +252,7 @@ from thewhisper_tpu_torch.models.checkpoint import (
 )
 from thewhisper_tpu_torch.models.load import load_checkpoint
 from thewhisper_tpu_torch.models.quant import (
+    Int4Linear,
     QuantizedKV,
     quantize_kv,
     quantize_params,
@@ -254,6 +272,7 @@ from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as attn
 from thewhisper_tpu_torch.ops import attention_control as control
 from thewhisper_tpu_torch.ops import cache_write as cw
+from thewhisper_tpu_torch.ops import int4_linear as q4
 from thewhisper_tpu_torch.ops import mega_step as mega
 from thewhisper_tpu_torch.ops import mlp_chain as mlp
 from thewhisper_tpu_torch.pipeline import ASRPipeline
@@ -2455,6 +2474,243 @@ def phase_spec(model, smi: str):
     return launches["ngram graph"]["mega_verify"]
 
 
+# Q4 is timed at these row counts: the decode step at batch 1, 4 and 32,
+# and a 30 s window's cross K/V (1500 encoder positions).
+Q4_ROWS = (1, 4, 32, 1500)
+
+
+def s4_linears(model) -> list:
+    """Each decoder layer's six S4 linears in the step's order: fused qkv,
+    self out, cross q, cross out, fc1, fc2."""
+    return [[l.self_attn.qkv, l.self_attn.out, l.cross_attn.q,
+             l.cross_attn.out, l.fc1, l.fc2] for l in model.decoder.layers]
+
+
+def step_ms(model, batch: int, **kw) -> tuple:
+    """(host ms a step, device ms a step) of the greedy loop from its CUDA
+    graph at ``batch`` x 30 s, 64 new tokens, word timestamps, on a
+    warmed ``WhisperEngine(model, cross_kv_int8=True, **kw)``
+    (``loop_ms``, ``replay_ms``)."""
+    engine = WhisperEngine(model, cross_kv_int8=True, **kw)
+    engine.warmup(3000, (batch,), 64, True)
+    feat = LogMelFeaturizer(n_mels=model.arch.n_mels, device=model.device)
+    engine.transcribe_features(
+        feat([synth_audio(30, seed=90 + i) for i in range(batch)]),
+        GenerationOptions(language="en", max_new_tokens=64,
+                          return_timestamps=True))
+    (key,) = [p["key"] for p in engine.programs()]
+    return loop_ms(engine, key)[0], replay_ms(engine, key)
+
+
+def s4_small_reference() -> None:
+    """A small f32 S4 model (``phase_small_reference``'s arch, its decoder
+    int4, int8 cross K/V) decodes the same tokens on the card (Q4's f32
+    route) as on the CPU (the plain version), greedy and speculating with
+    a one-layer layer-skip draft (int4 layers too)."""
+    arch = dataclasses.replace(
+        ARCH_PRESETS["large-v3-turbo"], d_model=256, encoder_layers=2,
+        encoder_heads=4, decoder_layers=2, decoder_heads=4, d_ff=1024,
+        alignment_heads=((1, 0), (1, 2)))
+    cpu_model = init_params(arch, torch.Generator().manual_seed(1))
+    quantize_params(cpu_model, components=("decoder",), bits=4)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    padded = np.zeros((1, 30 * SAMPLE_RATE), np.float32)
+    audio = synth_audio(20, seed=5)
+    padded[0, :len(audio)] = audio
+    opts = GenerationOptions(language="en", max_new_tokens=32,
+                             return_timestamps=True)
+    res, launches = [], []
+    for model in (cpu_model, gpu_model):
+        q4.Q4_LAUNCHES = 0
+        for engine in (WhisperEngine(model, cross_kv_int8=True),
+                       WhisperEngine(model, cross_kv_int8=True, draft_model=
+                                     make_layer_skip_draft(model, 1))):
+            res.append(engine.transcribe_audio(padded, opts))
+        launches.append(q4.Q4_LAUNCHES)
+    check(launches[0] == 0 and launches[1] > 0,
+          f"small S4 model: Q4 launches {launches} (CPU, card)")
+    for r in res:
+        check(np.array_equal(r.tokens, res[0].tokens)
+              and np.array_equal(r.num_generated, res[0].num_generated),
+              "small f32 S4 model: tokens differ between card, CPU, greedy "
+              "and layer-skip")
+        check(bool(np.isfinite(r.token_logprobs).all()),
+              "small f32 S4 model: logprobs not finite")
+    lp = np.abs(res[2].token_logprobs - res[0].token_logprobs).max()
+    print(f"[S4] small f32 S4 model, 20 s: card (Q4, {launches[1]} launches) "
+          f"== CPU (plain) tokens, greedy and layer-skip:1 "
+          f"({int(res[0].num_generated[0])} generated; verify rounds "
+          f"{res[1].spec_rounds} CPU, {res[3].spec_rounds} card); logprobs "
+          f"card - CPU max abs {lp:.3e}", flush=True)
+
+
+def phase_q4(model, smi: str) -> dict:
+    """[Q4] The kernel alone at large-v3's six decoder linears (qkv 3840 x
+    1280; self out, cross q and cross out 1280 x 1280; fc1 5120 x 1280;
+    fc2 1280 x 5120) for M in ``Q4_ROWS``: the S4 model's 32 layers, 192
+    launches, in one CUDA graph (367 MB of packed weights, more than the
+    L2 holds, as a step reads them), device ms a layer, beside the plain
+    version's and ``F.linear``'s on dense bf16 weights of the same shapes
+    (the yardstick; the port never calls it) and the bound (packed
+    weights, scales, biases, x and y over 3.35 TB/s, or 2 M N K over the
+    bf16 peak). Q4 is held against the plain version on layer 0 at each M
+    (relative L2 below 1e-2). Returns the kernels line's entry: M = 1, the
+    decode step's rows, and every M under ``by_rows``."""
+    layers = s4_linears(model)
+    n_layers = len(layers)
+    dense = [[(q4.unpack_int4(m.weight).to(torch.bfloat16)
+               * m.scale.to(torch.bfloat16)[:, None], m.bias) for m in mods]
+             for mods in layers]
+    g = torch.Generator(device=model.device).manual_seed(7)
+    by_rows = {}
+    for rows in Q4_ROWS:
+        xs = {k: torch.randn(rows, k, generator=g, device=model.device,
+                             dtype=torch.bfloat16) for k in (1280, 5120)}
+        err, rel = 0.0, 0.0
+        for mod in layers[0]:
+            x = xs[mod.in_features]
+            got = mod(x)
+            ref = q4.int4_linear_plain(x, mod.weight, mod.scale, mod.bias)
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+            rel = max(rel, l2_rel(got, ref).item())
+        check(rel < 1e-2, f"Q4 at M = {rows}: relative L2 {rel:.3e} from plain")
+
+        def every(fn):
+            return lambda: [fn(mod, xs[mod.in_features])
+                            for mods in layers for mod in mods]
+
+        ms = graph_ms(every(lambda mod, x: mod(x)), calls=1, iters=3) / n_layers
+        plain = graph_ms(every(lambda mod, x: q4.int4_linear_plain(
+            x, mod.weight, mod.scale, mod.bias)), calls=1, iters=3) / n_layers
+        library = graph_ms(lambda: [torch.nn.functional.linear(
+            xs[w.shape[1]], w, b) for row in dense for w, b in row],
+            calls=1, iters=3) / n_layers
+        moved = sum(nbytes(m.weight, m.scale, m.bias)
+                    + rows * (m.in_features + m.out_features) * 2
+                    for m in layers[0])
+        flops = sum(2 * rows * m.in_features * m.out_features for m in layers[0])
+        by_rows[rows] = {"max_abs_err": err, "l2_rel": rel, "ms": ms,
+                         "plain_ms": plain, "library_ms": library,
+                         **bound(moved, flops, BF16_FLOPS)}
+        b = by_rows[rows]
+        print(f"[Q4] M = {rows}: a layer's six linears {ms:.4f} ms (graph, "
+              f"32 layers), plain {plain:.4f}, F.linear on dense bf16 "
+              f"{library:.4f}; bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['bound_ms'] / ms:.1%} of it); layer 0 vs "
+              f"plain: max abs err {err:.3e}, relative L2 {rel:.3e}; {smi}",
+              flush=True)
+    del dense
+    return {**by_rows[1], "rows": 1,
+            "by_rows": {str(r): v for r, v in by_rows.items()}}
+
+
+def phase_s4(model_s, smi: str):
+    """[S4] The int4 "S4" path at large-v3 width, after [S] on the same
+    weights: ``init_params`` from [S]'s seed, the decoder quantized with
+    ``quantize_params(bits=4)`` (int4 linears, int8 table; the encoder
+    bf16, with K2), ``WhisperEngine(cross_kv_int8=True)``. ``model.mega``
+    stays None: no K3 or K4. ``ASRPipeline`` on the 20 s WAV at batch 1
+    with word timestamps and ``transcribe_batch`` of four buffers, the
+    engine warmed first; Q4 launches 6 x 32 a step from the graph, 6 x 32
+    for the prefill and 2 x 32 for the cross K/V of each call. Graph against
+    eager at batch 1 and 4 (``graph_vs_eager``); ms a step from the graph
+    at batch 1 and 4 beside S's plain int8 step (``megakernel=False``) and
+    S's K3 route at batch 1; quantized bytes; the small f32 S4 model on
+    card and CPU; [Q4]. Returns (Q4's launches on the path, [Q4]'s
+    entry)."""
+    dev = model_s.device
+    arch = model_s.arch
+    n = arch.decoder_layers
+    model = init_params(arch, torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16, device=dev, bias_std=0.1)
+    quantize_params(model, components=("decoder",), bits=4)
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    kinds = {type(m) for m in model.decoder.modules()
+             if "Linear" in type(m).__name__}
+    check(model.mega is None and kinds == {Int4Linear},
+          f"S4 decoder: mega {model.mega is not None}, linears {kinds}")
+    print(f"[S4] quantized_bytes of the decoder: S4 "
+          f"{quantized_bytes(model.decoder) / 1e9:.4f} GB, S "
+          f"{quantized_bytes(model_s.decoder) / 1e9:.4f} GB; the model "
+          f"{quantized_bytes(model) / 1e9:.4f} GB (bf16 encoder)", flush=True)
+    pipe = ASRPipeline(engine, chunk_length_s=30)
+    results = []
+    generate = engine._generate
+    engine._generate = lambda *a, **k: results.append(generate(*a, **k)) or results[-1]
+    engine.warmup(3000, (1, 4), GEN_KW["max_new_tokens"], True)
+    graphs = [p.graph for p in engine._programs.values()]
+    check(len(graphs) == 2 and all(
+        gr is not None and gr.q4_launches == 6 * n * STEPS_PER_CHECK
+        and gr.launches == gr.verify_launches == 0 for gr in graphs),
+        "S4: a step graph does not hold 6 x 32 Q4 launches a step")
+    results.clear()
+    batch = [synth_audio(s, seed=20 + i) for i, s in enumerate((4, 9, 17, 30))]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        wav20 = Path(tmp) / "speech20.wav"
+        write_wav(wav20, synth_audio(20, seed=6))
+        logmel.LOGMEL_LAUNCHES = attn.ATTN_LAUNCHES = 0
+        mega.MEGA_LAUNCHES = mega.MEGA_VERIFY_LAUNCHES = q4.Q4_LAUNCHES = 0
+        r20 = timed("20 s WAV, word timestamps, batch 1", lambda: pipe(
+            str(wav20), return_timestamps="word",
+            generate_kwargs=dict(GEN_KW)), tag="S4")
+        q4_batch1 = q4.Q4_LAUNCHES
+        rb = timed("transcribe_batch of 4 (4, 9, 17, 30 s)",
+                   lambda: pipe.transcribe_batch(
+                       batch, return_timestamps="word",
+                       generate_kwargs=dict(GEN_KW)), tag="S4")
+        launches = {"logmel": logmel.LOGMEL_LAUNCHES,
+                    "encoder_attention": attn.ATTN_LAUNCHES,
+                    "mega_step": mega.MEGA_LAUNCHES,
+                    "mega_verify": mega.MEGA_VERIFY_LAUNCHES,
+                    "int4_linear": q4.Q4_LAUNCHES}
+    engine._generate = generate
+    print(f"[S4] kernel launches on the S4 path: {launches}", flush=True)
+    check([r.tokens.shape[0] for r in results] == [1, 4],
+          f"S4 engine calls {[r.tokens.shape for r in results]}")
+    steps = [r.decode_steps for r in results]
+    want = [2 * n + 6 * n * (1 + s) for s in steps]
+    check(steps[0] > 0 and q4_batch1 == want[0]
+          and launches["int4_linear"] == sum(want),
+          f"S4: Q4 launches {q4_batch1}, {launches['int4_linear']} != "
+          f"{want} (cross K/V, prefill and {steps} step calls)")
+    check(launches["mega_step"] == launches["mega_verify"] == 0,
+          "S4: K3 or K4 launched")
+    check(launches["logmel"] == 2
+          and launches["encoder_attention"] == 2 * arch.encoder_layers,
+          f"S4: K1/K2 launches {launches}")
+    check_word_chunks(r20, 20.0, ordered=True)
+    check(len(rb) == 4, "S4: transcribe_batch rows")
+    for r, a in zip(rb, batch):
+        check_word_chunks(r, len(a) / SAMPLE_RATE, ordered=True)
+    for res in results:
+        check(bool(np.isfinite(res.token_logprobs).all()
+                   and np.isfinite(res.sum_logprob).all()
+                   and np.isfinite(res.align).all()), "S4 result not finite")
+    print(f"[S4] 20 s: {len(r20['chunks'])} words, {steps[0]} step calls; "
+          f"batch: {[len(r['chunks']) for r in rb]} words, {steps[1]} step "
+          f"calls; Q4 {q4_batch1} launches at batch 1 = 2 x 32 + 6 x 32 x "
+          f"(1 + {steps[0]})", flush=True)
+    del engine, pipe, results
+    s4 = {b: graph_vs_eager(f"S4 B={b}", model, b, smi, cross_kv_int8=True)
+          for b in (1, 4)}
+    saved, model_s.mega = model_s.mega, None
+    try:
+        s_plain = {b: step_ms(model_s, b, megakernel=False) for b in (1, 4)}
+    finally:
+        model_s.mega = saved
+    s_k3 = step_ms(model_s, 1)
+    print(f"[S4] ms a step from the graph (host clock p50 / device), 30 s, "
+          f"64 new tokens: S4 B=1 {s4[1]['graph_ms']:.4f} / "
+          f"{s4[1]['device_ms']:.4f}, B=4 {s4[4]['graph_ms']:.4f} / "
+          f"{s4[4]['device_ms']:.4f}; S plain int8 step B=1 "
+          f"{s_plain[1][0]:.4f} / {s_plain[1][1]:.4f}, B=4 {s_plain[4][0]:.4f}"
+          f" / {s_plain[4][1]:.4f}; S K3 B=1 {s_k3[0]:.4f} / {s_k3[1]:.4f}; "
+          f"{smi}", flush=True)
+    s4_small_reference()
+    entry = phase_q4(model, smi)
+    return launches["int4_linear"], entry
+
+
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
     """(max abs err, max abs err relative to the reference's largest value)."""
     err = (got.float() - ref.float()).abs().max().item()
@@ -3298,6 +3554,7 @@ def main() -> None:
     k3 = phase_mega(model, encs)
     k4 = phase_verify(model, encs[30])
     k4_launches = phase_spec(model, smi)
+    q4_launches, q4_entry = phase_s4(model, smi)
     del model, encs
     torch.cuda.empty_cache()
     p1 = phase_control(smi)
@@ -3343,6 +3600,12 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/cache_write.cu",
          "replaces": "tools/cache_write_probe.py:127",
          "launches": probe_launches["write_column"], **p5},
+        {"name": "int4_linear", "route": "cuda",
+         "source": "thewhisper_tpu_torch/csrc/int4_linear.cu",
+         "replaces": "thewhisper_tpu/models/whisper.py:110",
+         "replaces_note": "no Pallas kernel: JAX's XLA fusion in _linear, "
+                          "thewhisper_tpu/models/whisper.py:110-123",
+         "launches": q4_launches, **q4_entry},
         {"name": "encoder_attention_fwd_res", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:234",

@@ -33,7 +33,9 @@ and bf16, with lse and di that hold NaN past their last row, and through
 autograd on the encoder's strided views (``mega_mutants --kernel
 attn_bwd`` checks these and K2's own tests against broken copies of
 ``csrc/encoder_attention_bwd.cu``, of ``csrc/tc_common.cuh`` and of K2's
-f32 route and lse stores).
+f32 route and lse stores). Q4, the "S4" int4 linear, at M = 1, 3, 32, 33
+and 1500 rows and large-v3's linear shapes, bf16 and f32, deterministic,
+replayed from a CUDA graph bit for bit, refusing what it does not take.
 """
 
 import dataclasses
@@ -54,6 +56,7 @@ from thewhisper_tpu_torch.ops import _build, logmel
 from thewhisper_tpu_torch.ops import attention as ta
 from thewhisper_tpu_torch.ops import attention_control as tac
 from thewhisper_tpu_torch.ops import cache_write as tcw
+from thewhisper_tpu_torch.ops import int4_linear as tq4
 from thewhisper_tpu_torch.ops import mega_step as tm
 from thewhisper_tpu_torch.ops import mlp_chain as tmc
 from thewhisper_tpu_torch.tools._card import capture
@@ -77,7 +80,8 @@ def test_build_reports_resources(cuda_device):
     for name in ("twt_logmel", "twt_encoder_attention", "twt_attention_bwd_dkv",
                  "twt_attention_bwd_dq", "twt_mega_step",
                  "twt_mega_verify", "twt_attention_control", "twt_mlp_chain",
-                 "twt_write_row", "twt_write_column", "twt_empty_launch"):
+                 "twt_write_row", "twt_write_column", "twt_empty_launch",
+                 "twt_int4_linear"):
         assert hasattr(lib, name)
     if _build.build_log is not None:
         print(_build.build_log)
@@ -1183,3 +1187,98 @@ def test_write_row_and_write_column_device_slot_outside_traps(cuda_device, kerne
                           timeout=300)
     assert "in range: written True" in proc.stdout, proc.stdout + proc.stderr
     assert proc.returncode == 3 and "trapped:" in proc.stdout, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# Q4: the int4 weight-only linear ("S4")
+# ---------------------------------------------------------------------------
+
+
+def _q4_operands(dev, m, n, k, dtype, bias=True, seed=0):
+    """x (m, k), a packed (n, k / 2) weight quantized from a random one,
+    its scales and a bias, as ``Int4Linear.from_linear`` makes them."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(n, k, generator=g) * k ** -0.5
+    q, s = tq.quantize_weight(w, bits=4)
+    x = torch.randn(m, k, generator=g).to(dtype)
+    b = (0.1 * torch.randn(n, generator=g)).to(dtype) if bias else None
+    return (x.to(dev), tq.pack_int4(q).to(dev), s.to(dev),
+            None if b is None else b.to(dev))
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,k", [(1280, 1280), (3840, 1280), (5120, 1280),
+                                 (1280, 5120)])
+@pytest.mark.parametrize("m", [1, 3, 32, 33, 1500])
+def test_int4_linear_kernel_matches_plain(cuda_device, m, n, k, dtype):
+    """Q4 against its plain version (the weight dequantized in the compute
+    type, ``F.linear``, the bias): relative L2 below 1e-2 in bf16 (one
+    rounding of the output apart) and 1e-5 in f32 (summation order)."""
+    x, w, s, b = _q4_operands(cuda_device, m, n, k, dtype, bias=m != 3)
+    before = tq4.Q4_LAUNCHES
+    got = tq4.int4_linear(x, w, s, b)
+    torch.cuda.synchronize()
+    assert tq4.Q4_LAUNCHES == before + 1
+    ref = tq4.int4_linear_plain(x, w, s, b)
+    assert got.shape == (m, n) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert _rel_l2(got, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_linear_kernel_is_deterministic_and_replays(cuda_device, dtype):
+    """The same output bit for bit from call to call and from a CUDA-graph
+    replay (the S4 decode step's route), at 3-D x and at M = 1 and 1500."""
+    for shape in ((1, 1, 1280), (2, 750, 1280)):
+        x, w, s, b = _q4_operands(cuda_device, 1, 3840, 1280, dtype)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(3)
+                        ).to(dtype).to(cuda_device)
+        first = tq4.int4_linear(x, w, s, b)
+        assert first.shape == (*shape[:-1], 3840)
+        assert torch.equal(tq4.int4_linear(x, w, s, b), first)
+        out = torch.empty_like(first)
+        graph = capture(lambda: out.copy_(tq4.int4_linear(x, w, s, b)))
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+        x.copy_(torch.randn(shape, generator=torch.Generator().manual_seed(4)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tq4.int4_linear(x, w, s, b))
+
+
+def test_int4_linear_kernel_rejects_bad_input(cuda_device):
+    before = tq4.Q4_LAUNCHES
+    x, w, s, b = _q4_operands(cuda_device, 4, 256, 256, torch.bfloat16)
+    wide = torch.randn(256, 4, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq4.int4_linear(wide.t(), w, s, b)
+    with pytest.raises(ValueError, match="device"):
+        tq4.int4_linear(x, w.cpu(), s, b)
+    with pytest.raises(ValueError, match="dtype"):
+        tq4.int4_linear(x.half(), w, s, b)
+    with pytest.raises(ValueError, match="bias"):
+        tq4.int4_linear(x, w, s, b.float())
+    with pytest.raises(ValueError, match="multiple"):
+        tq4.int4_linear(x[:, :192].contiguous(), w[:, :96].contiguous(), s, b)
+    buf = torch.zeros(4 * 256 + 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        tq4.int4_linear(buf[1:1025].view(4, 256), w, s, b)
+    assert tq4.Q4_LAUNCHES == before
+
+
+def test_int4_linear_module_runs_q4(cuda_device):
+    """``Int4Linear`` on a CUDA tensor launches Q4, at 3-D x."""
+    lin = torch.nn.Linear(1280, 5120, dtype=torch.bfloat16)
+    mod = tq.Int4Linear.from_linear(lin).to(cuda_device)
+    x = torch.randn(2, 5, 1280, dtype=torch.bfloat16, device=cuda_device)
+    before = tq4.Q4_LAUNCHES
+    y = mod(x)
+    assert tq4.Q4_LAUNCHES == before + 1 and y.shape == (2, 5, 5120)
+    ref = tq4.int4_linear_plain(x, mod.weight, mod.scale, mod.bias)
+    assert _rel_l2(y, ref) < 1e-2

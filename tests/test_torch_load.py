@@ -109,10 +109,43 @@ def test_engine_and_pipeline_from_checkpoint(tiny_ckpt):
     assert s_pipe.engine.cross_kv_int8
     assert s_pipe(a, **kw) == JaxPipeline(
         tiny_ckpt, model_size="S", compute_dtype=jnp.float32)(a, **kw)
-    with pytest.raises(NotImplementedError):
-        ASRPipeline(tiny_ckpt, model_size="S4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WhisperEngine.from_checkpoint(tiny_ckpt, device="cpu", quantize="int4")
+    # "S4" is no quantize mode of JAX's pipeline: its bf16 engine, as for
+    # every name it does not map (test_model_size_maps_as_jax). The int4
+    # engine comes from quantize="int4".
+    from thewhisper_tpu_torch.models.quant import Int4Linear
+
+    s4 = ASRPipeline(tiny_ckpt, model_size="S4", device="cpu")
+    assert s4.engine.compute_dtype == torch.bfloat16
+    assert not s4.engine.cross_kv_int8
+    eng4 = WhisperEngine.from_checkpoint(tiny_ckpt, device="cpu", quantize="int4")
+    assert eng4.cross_kv_int8
+    assert type(eng4.model.decoder.layers[0].fc1) is Int4Linear
+
+
+@pytest.mark.parametrize("size", ["S+", "M", "S4"])
+def test_model_size_maps_as_jax(tiny_ckpt, size):
+    """JAX's pipeline takes any model_size for API parity: only "S" and
+    "S-legacy" pick a quantize mode and "XL32" f32, every other name the
+    bf16 engine. The port builds the same engine mode for each."""
+    import jax
+    import jax.numpy as jnp
+
+    from thewhisper_tpu.pipeline import ASRPipeline as JaxPipeline
+    from thewhisper_tpu_torch.pipeline import ASRPipeline
+
+    ref = JaxPipeline(tiny_ckpt, model_size=size).engine
+    eng = ASRPipeline(tiny_ckpt, model_size=size, device="cpu").engine
+    assert ref.compute_dtype == jnp.bfloat16
+    assert eng.compute_dtype == torch.bfloat16
+    assert eng.cross_kv_int8 == ref.cross_kv_int8 is False
+    assert eng.draft_model is None and ref.draft_params is None
+    assert not any(isinstance(leaf, dict) and "q" in leaf for leaf in
+                   jax.tree.leaves(ref.params, is_leaf=lambda x: isinstance(
+                       x, dict) and "q" in x))
+    linears = {type(m) for m in eng.model.modules()
+               if "Linear" in type(m).__name__}
+    assert linears == {torch.nn.Linear}
+    assert type(eng.model.decoder.token_emb) is torch.nn.Parameter
 
 
 @pytest.mark.parametrize("loader", ["load_checkpoint", "load_draft"])

@@ -2,9 +2,11 @@
 and imports nothing of the JAX package: not even its modules that do not
 import JAX (the port keeps its own ``config``, ``align`` and ``text``).
 
-Each check runs in a fresh interpreter with ``sys.modules["jax"] = None``
-and ``sys.modules["thewhisper_tpu"] = None``, so any ``import jax`` and any
-import of ``thewhisper_tpu`` or one of its modules raises ImportError.
+Each check runs in a fresh interpreter with ``sys.modules["jax"] = None``,
+``sys.modules["thewhisper_tpu"] = None`` and ``sys.modules["ml_dtypes"] =
+None``, so any ``import jax``, any import of ``thewhisper_tpu`` or one of
+its modules, and ``ml_dtypes`` (which carries JAX's int4 type to numpy, and
+which the card machine may lack) raise ImportError.
 """
 
 import os
@@ -17,7 +19,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCK_JAX = ('import sys; sys.modules["jax"] = None; '
-              'sys.modules["thewhisper_tpu"] = None\n')
+              'sys.modules["thewhisper_tpu"] = None; '
+              'sys.modules["ml_dtypes"] = None\n')
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -54,7 +57,8 @@ def test_every_port_module_imports_without_jax():
                  "models.checkpoint", "run_finetune", "run_distill",
                  "native_lib", "run_asr", "utils", "utils.wer",
                  "utils.normalizers", "utils.subtitles",
-                 "streaming.vad_corpus", "streaming.vad_holdout"):
+                 "streaming.vad_corpus", "streaming.vad_holdout",
+                 "ops.int4_linear"):
         assert f"thewhisper_tpu_torch.{name}" in names
 
 

@@ -125,9 +125,14 @@ def test_quantize_params_and_jax_s_tree_carry_across_exactly():
         params_from_jax(tree, ARCH))
 
 
-def test_int4_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_weight(torch.zeros(4, 4), bits=4)
+def test_bits_other_than_4_or_8_raise_as_in_jax():
+    for fn in (tq.quantize_weight, tq.quantize_embedding):
+        with pytest.raises(ValueError, match="4 or 8"):
+            fn(torch.zeros(4, 4), bits=3)
+    with pytest.raises(ValueError, match="4 or 8"):
+        jq.quantize_weight(np.zeros((4, 4), np.float32), bits=3)
+    with pytest.raises(ValueError, match="4 or 8"):
+        tq.quantize_params(params_from_jax(jax_params_numpy(), ARCH), bits=3)
 
 
 def _linear_case(dtype, seed=3):

@@ -980,29 +980,29 @@ class WhisperEngine:
         ``quantize`` selects an "S" mode, as in the JAX engine: ``"int8"``
         (weight-only int8 decoder and tied table), ``"int8-weights"`` (the
         table stays float), ``"int8-all"`` (``"int8"`` plus a W8A8
-        encoder); each also quantizes the cross K/V. ``"int4"`` ("S4") is
-        not ported (ROADMAP Queue 1 item 9).
+        encoder), ``"int4"`` ("S4": weight-only int4 decoder linears, run
+        by the Q4 kernel on the card, and an int8 table); each also
+        quantizes the cross K/V.
 
         ``draft`` makes greedy calls speculative: ``"ngram"`` (prompt
         lookup), ``"layer-skip:N"`` (the target's first N decoder layers,
-        taken after quantization), a ``.npz`` written by either package's
-        ``save_draft``, or another checkpoint directory (same width and
-        vocab; its encoder is dropped). In the "S" modes the draft's
-        decoder is weight-only int8 too (``draft_int8``)."""
+        taken after quantization, so int4 in "S4"), a ``.npz`` written by
+        either package's ``save_draft``, or another checkpoint directory
+        (same width and vocab; its encoder is dropped). In every quantized
+        mode a draft's float decoder becomes weight-only int8
+        (``draft_int8``), "S4" included, as JAX quantizes it."""
         from thewhisper_tpu_torch.models.load import load_checkpoint
 
-        if quantize == "int4":
-            raise NotImplementedError(
-                "quantize='int4' (\"S4\") is not ported yet "
-                "(ROADMAP Queue 1 item 9)")
-        if quantize not in (None, "int8", "int8-weights", "int8-all"):
+        modes = ("int8", "int8-weights", "int8-all", "int4")
+        if quantize is not None and quantize not in modes:
             raise ValueError(f"unknown quantize mode: {quantize}")
         model, _ = load_checkpoint(
             path, dtype=compute_dtype, device=device,
             chunk_length_s=chunk_length_s, position_mode=position_mode)
         if quantize is not None:
             quantize_params(model, components=("decoder",),
-                            quantize_embedding_table=quantize != "int8-weights")
+                            quantize_embedding_table=quantize != "int8-weights",
+                            bits=4 if quantize == "int4" else 8)
             if quantize == "int8-all":
                 quantize_params(model, components=("encoder",),
                                 activation_int8=True)

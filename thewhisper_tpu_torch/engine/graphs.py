@@ -7,12 +7,12 @@ position from the device) once, after a warm-up, and replays it. Nothing
 in a captured step reads back to the host, so a replay is one launch of
 the whole run; a capture that fails raises (no eager fallback).
 
-K3's and K4's wrappers count their launches in
-``ops.mega_step.MEGA_LAUNCHES`` and ``MEGA_VERIFY_LAUNCHES`` when they
-launch; a replay launches what the capture recorded without passing
-through the wrappers, so the graph adds that to the counters at each
-replay, and the capture itself, which launches nothing, leaves them as
-they were.
+K3's, K4's and Q4's wrappers count their launches in
+``ops.mega_step.MEGA_LAUNCHES``, ``MEGA_VERIFY_LAUNCHES`` and
+``ops.int4_linear.Q4_LAUNCHES`` when they launch; a replay launches what
+the capture recorded without passing through the wrappers, so the graph
+adds that to the counters at each replay, and the capture itself, which
+launches nothing, leaves them as they were.
 
 A captured step that draws random numbers (a sampled step) draws from a
 ``torch.Generator`` that the graph registers (``generators``): each
@@ -28,7 +28,12 @@ from typing import Callable
 
 import torch
 
-from thewhisper_tpu_torch.ops import mega_step
+from thewhisper_tpu_torch.ops import int4_linear, mega_step
+
+# The launch counters a replay adds to: (module, name, StepGraph attribute).
+_COUNTERS = ((mega_step, "MEGA_LAUNCHES", "launches"),
+             (mega_step, "MEGA_VERIFY_LAUNCHES", "verify_launches"),
+             (int4_linear, "Q4_LAUNCHES", "q4_launches"))
 
 
 class StepGraph:
@@ -39,8 +44,9 @@ class StepGraph:
     ``capture_s`` is the capture's wall time, ``bytes`` the device memory
     the caching allocator reserved for the graph's private pool (the
     capture empties the allocator's cache first, as ``torch.cuda.graph``
-    does, so that the difference is the pool's). ``launches`` and
-    ``verify_launches`` are K3's and K4's launches a replay makes."""
+    does, so that the difference is the pool's). ``launches``,
+    ``verify_launches`` and ``q4_launches`` are K3's, K4's and Q4's
+    launches a replay makes."""
 
     def __init__(self, run: Callable[[], None], warm: Callable[[], None],
                  device: torch.device, *generators: torch.Generator):
@@ -52,7 +58,7 @@ class StepGraph:
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
-        before = (mega_step.MEGA_LAUNCHES, mega_step.MEGA_VERIFY_LAUNCHES)
+        before = [getattr(mod, name) for mod, name, _ in _COUNTERS]
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -63,14 +69,14 @@ class StepGraph:
                 run()
         finally:
             # What one replay launches.
-            self.launches = mega_step.MEGA_LAUNCHES - before[0]
-            self.verify_launches = mega_step.MEGA_VERIFY_LAUNCHES - before[1]
-            mega_step.MEGA_LAUNCHES, mega_step.MEGA_VERIFY_LAUNCHES = before
+            for (mod, name, attr), was in zip(_COUNTERS, before):
+                setattr(self, attr, getattr(mod, name) - was)
+                setattr(mod, name, was)
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
         self.bytes = torch.cuda.memory_reserved(device) - reserved
 
     def replay(self) -> None:
         self.graph.replay()
-        mega_step.MEGA_LAUNCHES += self.launches
-        mega_step.MEGA_VERIFY_LAUNCHES += self.verify_launches
+        for mod, name, attr in _COUNTERS:
+            setattr(mod, name, getattr(mod, name) + getattr(self, attr))

@@ -42,6 +42,7 @@ import torch.nn as nn
 from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.engine.decode import GreedyResult, _Loop, _masked
 from thewhisper_tpu_torch.models.quant import (
+    Int4Linear,
     Int8Embedding,
     QuantizedKV,
     W8A8Linear,
@@ -94,7 +95,15 @@ def _stem(path: str) -> str:
 
 def _linear_leaf(mods):
     """The layers' linears as one JAX leaf: (L, in, out) float, or
-    {"q": (L, in, out) int8, "s": (L, out)} (``q8``/``s8`` for W8A8)."""
+    {"q": (L, in, out) int8, "s": (L, out)} (``q8``/``s8`` for W8A8).
+    int4 linears raise ``ValueError``: JAX's ``save_draft`` writes a
+    ``jnp.int4`` leaf as raw one-byte voids that its ``load_draft`` cannot
+    read, so the format has no int4 leaf."""
+    if isinstance(mods[0], Int4Linear):
+        raise ValueError(
+            "save_draft: int4 (\"S4\") linears have no form in the draft "
+            "format (JAX writes them as raw bytes its load_draft cannot "
+            "read); save the float draft, or an int8 one")
     w = torch.stack([m.weight.detach() for m in mods]).transpose(1, 2).cpu()
     if type(mods[0]) is nn.Linear:
         return w.float().numpy()
@@ -150,7 +159,8 @@ def _decoder_tree(model: Whisper) -> dict:
 def save_draft(path: str, draft: Whisper) -> None:
     """Write a draft's decoder as JAX's ``save_draft`` does: ``<path>.npz``
     (float, weight-only int8 or W8A8 linears, fused or not) and
-    ``<path>.json`` (the arch), loadable by either package."""
+    ``<path>.json`` (the arch), loadable by either package. A draft with
+    int4 linears (sliced from an "S4" target) raises ``ValueError``."""
     flat = {}
 
     def walk(prefix, node):

@@ -11,7 +11,7 @@ Three sources, one target naming:
 - the JAX package's parameter pytree as numpy, :func:`params_from_jax`
   (stacked (L, in, out) linears, (out, in, 3) convs, the fused decoder
   ``qkv_w``/``qkv_b`` an engine may have made, and the int8 leaves of an
-  "S" engine, carried across exactly).
+  "S" engine and the int4 leaves of an "S4" one, carried across exactly).
 
 :func:`jax_tree_from_model` is the inverse of the last: a float model (or
 its gradients) as the JAX layout's numpy tree, which the checkpoint writer
@@ -34,9 +34,11 @@ import torch.nn.functional as F
 
 from thewhisper_tpu_torch.config import WhisperArch, source_positions_for_seconds
 from thewhisper_tpu_torch.models.quant import (
+    Int4Linear,
     Int8Embedding,
     Int8Linear,
     W8A8Linear,
+    pack_int4,
 )
 from thewhisper_tpu_torch.models.whisper import Whisper, model_from_state
 
@@ -132,11 +134,12 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
     (out, in) here; convs are (out, in, 3) in both.
 
     Quantized leaves carry across exactly, never dequantized: weight-only
-    ``{"q", "s"}`` becomes an ``Int8Linear``, W8A8 ``{"q8", "s8"}`` a
-    ``W8A8Linear``, a per-row int8 ``token_emb`` an ``Int8Embedding``; a
-    fused ``qkv_w`` (float or int8) splits back into q, k and v. A tree
-    without ``"encoder"`` (a draft saved by JAX's ``save_draft``) gives a
-    decoder-only model."""
+    ``{"q", "s"}`` becomes an ``Int8Linear`` (int8 ``q``) or an
+    ``Int4Linear`` (``jnp.int4`` ``q``, packed), W8A8 ``{"q8", "s8"}`` a
+    ``W8A8Linear``, a per-row quantized ``token_emb`` an ``Int8Embedding``;
+    a fused ``qkv_w`` (float, int8 or int4) splits back into q, k and v. A
+    tree without ``"encoder"`` (a draft saved by JAX's ``save_draft``)
+    gives a decoder-only model."""
     f32 = lambda x: np.asarray(x, np.float32)                 # noqa: E731
     state: Dict[str, np.ndarray] = {}
     quantized: Dict[str, type] = {}
@@ -149,7 +152,7 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
         state["encoder.pos_emb"] = f32(enc["pos_emb"])
     emb = dec["token_emb"]
     if isinstance(emb, Mapping):
-        state["decoder.token_emb.q"] = _int8(emb["q"])
+        state["decoder.token_emb.q"] = _quantized(emb["q"])[0]
         state["decoder.token_emb.s"] = f32(emb["s"])
         quantized["decoder.token_emb"] = Int8Embedding
     else:
@@ -163,15 +166,20 @@ def params_from_jax(tree: Mapping[str, Any], arch: WhisperArch,
     def linear(path: str, w: Any, i: int, part: int = 0, parts: int = 1) -> None:
         """Layer ``i`` of a stacked linear leaf, out-column block ``part`` of
         ``parts`` (a fused leaf's q, k or v)."""
+        bits = 0
         if isinstance(w, Mapping):
             w8a8 = "q8" in w
             q, s = (w["q8"], w["s8"]) if w8a8 else (w["q"], w["s"])
-            q, s = _int8(q[i]), f32(s[i])
-            quantized[path] = W8A8Linear if w8a8 else Int8Linear
+            (q, bits), s = _quantized(q[i]), f32(s[i])
+            quantized[path] = (W8A8Linear if w8a8 else
+                               Int4Linear if bits == 4 else Int8Linear)
             state[path + ".scale"] = np.split(s, parts, axis=-1)[part]
         else:
             q = f32(w[i])
-        state[path + ".weight"] = np.split(q, parts, axis=-1)[part].T
+        q = np.split(q, parts, axis=-1)[part].T
+        state[path + ".weight"] = (
+            pack_int4(torch.from_numpy(np.ascontiguousarray(q))).numpy()
+            if bits == 4 else q)
 
     def attn(prefix: str, p: Mapping[str, Any], i: int) -> None:
         if "qkv_w" in p:             # fused by fuse_self_qkv_params
@@ -265,13 +273,17 @@ def jax_tree_from_model(model: Whisper, grads: bool = False) -> Dict[str, Any]:
     return tree
 
 
-def _int8(x: Any) -> np.ndarray:
+def _quantized(x: Any) -> Tuple[np.ndarray, int]:
+    """A quantized leaf's values as int8, and its bits: 8 for int8, 4 for
+    JAX's ``jnp.int4``, which numpy sees as ``ml_dtypes``' ``int4`` (known
+    here by its name: the port does not import ``ml_dtypes``). Any other
+    type raises ``ValueError``."""
     x = np.asarray(x)
-    if x.dtype != np.int8:
-        raise NotImplementedError(
-            f"quantized leaf of type {x.dtype}: only int8 is ported "
-            "(int4 \"S4\" waits, ROADMAP Queue 1 item 9)")
-    return x
+    if x.dtype == np.int8:
+        return x, 8
+    if x.dtype.name == "int4":
+        return x.astype(np.int8), 4
+    raise ValueError(f"quantized leaf of type {x.dtype}: takes int8 or int4")
 
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,

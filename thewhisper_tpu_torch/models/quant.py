@@ -1,24 +1,28 @@
-"""Weight-only int8, W8A8 and int8 KV: the "S" engine mode (port of
-thewhisper_tpu's ``models/quant.py``).
+"""Weight-only int8 and int4, W8A8 and int8 KV: the "S" and "S4" engine
+modes (port of thewhisper_tpu's ``models/quant.py``).
 
-The JAX package keeps a quantized linear as a ``{"q": int8 (in, out),
-"s": f32 (out,)}`` leaf. The port keeps it as a module in place of the
+The JAX package keeps a quantized linear as a ``{"q": int8 or int4 (in,
+out), "s": f32 (out,)}`` leaf. The port keeps it as a module in place of the
 ``nn.Linear``, with the weight in PyTorch's (out, in) layout:
 
 - :class:`Int8Linear`: weight-only int8 with an f32 per-out-channel
   scale. The forward dequantizes into the compute type before the product,
   as JAX's ``_linear`` does, so each weight rounds to that type.
-- :class:`W8A8Linear`: the same storage; the forward quantizes each
-  activation row to int8, multiplies int8 x int8 into int32
+- :class:`Int4Linear` ("S4"): weight-only int4, the nibbles packed two a
+  byte (``ops.int4_linear.pack_int4``), with the same scales and JAX's
+  same roundings; its forward is the Q4 kernel on the card.
+- :class:`W8A8Linear`: the same storage as ``Int8Linear``; the forward
+  quantizes each activation row to int8, multiplies int8 x int8 into int32
   (``torch._int_mm``) and applies both scales in f32 (JAX's
   ``_linear_int8``). Exact in the integer part, so an f32 W8A8 encoder
   matches JAX's to float rounding.
 - :class:`Int8Embedding`: the tied token table, int8 with f32 row scales;
-  the logits are ``(x @ q^T) * s`` in f32.
+  the logits are ``(x @ q^T) * s`` in f32. An S4 decoder keeps it int8, as
+  JAX's ``quantize_params`` does.
 
 Every quantizer reduces max|w| over the input axis (axis -2 of JAX's
 (in, out), -1 here) and rounds half to even, so both packages give the same
-int8 values bit for bit. int4 ("S4") is not ported (ROADMAP Queue 1).
+int8 and int4 values bit for bit.
 """
 
 from __future__ import annotations
@@ -29,27 +33,33 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from thewhisper_tpu_torch.ops.int4_linear import (  # noqa: F401
+    int4_linear,
+    pack_int4,
+    unpack_int4,
+)
+
 if TYPE_CHECKING:
     from thewhisper_tpu_torch.models.whisper import Whisper
 
 QMAX = 127
 
 
-def _check_bits(bits: int) -> None:
-    if bits != 8:
-        raise NotImplementedError(
-            f"bits={bits}: only int8 is ported; int4 (\"S4\") waits "
-            "(ROADMAP Queue 1 item 9)")
+def _qmax(bits: int) -> int:
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    return QMAX if bits == 8 else 7
 
 
 def quantize_weight(w: torch.Tensor, bits: int = 8
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-output-channel int8 of an (..., out, in) weight:
-    w ~= q * s[..., None]. Returns (q int8, s f32 (..., out))."""
-    _check_bits(bits)
+    """Symmetric per-output-channel int8 (``bits=8``) or int4 (``bits=4``,
+    qmax 7) of an (..., out, in) weight: w ~= q * s[..., None]. Returns
+    (q int8, holding [-7, 7] for int4; s f32 (..., out))."""
+    qmax = _qmax(bits)
     wf = w.float()
-    s = wf.abs().amax(dim=-1).clamp_min(1e-8) / QMAX
-    q = torch.round(wf / s[..., None]).clamp(-QMAX, QMAX).to(torch.int8)
+    s = wf.abs().amax(dim=-1).clamp_min(1e-8) / qmax
+    q = torch.round(wf / s[..., None]).clamp(-qmax, qmax).to(torch.int8)
     return q, s
 
 
@@ -67,7 +77,8 @@ def dequantize_weight(q: torch.Tensor, s: torch.Tensor,
 
 def quantize_embedding(w: torch.Tensor, bits: int = 8
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row int8 of the (V, d) token table: w ~= q * s[:, None]."""
+    """Per-row int8 (or int4, ``bits=4``) of the (V, d) token table:
+    w ~= q * s[:, None]."""
     return quantize_weight(w, bits)
 
 
@@ -97,35 +108,50 @@ def quantize_kv(x: torch.Tensor) -> QuantizedKV:
     return QuantizedKV(q, s)
 
 
-class Int8Linear(nn.Module):
-    """Weight-only int8 linear: ``weight`` int8 (out, in), ``scale`` f32
-    (out,), ``bias`` in the compute type or None."""
+class _QuantizedLinear(nn.Module):
+    """What the weight-only linears share: ``weight`` (out, in / (8 /
+    BITS)) of ``WEIGHT_DTYPE`` (int4 packs two inputs a byte), ``scale``
+    f32 (out,), ``bias`` in the compute type or None."""
+
+    WEIGHT_DTYPE = torch.int8
+    BITS = 8
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=None, device=None):
         super().__init__()
+        pack = 8 // self.BITS
+        if in_features % pack:
+            raise ValueError(f"{type(self).__name__}: {in_features} inputs "
+                             f"(takes a multiple of {pack})")
         self.in_features, self.out_features = in_features, out_features
         self.register_buffer("weight", torch.empty(
-            out_features, in_features, dtype=torch.int8, device=device))
+            out_features, in_features // pack, dtype=self.WEIGHT_DTYPE,
+            device=device))
         self.register_buffer("scale", torch.empty(
             out_features, dtype=torch.float32, device=device))
         self.register_buffer("bias", torch.empty(
             out_features, dtype=dtype, device=device) if bias else None)
 
     @classmethod
-    def like(cls, lin: nn.Module) -> "Int8Linear":
+    def like(cls, lin: nn.Module) -> "_QuantizedLinear":
         """An empty module of this class with ``lin``'s shape and types."""
         dtype = lin.bias.dtype if lin.bias is not None else None
         return cls(lin.in_features, lin.out_features, lin.bias is not None,
                    dtype=dtype, device=lin.weight.device)
 
     @classmethod
-    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+    def from_linear(cls, lin: nn.Linear) -> "_QuantizedLinear":
         m = cls.like(lin)
-        m.weight, m.scale = quantize_weight(lin.weight.detach())
+        q, m.scale = quantize_weight(lin.weight.detach(), cls.BITS)
+        m.weight = q if cls.BITS == 8 else pack_int4(q)
         if lin.bias is not None:
             m.bias = lin.bias.detach()
         return m
+
+
+class Int8Linear(_QuantizedLinear):
+    """Weight-only int8 linear: ``weight`` int8 (out, in), ``scale`` f32
+    (out,), ``bias`` in the compute type or None."""
 
     def _bias(self, y: torch.Tensor) -> torch.Tensor:
         return y if self.bias is None else y + self.bias.to(y.dtype)
@@ -145,6 +171,20 @@ class W8A8Linear(Int8Linear):
         acc = torch._int_mm(xq.reshape(-1, self.in_features), self.weight.t())
         y = acc.float() * xs.reshape(-1, 1) * self.scale
         return self._bias(y.to(x.dtype).reshape(*x.shape[:-1], -1))
+
+
+class Int4Linear(_QuantizedLinear):
+    """Weight-only int4 linear ("S4"): ``weight`` the packed nibbles, uint8
+    (out, in / 2) (``pack_int4``), ``scale`` f32 (out,), ``bias`` in the
+    compute type or None. Not an :class:`Int8Linear`: K3 and K4 take int8
+    linears only. The forward is Q4 (``ops.int4_linear``) on CUDA tensors,
+    its plain version on CPU ones."""
+
+    WEIGHT_DTYPE = torch.uint8
+    BITS = 4
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_linear(x, self.weight, self.scale, self.bias)
 
 
 class Int8Embedding(nn.Module):
@@ -173,8 +213,8 @@ class Int8Embedding(nn.Module):
 
 
 def is_quantized(m: nn.Module) -> bool:
-    """Weight-only int8 linear or int8 table."""
-    return (isinstance(m, (Int8Linear, Int8Embedding))
+    """Weight-only int8 or int4 linear, or int8 table."""
+    return (isinstance(m, (Int8Linear, Int4Linear, Int8Embedding))
             and not isinstance(m, W8A8Linear))
 
 
@@ -210,10 +250,13 @@ def quantize_params(model: "Whisper",
     """Quantize every float linear of the given components in place
     (convs, norms and position tables stay); the decoder's tied table
     too unless ``quantize_embedding_table`` is false. ``activation_int8``
-    makes them :class:`W8A8Linear` (the encoder of ``"int8-all"``).
+    makes them :class:`W8A8Linear` (the encoder of ``"int8-all"``);
+    ``bits=4`` makes them :class:`Int4Linear` ("S4"), the table staying
+    int8, as in JAX. Modules already quantized are left as they are.
     Returns ``model``."""
-    _check_bits(bits)
-    cls = W8A8Linear if activation_int8 else Int8Linear
+    _qmax(bits)
+    cls = (W8A8Linear if activation_int8
+           else Int4Linear if bits == 4 else Int8Linear)
     for comp in components:
         root = getattr(model, comp)
         for name, mod in list(root.named_modules()):
@@ -228,6 +271,7 @@ def quantize_params(model: "Whisper",
 
 
 def quantized_bytes(model: nn.Module) -> int:
-    """Bytes of every parameter and buffer of the model."""
+    """Bytes of every parameter and buffer of the model (a packed int4
+    weight is half a byte a value, as JAX counts ``jnp.int4``)."""
     return sum(t.numel() * t.element_size()
                for t in (*model.parameters(), *model.buffers()))

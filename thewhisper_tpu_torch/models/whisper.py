@@ -26,12 +26,13 @@ with probabilities cast to the value type, f32 logits from the tied
 embedding (a bf16 matmul would round them before argmax), GELU exact in
 f32 and tanh-approximate in bf16.
 
-A model quantized by ``models.quant.quantize_params`` (the "S" mode) runs
-through the same functions: its linears are ``Int8Linear`` or
-``W8A8Linear`` modules, its tied table an ``Int8Embedding``, and the cross
-K/V may be ``QuantizedKV`` (int8 with the scales folded out of the
-products, as JAX's ``_cross_and_mlp`` does). :func:`fuse_self_qkv` turns
-each decoder layer's self q/k/v into one projection.
+A model quantized by ``models.quant.quantize_params`` (the "S" and "S4"
+modes) runs through the same functions: its linears are ``Int8Linear``,
+``W8A8Linear`` or ``Int4Linear`` (Q4 on the card) modules, its tied table
+an ``Int8Embedding``, and the cross K/V may be ``QuantizedKV`` (int8
+with the scales folded out of the products, as JAX's ``_cross_and_mlp``
+does). :func:`fuse_self_qkv` turns each decoder layer's self q/k/v into
+one projection.
 
 Training (``training/``): :func:`encoder_forward` and
 :func:`decoder_train_forward` take a ``compute_dtype`` apart from the
@@ -55,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models.quant import (
+    Int4Linear,
     Int8Embedding,
     Int8Linear,
     QuantizedKV,
@@ -235,7 +237,7 @@ def _as_tensor(v) -> torch.Tensor:
         return v
     v = np.asarray(v)
     return torch.from_numpy(np.array(
-        v, dtype=np.int8 if v.dtype == np.int8 else np.float32))
+        v, dtype=v.dtype if v.dtype in (np.int8, np.uint8) else np.float32))
 
 
 def model_from_state(state: Mapping[str, object], arch: WhisperArch,
@@ -244,8 +246,8 @@ def model_from_state(state: Mapping[str, object], arch: WhisperArch,
     """Build a :class:`Whisper` on ``device`` from a state dict in the
     port's naming (values: tensors or numpy arrays). ``quantized`` maps the
     path of each quantized linear or table to its ``models.quant`` class;
-    each value takes the type the module declares (int8 weights, f32
-    scales, ``dtype`` for the rest). A state without ``encoder.*`` keys
+    each value takes the type the module declares (int8 weights, packed
+    int4 weights as uint8, f32 scales, ``dtype`` for the rest). A state without ``encoder.*`` keys
     gives a decoder-only model (``encoder`` None), as a draft is. Every
     parameter is frozen (``training.train.init_train_state`` unfreezes a
     model to fine-tune)."""
@@ -356,25 +358,27 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def fuse_self_qkv(model: Whisper) -> Whisper:
     """Concatenate each decoder layer's self q/k/v into one (3d, d)
     projection ``qkv`` with a zero k bias, in place (JAX's
-    ``fuse_self_qkv_params``). Works on float and weight-only int8 linears
-    (the per-out-channel scales concatenate along); anything else is left
-    alone. Returns ``model``."""
+    ``fuse_self_qkv_params``). Works on float and weight-only int8 and int4
+    linears (the per-out-channel scales concatenate along; int4 packs along
+    the input axis, so packed rows concatenate as they are); anything else
+    is left alone. Returns ``model``."""
     for layer in model.decoder.layers:
         sa = layer.self_attn
         parts = [getattr(sa, n, None) for n in ("q", "k", "v")]
         kinds = {type(p) for p in parts}
-        if len(kinds) != 1 or kinds.pop() not in (nn.Linear, Int8Linear):
+        if len(kinds) != 1 or kinds.pop() not in (nn.Linear, Int8Linear,
+                                                   Int4Linear):
             continue
         q, k, v = parts
         with torch.device("meta"):
             fused = (nn.Linear(q.in_features, 3 * q.out_features,
                                dtype=q.weight.dtype)
                      if type(q) is nn.Linear else
-                     Int8Linear(q.in_features, 3 * q.out_features,
-                                dtype=q.bias.dtype))
+                     type(q)(q.in_features, 3 * q.out_features,
+                             dtype=q.bias.dtype))
         weight = torch.cat([p.weight for p in parts])
         bias = torch.cat([q.bias, torch.zeros_like(q.bias), v.bias])
-        if isinstance(fused, Int8Linear):
+        if type(fused) is not nn.Linear:
             fused.weight, fused.bias = weight, bias
             fused.scale = torch.cat([p.scale for p in parts])
         else:

@@ -69,7 +69,7 @@ class ASRPipeline:
         self,
         model: Union[str, WhisperEngine],
         tokenizer: Any = None,
-        model_size: Optional[str] = None,   # None/"XL" bf16, "XL32" f32, "S"
+        model_size: Optional[str] = None,   # JAX's names: "S", "S-legacy", "XL32"
         chunk_length_s: int = 30,
         language: str = "en",
         compute_dtype: Optional[torch.dtype] = None,
@@ -86,14 +86,13 @@ class ASRPipeline:
         if isinstance(model, WhisperEngine):
             self.engine = model
         else:
-            if model_size not in (None, "XL", "XL32", "S", "S-legacy"):
-                raise NotImplementedError(
-                    f"model_size={model_size!r} is not ported yet")
             dtype = compute_dtype or (torch.float32 if model_size == "XL32"
                                       else torch.bfloat16)
-            # "S": int8 end to end (weight-only int8 decoder and table,
-            # W8A8 encoder, int8 cross K/V); "S-legacy" keeps the encoder
-            # float. The JAX pipeline's mapping.
+            # The JAX pipeline's mapping, which takes any name for API
+            # parity: "S" is int8 end to end (weight-only int8 decoder and
+            # table, W8A8 encoder, int8 cross K/V), "S-legacy" keeps the
+            # encoder float, "XL32" is f32, and every other name ("XL",
+            # "S+", "M", "S4", ...) the bf16 engine without quantization.
             quant = {"S": "int8-all", "S-legacy": "int8"}.get(model_size)
             self.engine = WhisperEngine.from_checkpoint(
                 model, chunk_length_s=chunk_length_s, compute_dtype=dtype,

@@ -27,7 +27,8 @@ def main(argv=None) -> dict:
     ap.add_argument("audio")
     ap.add_argument("--model", required=True, help="HF checkpoint directory")
     ap.add_argument("--model-size", default=None,
-                    help='"S" (int8), "XL" (bf16) or "XL32" (f32)')
+                    help='"S" (int8), "S-legacy" (int8 decoder), "XL32" '
+                         '(f32); any other name, "XL" among them, bf16')
     ap.add_argument("--chunk-length", type=int, default=30,
                     choices=[10, 15, 20, 30])
     ap.add_argument("--language", default="en")

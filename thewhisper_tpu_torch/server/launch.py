@@ -11,7 +11,8 @@ Environment (the same variables as the JAX example and the reference):
     TRITON_URL / TRITON_AUTH_TOKEN / TRITON_MODEL_NAME / TRITON_LANG_ID
     ASR_MODEL: HF checkpoint directory for the local engine (read with the
         ``safetensors`` package)
-    ASR_MODEL_SIZE (None/"XL", "XL32", "S"), ASR_DRAFT, ASR_REUSE_PREV
+    ASR_MODEL_SIZE ("S" int8, "S-legacy", "XL32" f32; any other name,
+        "XL" and "S+" among them, bf16), ASR_DRAFT, ASR_REUSE_PREV
         (default 1), ASR_WARMUP (default 1; 0 skips the warm-up)
     ASR_LATENCY_BUCKETS: comma-separated seconds (e.g. "2.5,5"), the
         pipeline's ``latency_buckets``: a short early-stream buffer encodes
