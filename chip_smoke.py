@@ -143,9 +143,14 @@ is false. Phases, each of which raises on failure:
     and peak memory; a small f32 S4 model with the same tokens on the
     card (Q4) as on the CPU (plain), greedy and layer-skip.
     [Q4] The kernel alone at large-v3's six decoder linears, 32 layers in
-    one CUDA graph, at M = 1, 4, 32 and 1500 rows, beside its plain
-    version, ``F.linear`` on dense bf16 weights (the yardstick) and its
-    bound; held to the plain version on layer 0 (relative L2 < 1e-2).
+    one CUDA graph, at M = 1, 4, 32, 160 and 1500 rows (its decode route
+    up to the crossover, its tiled route above), and at the cross K/V's
+    own shape at a batch of four windows (M = 6000, 1280 x 1280), with
+    PDL on and off, beside its plain version, ``F.linear`` on dense bf16
+    weights (the yardstick), the library's int4 product
+    ``torch._weight_int4pack_mm`` on the same weights and its bound, the
+    routes and splits its plan chose; Q4 and the library call held to the
+    plain version on layer 0 (relative L2 < 1e-2).
 10. [P1] The no-exp attention control (the TPU attention probe's timing
     control) against its plain version at B = 4 and at the probe's B = 32,
     H = 20, S = 1536, bf16, and in f32 at B = 1, S = 1024; the B = 32 bf16
@@ -290,6 +295,7 @@ from thewhisper_tpu_torch.tools import (
     cache_write_probe,
     gemv_chain_probe,
     mega_caps_probe,
+    q4_probe,
 )
 from thewhisper_tpu_torch.tools._card import (
     BF16_FLOPS,
@@ -2475,8 +2481,11 @@ def phase_spec(model, smi: str):
 
 
 # Q4 is timed at these row counts: the decode step at batch 1, 4 and 32,
-# and a 30 s window's cross K/V (1500 encoder positions).
-Q4_ROWS = (1, 4, 32, 1500)
+# 160 (32 x 5 beams), and a 30 s window's cross K/V (1500 encoder
+# positions); and the cross K/V's own shape (1280 x 1280, two linears a
+# layer) at a batch of four windows.
+Q4_ROWS = (1, 4, 32, 160, 1500)
+Q4_CROSS_KV_ROWS = 6000
 
 
 def s4_linears(model) -> list:
@@ -2544,64 +2553,108 @@ def s4_small_reference() -> None:
           f"card - CPU max abs {lp:.3e}", flush=True)
 
 
+def q4_row(tag: str, mods: list, rows: int, g, smi: str) -> dict:
+    """[Q4] at ``rows`` rows over ``mods`` (lists of S4 linears, one a
+    layer, in one CUDA graph): device ms a layer with PDL where the plan
+    launches with it and with none,
+    beside the plain version's, ``F.linear``'s on dense bf16 weights of the
+    same shapes (the yardstick; the port never calls it) and the library's
+    int4 weight-only product ``torch._weight_int4pack_mm`` on the same
+    weights (repacked once: group size 128, each row's scale repeated along
+    K, zero points of 0; its bias added outside the timing for the check),
+    and the bound (packed weights, scales, biases, x and y over 3.35 TB/s,
+    or 2 M N K over the bf16 peak). Q4 and the library call are held
+    against the plain version on the first layer (relative L2 below
+    1e-2)."""
+    dev = mods[0][0].weight.device
+    n_layers = len(mods)
+    xs = {m.in_features: torch.randn(rows, m.in_features, generator=g, device=dev,
+                                     dtype=torch.bfloat16) for m in mods[0]}
+    err, rel = 0.0, 0.0
+    for mod in mods[0]:
+        x = xs[mod.in_features]
+        got = mod(x)
+        ref = q4.int4_linear_plain(x, mod.weight, mod.scale, mod.bias)
+        err = max(err, (got.float() - ref.float()).abs().max().item())
+        rel = max(rel, l2_rel(got, ref).item())
+    check(rel < 1e-2, f"Q4 {tag} at M = {rows}: relative L2 {rel:.3e} from plain")
+
+    def every(fn):
+        return lambda: [fn(mod, xs[mod.in_features]) for row in mods for mod in row]
+
+    ms = graph_ms(every(lambda mod, x: mod(x)), calls=1, iters=3) / n_layers
+    saved, q4.PDL = q4.PDL, False
+    try:
+        ms_no_pdl = graph_ms(every(lambda mod, x: mod(x)), calls=1, iters=3) / n_layers
+    finally:
+        q4.PDL = saved
+    plain = graph_ms(every(lambda mod, x: q4.int4_linear_plain(
+        x, mod.weight, mod.scale, mod.bias)), calls=1, iters=3) / n_layers
+    dense = [[(q4.unpack_int4(m.weight).to(torch.bfloat16)
+               * m.scale.to(torch.bfloat16)[:, None], m.bias) for m in row]
+             for row in mods]
+    yardstick = graph_ms(lambda: [torch.nn.functional.linear(xs[w.shape[1]], w, b)
+                                  for row in dense for w, b in row],
+                         calls=1, iters=3) / n_layers
+    del dense
+    library, lib_rel, lib_note = None, None, ""
+    try:
+        lib = [[q4_probe.library_weights(m.weight, m.scale) for m in row] for row in mods]
+        lib_rel = max(l2_rel(q4_probe.library_mm(xs[m.in_features], w, sz)
+                             + (0 if m.bias is None else m.bias),
+                             q4.int4_linear_plain(xs[m.in_features], m.weight,
+                                                  m.scale, m.bias)).item()
+                      for m, (w, sz) in zip(mods[0], lib[0]))
+        check(lib_rel < 1e-2, f"torch._weight_int4pack_mm at M = {rows}: relative "
+                              f"L2 {lib_rel:.3e} from Q4's plain version")
+        library = graph_ms(lambda: [q4_probe.library_mm(xs[m.in_features], w, sz)
+                                    for row, lrow in zip(mods, lib)
+                                    for m, (w, sz) in zip(row, lrow)],
+                           calls=1, iters=3) / n_layers
+        del lib
+    except (RuntimeError, AttributeError, NotImplementedError) as exc:
+        lib_note = f"{type(exc).__name__}: {str(exc)[:160]}"
+    moved = sum(nbytes(m.weight, m.scale) + (0 if m.bias is None else nbytes(m.bias))
+                + rows * (m.in_features + m.out_features) * 2 for m in mods[0])
+    flops = sum(2 * rows * m.in_features * m.out_features for m in mods[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = [q4.plan(rows, m.out_features, m.in_features, sms) for m in mods[0]]
+    out = {"max_abs_err": err, "l2_rel": rel, "ms": ms, "ms_no_pdl": ms_no_pdl,
+           "plain_ms": plain, "dense_bf16_ms": yardstick, "library_ms": library,
+           "library_l2_rel": lib_rel, "library_note": lib_note or None,
+           "routes": sorted({f"{p.route} split {p.split}{' pdl' if p.pdl else ''}"
+                             for p in plans}),
+           **bound(moved, flops, BF16_FLOPS)}
+    lib_text = (f"torch._weight_int4pack_mm {library:.4f} (relative L2 {lib_rel:.3e} "
+                f"from plain)" if library is not None else
+                f"torch._weight_int4pack_mm not timed ({lib_note})")
+    print(f"[Q4] {tag} M = {rows}: {ms:.4f} ms a layer (graph, {n_layers} layers; "
+          f"PDL where planned; {ms_no_pdl:.4f} with none), plain {plain:.4f}, "
+          f"F.linear on dense bf16 "
+          f"{yardstick:.4f}, {lib_text}; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']} ({out['bound_ms'] / ms:.1%} of it); routes "
+          f"{out['routes']}; layer 0 vs plain: max abs err {err:.3e}, relative "
+          f"L2 {rel:.3e}; {smi}", flush=True)
+    return out
+
+
 def phase_q4(model, smi: str) -> dict:
     """[Q4] The kernel alone at large-v3's six decoder linears (qkv 3840 x
     1280; self out, cross q and cross out 1280 x 1280; fc1 5120 x 1280;
-    fc2 1280 x 5120) for M in ``Q4_ROWS``: the S4 model's 32 layers, 192
+    fc2 1280 x 5120) for M in ``Q4_ROWS``, the S4 model's 32 layers, 192
     launches, in one CUDA graph (367 MB of packed weights, more than the
-    L2 holds, as a step reads them), device ms a layer, beside the plain
-    version's and ``F.linear``'s on dense bf16 weights of the same shapes
-    (the yardstick; the port never calls it) and the bound (packed
-    weights, scales, biases, x and y over 3.35 TB/s, or 2 M N K over the
-    bf16 peak). Q4 is held against the plain version on layer 0 at each M
-    (relative L2 below 1e-2). Returns the kernels line's entry: M = 1, the
-    decode step's rows, and every M under ``by_rows``."""
+    L2 holds, as a step reads them), and at the cross K/V's own shape (its
+    k and v linears, 64 launches) at ``Q4_CROSS_KV_ROWS`` (``q4_row``).
+    Returns the kernels line's entry: M = 1, the decode step's rows, and
+    every M under ``by_rows``."""
     layers = s4_linears(model)
-    n_layers = len(layers)
-    dense = [[(q4.unpack_int4(m.weight).to(torch.bfloat16)
-               * m.scale.to(torch.bfloat16)[:, None], m.bias) for m in mods]
-             for mods in layers]
     g = torch.Generator(device=model.device).manual_seed(7)
-    by_rows = {}
-    for rows in Q4_ROWS:
-        xs = {k: torch.randn(rows, k, generator=g, device=model.device,
-                             dtype=torch.bfloat16) for k in (1280, 5120)}
-        err, rel = 0.0, 0.0
-        for mod in layers[0]:
-            x = xs[mod.in_features]
-            got = mod(x)
-            ref = q4.int4_linear_plain(x, mod.weight, mod.scale, mod.bias)
-            err = max(err, (got.float() - ref.float()).abs().max().item())
-            rel = max(rel, l2_rel(got, ref).item())
-        check(rel < 1e-2, f"Q4 at M = {rows}: relative L2 {rel:.3e} from plain")
-
-        def every(fn):
-            return lambda: [fn(mod, xs[mod.in_features])
-                            for mods in layers for mod in mods]
-
-        ms = graph_ms(every(lambda mod, x: mod(x)), calls=1, iters=3) / n_layers
-        plain = graph_ms(every(lambda mod, x: q4.int4_linear_plain(
-            x, mod.weight, mod.scale, mod.bias)), calls=1, iters=3) / n_layers
-        library = graph_ms(lambda: [torch.nn.functional.linear(
-            xs[w.shape[1]], w, b) for row in dense for w, b in row],
-            calls=1, iters=3) / n_layers
-        moved = sum(nbytes(m.weight, m.scale, m.bias)
-                    + rows * (m.in_features + m.out_features) * 2
-                    for m in layers[0])
-        flops = sum(2 * rows * m.in_features * m.out_features for m in layers[0])
-        by_rows[rows] = {"max_abs_err": err, "l2_rel": rel, "ms": ms,
-                         "plain_ms": plain, "library_ms": library,
-                         **bound(moved, flops, BF16_FLOPS)}
-        b = by_rows[rows]
-        print(f"[Q4] M = {rows}: a layer's six linears {ms:.4f} ms (graph, "
-              f"32 layers), plain {plain:.4f}, F.linear on dense bf16 "
-              f"{library:.4f}; bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']} ({b['bound_ms'] / ms:.1%} of it); layer 0 vs "
-              f"plain: max abs err {err:.3e}, relative L2 {rel:.3e}; {smi}",
-              flush=True)
-    del dense
-    return {**by_rows[1], "rows": 1,
-            "by_rows": {str(r): v for r, v in by_rows.items()}}
+    by_rows = {str(rows): q4_row("six linears", layers, rows, g, smi)
+               for rows in Q4_ROWS}
+    kv = [[l.cross_attn.k, l.cross_attn.v] for l in model.decoder.layers]
+    by_rows[f"cross K/V {Q4_CROSS_KV_ROWS}"] = q4_row(
+        "cross K/V", kv, Q4_CROSS_KV_ROWS, g, smi)
+    return {**by_rows["1"], "rows": 1, "by_rows": by_rows}
 
 
 def phase_s4(model_s, smi: str):

@@ -33,9 +33,12 @@ and bf16, with lse and di that hold NaN past their last row, and through
 autograd on the encoder's strided views (``mega_mutants --kernel
 attn_bwd`` checks these and K2's own tests against broken copies of
 ``csrc/encoder_attention_bwd.cu``, of ``csrc/tc_common.cuh`` and of K2's
-f32 route and lse stores). Q4, the "S4" int4 linear, at M = 1, 3, 32, 33
-and 1500 rows and large-v3's linear shapes, bf16 and f32, deterministic,
-replayed from a CUDA graph bit for bit, refusing what it does not take.
+f32 route and lse stores). Q4, the "S4" int4 linear, at M = 1, 3, 32, 33,
+160, 1500 and 6000 rows and either side of its routes' crossover, at
+large-v3's linear shapes, bf16 and f32, exact on identity rows on every
+route, deterministic, replayed from a CUDA graph bit for bit, refusing what
+it does not take (``mega_mutants --kernel int4`` checks these against
+broken copies of ``csrc/int4_linear.cu``).
 """
 
 import dataclasses
@@ -1210,10 +1213,16 @@ def _rel_l2(got, ref):
     return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+# Both bf16 routes: the decode route up to the crossover, the tiled one past
+# it, each with and without split-K clusters.
+Q4_ROWS = sorted({1, 3, 32, 33, 160, 1500, 6000, tq4.DECODE_MAX_ROWS,
+                  tq4.DECODE_MAX_ROWS + 1})
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,k", [(1280, 1280), (3840, 1280), (5120, 1280),
                                  (1280, 5120)])
-@pytest.mark.parametrize("m", [1, 3, 32, 33, 1500])
+@pytest.mark.parametrize("m", Q4_ROWS)
 def test_int4_linear_kernel_matches_plain(cuda_device, m, n, k, dtype):
     """Q4 against its plain version (the weight dequantized in the compute
     type, ``F.linear``, the bias): relative L2 below 1e-2 in bf16 (one
@@ -1229,16 +1238,50 @@ def test_int4_linear_kernel_matches_plain(cuda_device, m, n, k, dtype):
     assert _rel_l2(got, ref) < (1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
+def test_int4_linear_kernel_plans_take_both_routes(cuda_device):
+    """The matrix above reaches the decode route with and without split-K,
+    and the tiled route with and without it, on this card."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plans = {(m, n, k): tq4.plan(m, n, k, sms) for m in Q4_ROWS
+             for n, k in ((1280, 1280), (3840, 1280), (5120, 1280), (1280, 5120))}
+    for route in ("decode", "tiled"):
+        assert any(p.route == route and p.split > 1 for p in plans.values())
+        assert any(p.route == route and p.split == 1 for p in plans.values())
+    assert plans[(tq4.DECODE_MAX_ROWS, 1280, 1280)].route == "decode"
+    assert plans[(tq4.DECODE_MAX_ROWS + 1, 1280, 1280)].route == "tiled"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 32, 1280])
+@pytest.mark.parametrize("n,k", [(1280, 1280), (3840, 1280), (5120, 1280),
+                                 (1280, 5120)])
+def test_int4_linear_kernel_is_exact_on_identity_rows(cuda_device, n, k, m, dtype):
+    """x rows e_k (no bias) give the plain version's dequantized weight
+    columns bit for bit on every route (decode with and without split-K,
+    tiled, f32): each weight is bf16(q) x bf16(s) rounded once, as JAX
+    rounds it, whatever the order of the sum."""
+    _, w, s, _ = _q4_operands(cuda_device, 1, n, k, dtype, bias=False)
+    cols = torch.arange(m, device=cuda_device) * 7 % k
+    x = torch.zeros(m, k, dtype=dtype, device=cuda_device)
+    x[torch.arange(m, device=cuda_device), cols] = 1
+    got = tq4.int4_linear(x, w, s)
+    dense = tq4.unpack_int4(w).to(dtype) * s.to(dtype)[:, None]
+    assert torch.equal(got, dense[:, cols].t())
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_int4_linear_kernel_is_deterministic_and_replays(cuda_device, dtype):
     """The same output bit for bit from call to call and from a CUDA-graph
-    replay (the S4 decode step's route), at 3-D x and at M = 1 and 1500."""
-    for shape in ((1, 1, 1280), (2, 750, 1280)):
-        x, w, s, b = _q4_operands(cuda_device, 1, 3840, 1280, dtype)
+    replay (the S4 decode step's route), at 3-D x: the decode route at
+    M = 1 (N = 3840, and N = 1280 with split-K), the tiled route at M =
+    1500 and 6000 (the cross K/V at B = 1 and 4)."""
+    for n, shape in ((3840, (1, 1, 1280)), (1280, (1, 1, 1280)),
+                     (3840, (2, 750, 1280)), (1280, (4, 1500, 1280))):
+        x, w, s, b = _q4_operands(cuda_device, 1, n, 1280, dtype)
         x = torch.randn(shape, generator=torch.Generator().manual_seed(3)
                         ).to(dtype).to(cuda_device)
         first = tq4.int4_linear(x, w, s, b)
-        assert first.shape == (*shape[:-1], 3840)
+        assert first.shape == (*shape[:-1], n)
         assert torch.equal(tq4.int4_linear(x, w, s, b), first)
         out = torch.empty_like(first)
         graph = capture(lambda: out.copy_(tq4.int4_linear(x, w, s, b)))

@@ -118,13 +118,30 @@ def test_int4_linear_matches_jax_linear(dtype, bias):
 
 
 def test_q4_launch_plan_and_refusals():
-    """Q4's launch (warps dividing K / 128, NT by M, grid.y up to four
-    blocks an SM) and the shapes and operands its wrapper refuses."""
-    assert q4.plan(1, 1280, 1280, 132) == (5, 1, 80, 1)
-    assert q4.plan(8, 5120, 1280, 132) == (5, 1, 320, 1)
-    assert q4.plan(9, 1280, 5120, 132) == (8, 4, 80, 1)
-    assert q4.plan(1500, 1280, 1280, 132) == (5, 4, 80, 7)
-    assert q4.plan(160, 3840, 1280, 132) == (5, 4, 240, 3)
+    """Q4's launch (the decode route up to ``DECODE_MAX_ROWS`` rows, split-K
+    clusters where N / 16 blocks leave SMs idle; the tiled route above; the
+    f32 route's warps dividing K / 128) and the shapes and operands its
+    wrapper refuses."""
+    Plan = q4.Plan
+    assert q4.plan(1, 1280, 1280, 132) == Plan("decode", 10, 1, 1, 1, (1, 80), True)
+    assert q4.plan(8, 5120, 1280, 132) == Plan("decode", 10, 1, 1, 1, (1, 320), True)
+    assert q4.plan(1, 1280, 5120, 132) == Plan("decode", 10, 1, 1, 4, (4, 80), True)
+    assert q4.plan(9, 1280, 1280, 132) == Plan("decode", 5, 4, 2, 1, (1, 80), True)
+    assert q4.plan(32, 3840, 1280, 132) == Plan("decode", 4, 4, 3, 1, (1, 240), True)
+    assert q4.plan(32, 5120, 1280, 132) == Plan("tiled", 9, 4, 0, 1, (40, 1))
+    assert q4.plan(32, 1280, 5120, 132) == Plan("tiled", 9, 4, 0, 4, (40, 1))
+    assert q4.plan(160, 1280, 1280, 132) == Plan("tiled", 9, 4, 0, 1, (10, 5))
+    assert q4.plan(1500, 1280, 5120, 132) == Plan("tiled", 9, 16, 0, 1, (10, 12), True)
+    assert q4.plan(6000, 5120, 1280, 132) == Plan("tiled", 9, 16, 0, 1, (40, 47), True)
+    assert q4.plan(1, 1280, 1280, 132, f32=True) == Plan("f32", 5, 1, 0, 1, (80, 1))
+    assert q4.plan(1500, 1280, 1280, 132, f32=True) == Plan("f32", 5, 4, 0, 1, (80, 7))
+    edge = q4.DECODE_MAX_ROWS
+    assert q4.plan(edge, 1280, 1280, 132).route == "decode"
+    assert q4.plan(edge + 1, 1280, 1280, 132).route == "tiled"
+    # A block's k-blocks past 16 warps x 2 (8 x 4) in registers, split 8
+    # ways, go to the tiled route.
+    assert q4.plan(1, 16, 128 * 256, 132) == Plan("decode", 16, 1, 2, 8, (8, 1), True)
+    assert q4.plan(1, 16, 128 * 257, 132) == Plan("tiled", 9, 4, 0, 4, (4, 1))
     for m, n, k in ((1, 1288, 1280), (1, 1280, 1300), (0, 1280, 1280)):
         with pytest.raises(ValueError, match="int4_linear"):
             q4.plan(m, n, k, 132)
@@ -138,6 +155,70 @@ def test_q4_launch_plan_and_refusals():
                  (torch.zeros(256, 3).t(), w, s, None)):
         with pytest.raises(ValueError, match="int4_linear"):
             q4._check(*args)
+
+
+LARGE_V3_LINEARS = ((3840, 1280), (1280, 1280), (5120, 1280), (1280, 5120))
+
+
+def _simulate(p, m, n, k):
+    """A launch of plan ``p`` as ``csrc/int4_linear.cu`` indexes it: (the
+    output rows of each block, the x rows of each block, for each output
+    row the k-blocks in the order their sums are added, each as (cluster
+    rank, warp, k-block)). Checks the grid's limits on the way."""
+    kblocks = k // q4.BLOCK_K
+    gx, gy = p.grid
+    assert 1 <= gx <= 2 ** 31 - 1 and 1 <= gy <= 65535
+    if p.route == "tiled":
+        bn = 8 * p.nt
+        assert p.warps == 9 and bn in (32, 128) and p.split in (1, 2, 4, 8)
+        assert p.split <= kblocks and gx == p.split * -(-n // q4.TILE)
+        assert gy == -(-m // bn)
+        # Block x = tile * split + rank: the tile's rows, the rank's stages;
+        # the cluster's partials added in rank order.
+        rows = [range(bx // p.split * q4.TILE, min(n, (bx // p.split + 1) * q4.TILE))
+                for bx in range(0, gx, p.split)]
+        xrows = [range(by * bn, min(m, (by + 1) * bn)) for by in range(gy)]
+        seq = [(rank, 0, kt) for rank in range(p.split)
+               for kt in range(rank * kblocks // p.split, (rank + 1) * kblocks // p.split)]
+        order = {f: seq for f in range(n)}
+        return rows, xrows, order
+    assert p.route == "decode" and p.split in (1, 2, 4, 8) and gx == p.split
+    limit = 16 if p.nt == 1 and p.kpw <= 2 else 8
+    assert 1 <= p.warps <= limit and 1 <= p.kpw <= 4 and p.nt in (1, 4)
+    assert p.split <= kblocks and gy * 16 == n
+    rows, order = [], {}
+    for b in range(gy):
+        rows.append(range(16 * b, 16 * b + 16))
+        seq = []
+        for rank in range(p.split):  # the cluster's partials in rank order
+            kb0, kb1 = rank * kblocks // p.split, (rank + 1) * kblocks // p.split
+            for warp in range(p.warps):  # a block's warps in order
+                for j in range(p.kpw):  # a warp's k-blocks in order
+                    kb = kb0 + warp + j * p.warps
+                    if kb < kb1:
+                        seq.append((rank, warp, kb))
+        for f in rows[-1]:
+            order[f] = seq
+    tile = 8 * p.nt
+    xrows = [range(0, -(-m // tile) * tile)]  # every block sweeps every M-tile
+    return rows, xrows, order
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 160, 1500, 6000])
+def test_q4_plans_cover_every_output_and_column_once(m):
+    """Every plan of large-v3's linears at 132 SMs, simulated: each output
+    row, x row and k-block once, the split-K partials in rank order (one
+    order, whatever order the blocks finish in), the grid within limits."""
+    for n, k in LARGE_V3_LINEARS:
+        p = q4.plan(m, n, k, 132)
+        rows, xrows, order = _simulate(p, m, n, k)
+        assert sorted(f for r in rows for f in r) == list(range(n))
+        covered = sorted(i for r in xrows for i in r)
+        assert covered[:m] == list(range(m)) and len(set(covered)) == len(covered)
+        assert len(order) == n
+        for seq in order.values():
+            assert sorted(kb for _, _, kb in seq) == list(range(k // q4.BLOCK_K))
+            assert seq == sorted(seq, key=lambda s: s[:2])
 
 
 def _s4_tree(tree, fuse=True):

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "twt_write_row": [_P, _P, _P, _I, _I, _I, _I, _P],
     "twt_write_column": [_P, _P, _P] + [_I] * 6 + [_P],
     "twt_empty_launch": [_I, _I, _P],
-    "twt_int4_linear": [_P] * 5 + [_I] * 8 + [_P],
+    "twt_int4_linear": [_P] * 5 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()

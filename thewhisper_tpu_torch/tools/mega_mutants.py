@@ -19,7 +19,8 @@ whose mutants change the engine's product and epilogues in
 product in ``csrc/tc_common.cuh``) and K2's f32 route and lse stores in
 ``csrc/encoder_attention.cu`` (tests ``-k "attention_kernel or
 attention_backward or autograd_on_the_card"``; smoke: [TRAIN]'s kernel
-checks).
+checks); and ``int4``, Q4 in ``csrc/int4_linear.cu`` (both bf16 routes;
+tests ``-k int4``; smoke: ``tools/q4_probe.py --check``).
 
 The copies go to ``thewhisper_tpu_torch/build/mutants/`` (git-ignored), one
 directory a mutant, each with its own kernel build. Prints one JSON line:
@@ -27,13 +28,14 @@ the card's name and power limit and, for each copy, whether the tests
 failed and the first failing test. Needs a card; the eleven K3/K4 mutants take
 about 5 minutes (15 with ``--check smoke``), the six P1 mutants about 2,
 the seven P2/P3 mutants about 2, the five P4/P5 mutants about 5, the
-twenty K2 and K2 backward mutants about 10:
+twenty K2 and K2 backward mutants about 10, the five Q4 mutants about 5:
 
     python -m thewhisper_tpu_torch.tools.mega_mutants
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel control
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel mlp
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel cache
     python -m thewhisper_tpu_torch.tools.mega_mutants --kernel attn_bwd
+    python -m thewhisper_tpu_torch.tools.mega_mutants --kernel int4
     python -m thewhisper_tpu_torch.tools.mega_mutants --only parity,causal
     python -m thewhisper_tpu_torch.tools.mega_mutants --check smoke
 """
@@ -74,6 +76,8 @@ SMOKE_CACHE = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build();
                "c.phase_cache_writes(smi)")
 SMOKE_ATTN_BWD = ("import chip_smoke as c; smi = c.phase_device(); c.phase_build(); "
                   "c.phase_attention_backward(smi)")
+SMOKE_INT4 = ("from thewhisper_tpu_torch.tools import q4_probe; "
+              "q4_probe.main(['--check'])")
 # kernel -> (its source, the -k selection of its card tests, its smoke run).
 KERNELS = {
     "mega": ("csrc/mega_common.cuh", "mega", SMOKE_MEGA),
@@ -83,6 +87,7 @@ KERNELS = {
     "attn_bwd": ("csrc/encoder_attention_bwd.cu",
                  "attention_kernel or attention_backward or autograd_on_the_card",
                  SMOKE_ATTN_BWD),
+    "int4": ("csrc/int4_linear.cu", "int4", SMOKE_INT4),
 }
 
 # The K3/K4 engine's mutants: (name, what the fault is, the text replaced,
@@ -249,6 +254,23 @@ ATTN_BWD_MUTANTS = (
 )
 
 
+# Q4's two bf16 routes.
+INT4_MUTANTS = (
+    ("split-drop", "the split-K sum drops the partial of cluster rank 0",
+     "float sum = v[0];", "float sum = 0.0f;"),
+    ("x-offset", "the tiled route stages x's second 64-column box at the first's k",
+     "tma_load_2d(stage + kBox, &x_map, kt * kStageK + 64, n0, &full[st]);",
+     "tma_load_2d(stage + kBox, &x_map, kt * kStageK, n0, &full[st]);"),
+    ("unsigned", "a nibble is read as unsigned (0 .. 15, not -8 .. 7)",
+     "(v & 0x000F000Fu) ^ 0x43084308u;\n  const uint32_t q = fma_bf16x2(m, 0x3F803F80u, 0xC308C308u);",
+     "(v & 0x000F000Fu) | 0x43004300u;\n  const uint32_t q = fma_bf16x2(m, 0x3F803F80u, 0xC300C300u);"),
+    ("byte-order", "the tiled route's A fragment takes a byte's nibbles high first",
+     "static_cast<uint32_t>(t | ((4 + t) << 8))", "static_cast<uint32_t>((4 + t) | (t << 8))"),
+    ("warp-blocks", "a decode warp stops one k-block early at the end of its block's range",
+     "if (kb >= kb1) break;", "if (kb >= kb1 - 1) break;"),
+)
+
+
 def _with_source(kernel, mutants):
     """(kernel, source, name, fault, old, new) of each mutant, the source
     its own or its kernel's."""
@@ -259,7 +281,8 @@ def _with_source(kernel, mutants):
 # (kernel, source, name, fault, old, new) for every mutant.
 MUTANTS = (_with_source("mega", MEGA_MUTANTS) + _with_source("control", CONTROL_MUTANTS)
            + _with_source("mlp", MLP_MUTANTS) + _with_source("cache", CACHE_MUTANTS)
-           + _with_source("attn_bwd", ATTN_BWD_MUTANTS))
+           + _with_source("attn_bwd", ATTN_BWD_MUTANTS)
+           + _with_source("int4", INT4_MUTANTS))
 
 
 def make_copy(name: str, source: Optional[str], old: Optional[str],
