@@ -151,6 +151,20 @@ is false. Phases, each of which raises on failure:
     ``torch._weight_int4pack_mm`` on the same weights and its bound, the
     routes and splits its plan chose; Q4 and the library call held to the
     plain version on layer 0 (relative L2 < 1e-2).
+9c. [PROFILE] ``utils/flops.py`` and ``utils/profiling.py`` on the card, on
+    models the run built: (a) after the bf16 [LONGFORM], bf16 turbo's
+    encoder MFU at B = 32 x 30 s and its decode step's MFU and HBM share
+    at B = 32 from a CUDA-graph replay, with FLOPs and bytes, each in
+    (0, 1]; (c) after the turbo "S" [LONGFORM], ``trace()`` around a
+    call of its batch-1 depth-2 arm on the 600 s file's first 120 s, its
+    stages in ``annotate`` spans: the device's idle share (over the traced
+    span and against the same call's untraced wall) and its three longest
+    idle gaps with the span and host op running at their start; (b)
+    after [Q4], ``trace()`` around replays of the S4 step's batch-1
+    graph: its device span, kernels and Q4's launches a step (6 a layer),
+    Q4's share, the eight largest kernels and the idle time inside the
+    step. A trace without a CUDA kernel event fails the run; the traces
+    are written under a temporary directory and deleted.
 10. [P1] The no-exp attention control (the TPU attention probe's timing
     control) against its plain version at B = 4 and at the probe's B = 32,
     H = 20, S = 1536, bf16, and in f32 at B = 1, S = 1024; the B = 32 bf16
@@ -297,15 +311,16 @@ from thewhisper_tpu_torch.tools import (
     mega_caps_probe,
     q4_probe,
 )
-from thewhisper_tpu_torch.tools._card import (
+from thewhisper_tpu_torch.tools._card import capture, card, cuda_ms, graph_ms
+from thewhisper_tpu_torch.utils import profiling
+from thewhisper_tpu_torch.utils.flops import (
     BF16_FLOPS,
     F32_FLOPS,
     HBM_BYTES_PER_S,
     TF32_FLOPS,
-    capture,
-    card,
-    cuda_ms,
-    graph_ms,
+    decode_step_bytes,
+    decode_step_flops,
+    encoder_flops,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -502,7 +517,8 @@ def phase_attention() -> dict:
             library_ms = cuda_ms(lambda: sdpa_attention(q, k, v))
             flops = 4 * b * 20 * s * s * 64
             line += (f"  scaled_dot_product_attention {library_ms:.4f} ms; "
-                     f"kernel {flops / ms / 1e9:.1f} TFLOP/s")
+                     f"kernel {flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{flops / ms * 1e3 / BF16_FLOPS:.1%} of the bf16 peak")
             if b == 4:
                 check(ms < plain_ms and ms <= 1.5 * library_ms,
                       f"K2 bf16 {ms} ms against plain {plain_ms} ms and "
@@ -1092,7 +1108,7 @@ def longform_kernels_against_plain(engine, full, offsets, bucket) -> None:
           f"err relative to the output's max {k2_rel:.3e}", flush=True)
 
 
-def phase_longform(model, smi: str, quantized: bool) -> None:
+def phase_longform(model, smi: str, quantized: bool) -> dict:
     """[LONGFORM] The bench's long-form protocol through the port's
     pipeline: a 600 s file, 9 s windows on a 9 s bucket, 32 new tokens,
     EOT suppressed. bf16 turbo (``quantized`` False) at batch 32, depth 2,
@@ -1102,7 +1118,8 @@ def phase_longform(model, smi: str, quantized: bool) -> None:
     path. Each arm warm once, then ``LONGFORM_TURNS`` timed calls in turns:
     wall, RTFx, first result, K1/K2/K3 launches (checked). The batch-1
     arms give the same text; window 0 of the fast path equals a batch-1
-    ``transcribe_window_async`` of it, bit for bit."""
+    ``transcribe_window_async`` of it, bit for bit. Returns the arms,
+    warmed: name -> (pipeline, batch size)."""
     t_phase = time.perf_counter()
     audio = synth_audio(LONGFORM_SECONDS, seed=60)
     arms = longform_arms(model, quantized)
@@ -1175,6 +1192,7 @@ def phase_longform(model, smi: str, quantized: bool) -> None:
     print(f"[LONGFORM] reference H100 turbo \"S\" (SURVEY §6, context only): "
           f"bs=1 RTFx 161.45, bs=64 2016.18; phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return arms
 
 
 def phase_turbo_s(model, smi: str) -> WhisperEngine:
@@ -2670,7 +2688,7 @@ def phase_s4(model_s, smi: str):
     at batch 1 and 4 beside S's plain int8 step (``megakernel=False``) and
     S's K3 route at batch 1; quantized bytes; the small f32 S4 model on
     card and CPU; [Q4]. Returns (Q4's launches on the path, [Q4]'s
-    entry)."""
+    entry, the S4 model)."""
     dev = model_s.device
     arch = model_s.arch
     n = arch.decoder_layers
@@ -2761,7 +2779,264 @@ def phase_s4(model_s, smi: str):
           f"{smi}", flush=True)
     s4_small_reference()
     entry = phase_q4(model, smi)
-    return launches["int4_linear"], entry
+    return launches["int4_linear"], entry, model
+
+
+PROFILE_REPLAYS = 8      # [PROFILE] (b): traced replays of the S4 step graph
+# (c) traces a call on the long-form file's first 120 s (its first 20
+# windows): on an H100 the whole 600 s call's trace held 3.3 M events
+# (966 MiB) and the profiler's host work stretched the call from 7.3 s
+# to 72 s.
+PROFILE_LONGFORM_SECONDS = 120
+PROFILE_TOP = 8          # (b)'s largest kernels by device time
+
+
+def kernel_events(events: list, what: str) -> list:
+    """The trace's device kernels; a trace without one fails the run."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, f"[PROFILE] the trace of {what} holds no CUDA kernel event")
+    return kernels
+
+
+def spans_named(events: list, prefix: str) -> list:
+    """The ``annotate`` spans whose name starts with ``prefix``, in time order."""
+    return sorted((e for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith(prefix)), key=lambda e: e["ts"])
+
+
+def short(name: str) -> str:
+    """A kernel's demangled name without its return type, anonymous
+    namespace and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0][:60]
+
+
+def replay_split(events: list, prefix: str, n: int) -> dict:
+    """Device work of ``n`` CUDA-graph replays traced each in an
+    ``annotate`` span named ``prefix`` + its index: a replay's kernels and
+    copies are those that carry the correlation id of the graph launch in
+    its span. Summed over the replays: the device's span from a replay's
+    first operation to its last (``span_us``), the union of its operations
+    (``busy_us``), the span less that (``idle_us``), the kernels' summed
+    time (``kernel_us``) and name -> (launches, summed us), the copies'
+    summed time (``copy_us``). The counts are a replay's: every replay runs
+    the same graph, and the tracer drops a record now and then (1 of some
+    31,600 in a trace of the S4 step), so each name's count is the largest
+    any replay shows, and ``dropped`` says how many records fell short of
+    it."""
+    kernel_events(events, f"the {prefix!r} replays")
+    replays = spans_named(events, prefix)
+    check(len(replays) == n, f"[PROFILE] {len(replays)} {prefix!r} spans, not {n}")
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "GraphLaunch" in e["name"]]
+    by_corr = {}
+    for e in events:
+        if e.get("cat") in profiling.DEVICE_CATEGORIES:
+            by_corr.setdefault(e.get("args", {}).get("correlation"), []).append(e)
+    out = {"span_us": 0.0, "busy_us": 0.0, "kernel_us": 0.0, "copy_us": 0.0}
+    counts = []
+    for r in replays:
+        mine = [e for e in launches if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]]
+        check(len(mine) == 1, f"[PROFILE] {r['name']} holds {len(mine)} graph launches")
+        ops = by_corr.get(mine[0]["args"]["correlation"], [])
+        check(len(ops) > 0, f"[PROFILE] {r['name']}'s graph launch ran no kernel")
+        lo, hi = min(e["ts"] for e in ops), max(e["ts"] + e["dur"] for e in ops)
+        out["span_us"] += hi - lo
+        out["busy_us"] += profiling.device_idle(ops, lo, hi)[0]
+        out["kernel_us"] += sum(e["dur"] for e in ops if e["cat"] == "kernel")
+        out["copy_us"] += sum(e["dur"] for e in ops if e["cat"] != "kernel")
+        counts.append((profiling.kernel_times(ops),
+                       sum(1 for e in ops if e["cat"] != "kernel")))
+    names = set().union(*(c for c, _ in counts))
+    launches_a_replay = {name: max(c[name][0] if name in c else 0 for c, _ in counts)
+                         for name in names}
+    out["by_name"] = {name: (launches_a_replay[name], sum(c[name][1] for c, _ in counts
+                                                          if name in c))
+                      for name in names}
+    out["kernels"] = sum(launches_a_replay.values())
+    out["copies"] = max(k for _, k in counts)
+    out["dropped"] = sum(out["kernels"] - sum(v[0] for v in c.values())
+                         for c, _ in counts)
+    out["idle_us"] = out["span_us"] - out["busy_us"]
+    return out
+
+
+def phase_profile_shares(model, smi: str) -> None:
+    """[PROFILE] (a) ``utils/flops.py``'s shares as the JAX bench computes
+    them (``bench.py`` 975-999), for bf16 large-v3-turbo at full width: the
+    encoder's MFU at B = 32 x 30 s (``t_mel`` 3000; CUDA events over three
+    passes after a warm one), and the decode step's MFU and HBM share at
+    B = 32 (``cache_len`` 84, ``t_enc`` 1500, bf16 weights, self-cache and
+    cross K/V), the step's device time from a replay of its CUDA graph
+    (``replay_ms``). Each share must fall in (0, 1]."""
+    arch = model.arch
+    feat = LogMelFeaturizer(n_mels=arch.n_mels, device=model.device)
+    mel = feat([synth_audio(30, seed=100 + i) for i in range(32)])
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: encoder_forward(model, mel), iters=3)
+    enc_flops = encoder_flops(arch, 3000, 32)
+    engine = WhisperEngine(model)
+    engine.warmup(3000, (32,), GEN_KW["max_new_tokens"], True)
+    engine.transcribe_features(mel, GenerationOptions(
+        language="en", max_new_tokens=GEN_KW["max_new_tokens"], return_timestamps=True))
+    (key,) = [p["key"] for p in engine.programs()]
+    step_ms = replay_ms(engine, key)
+    step_flops = decode_step_flops(arch, cache_len=84, t_enc=1500, batch=32)
+    step_bytes = decode_step_bytes(arch, cache_len=84, t_enc=1500, batch=32,
+                                   weight_bytes=2, cache_bytes=2, cross_bytes=2)
+    shares = {"encoder_bs32_mfu": enc_flops / (enc_ms / 1e3) / BF16_FLOPS,
+              "decode_bs32_mfu": step_flops / (step_ms / 1e3) / BF16_FLOPS,
+              "decode_bs32_hbm_util": step_bytes / (step_ms / 1e3) / HBM_BYTES_PER_S}
+    print(f"[PROFILE] (a) bf16 turbo encoder B=32 x 30 s: {enc_ms:.3f} ms (CUDA "
+          f"events), {enc_flops:.6e} FLOPs, MFU {shares['encoder_bs32_mfu']:.4f} of "
+          f"{BF16_FLOPS:.4g} FLOP/s; {smi}", flush=True)
+    print(f"[PROFILE] (a) bf16 turbo decode step B=32 (key {key}): {step_ms:.4f} ms "
+          f"(device, CUDA graph), {step_flops:.6e} FLOPs and {step_bytes:.6e} bytes "
+          f"at cache_len 84, t_enc 1500: MFU {shares['decode_bs32_mfu']:.4f}, HBM "
+          f"share {shares['decode_bs32_hbm_util']:.4f} of {HBM_BYTES_PER_S:.4g} B/s; "
+          f"{smi}", flush=True)
+    for name, share in shares.items():
+        check(0 < share <= 1, f"[PROFILE] {name} {share} outside (0, 1]")
+    del engine, mel
+
+
+def phase_profile_s4(model, smi: str) -> None:
+    """[PROFILE] (b) Where the large-v3 "S4" step's time goes: ``trace()``
+    around ``PROFILE_REPLAYS`` replays of its batch-1 CUDA graph (30 s, 64
+    new tokens, word timestamps; [S4]'s model, a warmed engine of its own),
+    each replay in an ``annotate`` span that ends in a synchronize
+    (``replay_split``). A step: the device's span from a replay's first
+    operation to its last, over ``STEPS_PER_CHECK``; its kernels, copies
+    and Q4's launches (which must be [S4]'s 6 a layer); Q4's share of the
+    span; the eight largest kernels by device time; the idle time inside
+    the span (the span less the union of its operations). Beside them the
+    step's untraced device time (``replay_ms``), which the tracer's own
+    cost between kernels does not stretch, less the traced operations'
+    time, and the host clock's ms a step of the same loop (``loop_ms``)."""
+    n_q4 = 6 * model.arch.decoder_layers
+    engine = WhisperEngine(model, cross_kv_int8=True)
+    engine.warmup(3000, (1,), GEN_KW["max_new_tokens"], True)
+    feat = LogMelFeaturizer(n_mels=model.arch.n_mels, device=model.device)
+    engine.transcribe_features(feat([synth_audio(30, seed=90)]), GenerationOptions(
+        language="en", max_new_tokens=GEN_KW["max_new_tokens"], return_timestamps=True))
+    (key,) = [p["key"] for p in engine.programs()]
+    host_ms = loop_ms(engine, key)[0]
+    device_ms = replay_ms(engine, key)
+    graph = engine._programs[key].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            for i in range(PROFILE_REPLAYS):
+                with profiling.annotate(f"s4 replay {i}"):
+                    graph.replay()
+                    torch.cuda.synchronize()
+        events = profiling.trace_events(log_dir)
+    split = replay_split(events, "s4 replay ", PROFILE_REPLAYS)
+    steps, by_name = PROFILE_REPLAYS * STEPS_PER_CHECK, split["by_name"]
+    span_us, idle_us, kernel_us = split["span_us"], split["idle_us"], split["kernel_us"]
+    q4_names = [n for n in by_name if short(n).startswith("q4_")]
+    q4_launches = sum(by_name[n][0] for n in q4_names) / STEPS_PER_CHECK
+    q4_us = sum(by_name[n][1] for n in q4_names)
+    check(q4_launches == n_q4, f"[PROFILE] Q4 launches a step {q4_launches} != {n_q4}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]
+    work_ms = (kernel_us + split["copy_us"]) / 1e3 / steps
+    print(f"[PROFILE] (b) large-v3 S4 step, batch 1, from its CUDA graph "
+          f"({PROFILE_REPLAYS} traced replays of {STEPS_PER_CHECK} steps): device "
+          f"span {span_us / 1e3 / steps:.4f} ms a step, of which kernels "
+          f"{kernel_us / 1e3 / steps:.4f} ms, copies {split['copy_us'] / 1e3 / steps:.4f} "
+          f"ms and idle {idle_us / 1e3 / steps:.4f} ms ({idle_us / span_us:.2%}); "
+          f"{split['kernels'] / STEPS_PER_CHECK:g} kernels and "
+          f"{split['copies'] / STEPS_PER_CHECK:g} copies a step ({split['dropped']} "
+          f"records the tracer dropped); Q4 {q4_launches:g} launches a step, "
+          f"{q4_us / 1e3 / steps:.4f} ms, {q4_us / span_us:.2%} of the span; "
+          f"untraced, the step takes {device_ms:.4f} ms on the device (CUDA events "
+          f"around replays), {device_ms - work_ms:.4f} ms more than its traced "
+          f"kernels and copies, and {host_ms:.4f} ms on the host clock (p50 of 5, "
+          f"the loop with its host checks); {smi}", flush=True)
+    print("[PROFILE] (b) largest kernels by device time a step: " + "; ".join(
+        f"{short(name)} x{cnt / STEPS_PER_CHECK:g} {us / 1e3 / steps:.4f} ms "
+        f"({us / kernel_us:.1%})" for name, (cnt, us) in top), flush=True)
+    del engine
+
+
+def phase_profile_longform(arms: dict, smi: str) -> None:
+    """[PROFILE] (c) The device's idle share in a batch-1 long-form call,
+    on [LONGFORM]'s turbo "S" batch-1 depth-2 arm (warmed there): a call on
+    the 600 s file's first ``PROFILE_LONGFORM_SECONDS``, once to warm its
+    upload, once timed and once inside ``trace()``, its stages wrapped in
+    ``annotate`` spans (the engine's dispatch, encoder queueing, decode
+    loop and unpacking to the host; the pipeline's per-window consumption
+    and token decoding). The device's busy time is the union of its
+    kernels and copies over the traced call's span; the profiler's host
+    work stretches the span, so the idle share is given over the traced
+    span and against the untraced call's wall. The three longest idle gaps
+    are printed with the innermost span and host op running at their
+    start."""
+    (name,) = [n for n in arms if n.startswith("S B1 depth 2")]
+    pipe, bsz = arms[name]
+    engine = pipe.engine
+    audio = synth_audio(LONGFORM_SECONDS, seed=60)[:PROFILE_LONGFORM_SECONDS * SAMPLE_RATE]
+
+    def call():
+        out = pipe(audio, chunk_length_s=9, generate_kwargs=dict(LONGFORM_KW),
+                   batch_size=bsz)
+        torch.cuda.synchronize()
+        check(out["text"].strip() != "", "[PROFILE] (c) a call gave no text")
+
+    def spanned(label, fn):
+        def run(*a, **k):
+            with profiling.annotate(label):
+                return fn(*a, **k)
+        return run
+
+    call()
+    t0 = time.perf_counter()
+    call()
+    plain_wall = time.perf_counter() - t0
+    stages = [(engine, "_dispatch", "dispatch"), (engine, "_decode", "decode"),
+              (engine, "_unpack", "unpack"), (pipe, "_consume_result", "consume"),
+              (pipe, "_decode", "tokens to text")]
+    encode = PendingResult.encode
+    for obj, attr, label in stages:
+        setattr(obj, attr, spanned(label, getattr(obj, attr)))
+    PendingResult.encode = spanned("encode", encode)
+    try:
+        with tempfile.TemporaryDirectory() as log_dir:
+            t0 = time.perf_counter()
+            with profiling.trace(log_dir):
+                with profiling.annotate("longform call"):
+                    call()
+            wall = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in Path(log_dir).iterdir())
+            events = profiling.trace_events(log_dir)
+    finally:
+        for obj, attr, _ in stages:
+            delattr(obj, attr)
+        PendingResult.encode = encode
+    kernel_events(events, "the long-form call")
+    (span,) = spans_named(events, "longform call")
+    start, end = span["ts"], span["ts"] + span["dur"]
+    busy, gaps = profiling.device_idle(events, start, end)
+    host = [e for e in events if e.get("cat") in ("user_annotation", "cpu_op")
+            and e.get("tid") == span["tid"] and e["ts"] >= start]
+
+    def running(t: float, cat: str) -> str:
+        inside = [e for e in host if e["cat"] == cat and e["ts"] <= t < e["ts"] + e["dur"]]
+        return max(inside, key=lambda e: e["ts"])["name"] if inside else "none"
+
+    print(f"[PROFILE] (c) turbo S long-form, {name}, the 600 s file's first "
+          f"{PROFILE_LONGFORM_SECONDS} s: untraced wall {plain_wall:.3f} s; traced "
+          f"wall {wall:.3f} s, span {span['dur'] / 1e6:.3f} s, device busy "
+          f"{busy / 1e6:.3f} s; idle share {1 - busy / span['dur']:.4f} over the "
+          f"traced span, {1 - busy / 1e6 / plain_wall:.4f} against the untraced "
+          f"wall; {len(events)} trace events, {size / 2 ** 20:.1f} MiB; {smi}",
+          flush=True)
+    for i, (lo, hi) in enumerate(gaps[:3]):
+        print(f"[PROFILE] (c) idle gap {i + 1}: {(hi - lo) / 1e3:.3f} ms at "
+              f"{(lo - start) / 1e6:.3f} s into the traced call; span "
+              f"{running(lo, 'user_annotation')!r}, host op {running(lo, 'cpu_op')!r}; "
+              f"{smi}", flush=True)
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
@@ -2814,7 +3089,8 @@ def phase_control(smi: str) -> dict:
         iters=10)
     flops = 4 * 32 * 20 * 1536 ** 2 * 64
     print(f"[P1] B=32 H=20 S=1536 bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-          f"TFLOP/s of the function's work), device {dev_ms:.4f} ms (CUDA graph); "
+          f"TFLOP/s of the function's work, {flops / ms * 1e3 / BF16_FLOPS:.1%} "
+          f"of the bf16 peak), device {dev_ms:.4f} ms (CUDA graph); "
           f"plain {plain_ms:.4f} ms; yardsticks on the same inputs: K2 "
           f"{k2_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms; "
           f"{smi}", flush=True)
@@ -3594,9 +3870,12 @@ def main() -> None:
     phase_graph(turbo, smi)
     phase_beam(turbo, smi)
     phase_longform(turbo, smi, quantized=False)
+    phase_profile_shares(turbo, smi)
     torch.cuda.empty_cache()
     turbo_s = phase_turbo_s(turbo, smi)
-    phase_longform(turbo, smi, quantized=True)
+    arms = phase_longform(turbo, smi, quantized=True)
+    phase_profile_longform(arms, smi)
+    del arms
     phase_stream(turbo_s, smi)
     phase_server(turbo_s, smi)
     phase_padded_rows(turbo_s, smi)
@@ -3607,8 +3886,9 @@ def main() -> None:
     k3 = phase_mega(model, encs)
     k4 = phase_verify(model, encs[30])
     k4_launches = phase_spec(model, smi)
-    q4_launches, q4_entry = phase_s4(model, smi)
-    del model, encs
+    q4_launches, q4_entry, s4_model = phase_s4(model, smi)
+    phase_profile_s4(s4_model, smi)
+    del model, encs, s4_model
     torch.cuda.empty_cache()
     p1 = phase_control(smi)
     p2, p3 = phase_mlp(smi)

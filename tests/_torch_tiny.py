@@ -65,3 +65,28 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_cpu_thread():
+    """The module's torch, BLAS and child processes on one CPU thread each.
+
+    A test module that imports this fixture uses it for every test. The
+    suite runs in several pytest-xdist workers at once, and each would
+    otherwise keep a pool of as many threads as the machine has cores: on
+    a loaded machine most of their time goes to waiting on one another
+    (a tiny model's ``layer_norm`` took 10 ms a call, not microseconds).
+    The computation and its results' checks stay as they are; the thread
+    count is restored after the module."""
+    import torch
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp, threadpool_limits(1):
+            mp.setenv("OMP_NUM_THREADS", "1")
+            mp.setenv("OPENBLAS_NUM_THREADS", "1")
+            yield
+    finally:
+        torch.set_num_threads(threads)

@@ -15,6 +15,8 @@ import torch
 from thewhisper_tpu.models import whisper as jw
 from thewhisper_tpu_torch.ops import attention as ta
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 
 def _qkv(b, s, h, dh=64, seed=0):
     """Three (B, S, H, dh) f32 arrays, the port's layout."""

@@ -33,6 +33,8 @@ import torch
 
 from thewhisper_tpu_torch.ops import attention as ta
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 SRC = (Path(ta.__file__).resolve().parents[1] / "csrc" / "encoder_attention_bwd.cu").read_text()
 
 

@@ -19,6 +19,8 @@ import torch
 from thewhisper_tpu.models.whisper import _attention
 from thewhisper_tpu_torch.ops import attention as ta
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 B, S, H, DH = 2, 50, 3, 64
 
 

@@ -33,6 +33,7 @@ from thewhisper_tpu_torch.models.load import params_from_jax
 from thewhisper_tpu_torch.pipeline import ASRPipeline
 
 from _torch_tiny import ARCH, SPECIAL, SUPPRESS, WordTokenizer, audio, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 PROMPT = np.asarray([[102, 110, 121, 123], [102, 111, 121, 123]], np.int32)
 EOT = 70          # a token the varied model emits at its third step

@@ -24,6 +24,8 @@ import torch
 from thewhisper_tpu_torch.ops import _build
 from thewhisper_tpu_torch.ops import cache_write as cw
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 WHISPER_WIDTHS = (384, 512, 768, 1024, 1280)
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_tiny import ARCH, audio
+from _torch_tiny import one_cpu_thread  # noqa: F401
 from thewhisper_tpu_torch.models import checkpoint as ck
 from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.models.load import (

@@ -21,12 +21,16 @@ from the same operands (as the kernel's identical products are).
   fault it names.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from thewhisper_tpu_torch.ops import attention_control as ac
 from thewhisper_tpu_torch.tools import mega_mutants
+
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 ROWS, CONSUMER_ROWS, TILE, SUB = 192, 64, 512, 128
 
@@ -150,6 +154,14 @@ def test_online_subtile_max_is_another_function(round_p):
     assert _rel(out, ref) > 1e-2
 
 
+@functools.lru_cache(maxsize=None)
+def _fault_inputs():
+    """The fault cases' inputs, their plain bf16 output and l, and the
+    fault-free schedule on them: the same for every fault, so walked once."""
+    q, k, v = _inputs(11, 1536, q_scale=4.0)
+    return (q, k, v), _plain(q, k, v, torch.bfloat16), _run(q, k, v)
+
+
 @pytest.mark.parametrize("fault,caught_by", [
     ("m-reset", "max"), ("max-128", "max"), ("l-round", "l"), ("p-trunc", "l2"),
     ("k-stage", "max"), ("row-down", "max")])
@@ -158,13 +170,11 @@ def test_each_fault_leaves_the_card_bounds(fault, caught_by):
     its largest value ("max") and 5e-4 relative L2 ("l2"), l within 1e-5 of
     its largest magnitude ("l"). The fault-free schedule on the same inputs
     stays within all three."""
-    q, k, v = _inputs(11, 1536, q_scale=4.0)
-    ref, ref_sums = _plain(q, k, v, torch.bfloat16)
+    (q, k, v), plain, clean = _fault_inputs()
     bounds = {"max": (_rel, 0, 1e-2), "l2": (_l2, 0, 5e-4), "l": (_rel, 1, 1e-5)}
     metric, which, bound = bounds[caught_by]
-    clean = _run(q, k, v)
-    assert metric(clean[which], (ref, ref_sums)[which]) < bound
-    assert metric(_run(q, k, v, fault=fault)[which], (ref, ref_sums)[which]) > bound
+    assert metric(clean[which], plain[which]) < bound
+    assert metric(_run(q, k, v, fault=fault)[which], plain[which]) > bound
 
 
 @pytest.mark.parametrize("source,name,old", [(m[1], m[2], m[4]) for m in mega_mutants.MUTANTS],

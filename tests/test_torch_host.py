@@ -13,6 +13,8 @@ from thewhisper_tpu import config as jax_config
 from thewhisper_tpu import text as jax_text
 from thewhisper_tpu_torch import align, config, text
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 
 def test_arch_presets_equal_jax():
     assert config.ARCH_PRESETS.keys() == jax_config.ARCH_PRESETS.keys()

@@ -129,6 +129,33 @@ def test_logmel_kernel_rejects_bad_input(cuda_device):
                                    dtype=torch.float64), fb, win)
 
 
+def test_trace_records_a_logmel_launch(cuda_device, tmp_path):
+    """``utils.profiling.trace`` on the card: its file holds K1's launch as
+    a device kernel event inside the ``annotate`` span's time, one a call."""
+    from thewhisper_tpu_torch.utils import profiling
+
+    audio = torch.from_numpy(_sig(1, 30.0)).to(cuda_device)
+    fb = torch.from_numpy(tf.mel_filter_bank(num_mel_filters=128)).to(cuda_device)
+    win = torch.from_numpy(tf.hann_window()).to(cuda_device)
+    tf.log_mel_spectrogram(audio, fb, win)                # builds and warms
+    torch.cuda.synchronize()
+    before = logmel.LOGMEL_LAUNCHES
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("k1-call"):
+            tf.log_mel_spectrogram(audio, fb, win)
+            torch.cuda.synchronize()
+    assert logmel.LOGMEL_LAUNCHES == before + 1
+    events = profiling.trace_events(str(tmp_path))
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "logmel_kernel" in e["name"]]
+    (span,) = [e for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == "k1-call"]
+    assert len(kernels) == 1 and kernels[0]["dur"] > 0
+    assert span["ts"] <= kernels[0]["ts"] <= span["ts"] + span["dur"]
+    busy, _ = profiling.device_idle(events, span["ts"], span["ts"] + span["dur"])
+    assert busy >= kernels[0]["dur"]
+
+
 def _qkv(b, s, h, dtype, device, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     return [torch.randn(b, s, h, 64, generator=g).to(device, dtype)

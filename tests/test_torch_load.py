@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 sys.path.insert(0, "tools")
 
 

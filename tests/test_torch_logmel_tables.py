@@ -19,6 +19,8 @@ import torch
 from thewhisper_tpu_torch.audio import features as tf
 from thewhisper_tpu_torch.ops import logmel
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 
 def _sig(seconds, seed=0):
     rng = np.random.default_rng(seed)

@@ -29,6 +29,7 @@ from thewhisper_tpu_torch.engine.engine import PendingGroup, PendingResult, to_d
 from thewhisper_tpu_torch.models.load import params_from_jax
 
 from _torch_tiny import ARCH, SPECIAL, SUPPRESS, WordTokenizer, audio, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 KW = {"max_new_tokens": 8, "language": "en"}
 BUCKETS = (1, 2, 4)

@@ -22,6 +22,8 @@ import torch
 
 from thewhisper_tpu_torch.ops import mega_step as tm
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 H, DH = 20, 64
 
 

@@ -26,6 +26,8 @@ from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.models.load import params_from_jax
 from thewhisper_tpu_torch.ops import mega_step as tm
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 ARCH = WhisperArch(
     d_model=384, encoder_layers=2, encoder_heads=6, decoder_layers=2,
     decoder_heads=6, d_ff=1536, n_mels=80, vocab_size=500,

@@ -35,6 +35,8 @@ from thewhisper_tpu_torch.ops import mega_step as tm
 from thewhisper_tpu_torch.ops import mlp_chain as mc
 from thewhisper_tpu_torch.tools.gemv_chain_probe import make_inputs, operands
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 TILE, STAGE, WARPS = 16, 1280, 16
 # csrc/mega_common.cuh: a stage's bytes, the opt-in shared memory of an H100
 # block, and the layout's fixed part at W = 1 (mbarriers, two product

@@ -16,6 +16,8 @@ import sys
 import pytest
 import torch
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCK_JAX = ('import sys; sys.modules["jax"] = None; '
@@ -41,7 +43,7 @@ def test_every_port_module_imports_without_jax():
         "print(' '.join(names))\n")
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 47
+    assert len(names) >= 49
     assert "thewhisper_tpu_torch.engine.speculative" in names
     assert "thewhisper_tpu_torch.ops.mega_step" in names
     # Importing the server's __main__ (walked like every other module)
@@ -58,7 +60,7 @@ def test_every_port_module_imports_without_jax():
                  "native_lib", "run_asr", "utils", "utils.wer",
                  "utils.normalizers", "utils.subtitles",
                  "streaming.vad_corpus", "streaming.vad_holdout",
-                 "ops.int4_linear"):
+                 "ops.int4_linear", "utils.flops", "utils.profiling"):
         assert f"thewhisper_tpu_torch.{name}" in names
 
 

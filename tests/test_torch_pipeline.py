@@ -22,6 +22,7 @@ from thewhisper_tpu_torch.models.whisper import Whisper
 from thewhisper_tpu_torch.pipeline import ASRPipeline
 
 from _torch_tiny import ARCH, SPECIAL, SUPPRESS, WordTokenizer, audio, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 KW = {"max_new_tokens": 8, "language": "en"}
 

@@ -39,6 +39,8 @@ from thewhisper_tpu_torch.tools import (
     mega_caps_probe,
 )
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

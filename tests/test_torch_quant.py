@@ -21,6 +21,7 @@ from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.models.load import params_from_jax
 
 from _torch_tiny import ARCH, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 
 def _t(x):

@@ -21,6 +21,8 @@ from thewhisper_tpu_torch.audio.io import save_wav
 from thewhisper_tpu_torch.models.checkpoint import shard_safetensors
 from thewhisper_tpu_torch.models.load import load_checkpoint
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 

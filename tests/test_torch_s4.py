@@ -30,6 +30,7 @@ from thewhisper_tpu_torch.ops import int4_linear as q4
 from thewhisper_tpu_torch.ops.mega_step import pack_mega_params
 
 from _torch_tiny import ARCH, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 
 def _t(x):

@@ -23,6 +23,8 @@ from thewhisper_tpu.streaming.batching import BatchedTranscriber as JaxBatched
 from thewhisper_tpu_torch.config import ServerConfig
 from thewhisper_tpu_torch.streaming.batching import BatchedTranscriber
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 PACKAGES = {"jax": (jax_http, JaxServerConfig, JaxBatched),
             "torch": (http_mod, ServerConfig, BatchedTranscriber)}
 

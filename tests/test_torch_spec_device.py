@@ -47,6 +47,7 @@ from test_torch_speculative import (  # noqa: F401
     _t,
     models,
 )
+from _torch_tiny import one_cpu_thread  # noqa: F401
 
 SUP = suppress_mask(ARCH.vocab_size, (0, 3))
 BEG = suppress_mask(ARCH.vocab_size, (5,))

@@ -26,6 +26,8 @@ from thewhisper_tpu_torch.engine.decode import greedy_decode
 from thewhisper_tpu_torch.models import whisper as tw
 from thewhisper_tpu_torch.models.load import params_from_jax
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 ARCH = dataclasses.replace(
     ARCH_PRESETS["tiny"],
     d_model=64, encoder_layers=2, encoder_heads=4, decoder_layers=4,

@@ -8,6 +8,8 @@ import thestage_speechkit
 from thewhisper_tpu_torch import pipeline, streaming, text
 from thewhisper_tpu_torch import speechkit
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 
 def test_names_are_the_ports():
     assert speechkit.ASRPipeline is pipeline.ASRPipeline

@@ -25,6 +25,8 @@ from thewhisper_tpu_torch.streaming import pipeline as pipeline_mod
 from thewhisper_tpu_torch.streaming import vad
 from thewhisper_tpu_torch.streaming.ring import RingBuffer
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 PACKAGES = {"jax": (jax_streaming, jax_pipeline_mod),
             "torch": (streaming, pipeline_mod)}
 SR = 16000

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_tiny import ARCH, jax_params_numpy
+from _torch_tiny import one_cpu_thread  # noqa: F401
 from thewhisper_tpu.models import whisper as jw
 from thewhisper_tpu.training import distill as jdistill
 from thewhisper_tpu.training import train as jtrain

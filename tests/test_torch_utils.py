@@ -18,6 +18,8 @@ from thewhisper_tpu_torch import config
 from thewhisper_tpu_torch.audio import io as pio
 from thewhisper_tpu_torch.utils import normalizers, subtitles
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 # The modules (each package's ``utils`` exports a function named ``wer``).
 wer = importlib.import_module("thewhisper_tpu_torch.utils.wer")
 jax_wer = importlib.import_module("thewhisper_tpu.utils.wer")

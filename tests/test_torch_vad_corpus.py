@@ -12,6 +12,8 @@ from thewhisper_tpu.streaming import vad_corpus as jax_corpus
 from thewhisper_tpu.streaming import vad_holdout as jax_holdout
 from thewhisper_tpu_torch.streaming import vad, vad_corpus, vad_holdout
 
+from _torch_tiny import one_cpu_thread  # noqa: F401
+
 WINDOW = vad_corpus.WINDOW
 # tests/test_vad.py's seeds and clip counts: the held-out seed of the
 # training family, and the out-of-family holdout.

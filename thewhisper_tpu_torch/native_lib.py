@@ -61,13 +61,15 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
+def library_path(source: Path = SOURCE, build_dir: Optional[Path] = None) -> Path:
+    """Where a build of ``source`` lies in ``build_dir`` (default: the
+    module's ``BUILD_DIR`` at the time of the call)."""
     digest = hashlib.sha256(Path(source).read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return Path(build_dir) / f"libwhisper_host-{digest.hexdigest()[:16]}.so"
+    return Path(build_dir or BUILD_DIR) / f"libwhisper_host-{digest.hexdigest()[:16]}.so"
 
 
-def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
+def build(source: Path = SOURCE, build_dir: Optional[Path] = None) -> Path:
     """The built library's path, compiling ``source`` if no build of it is
     there. Raises ``RuntimeError`` with the compiler's output on failure."""
     target = library_path(source, build_dir)
@@ -93,7 +95,7 @@ def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
     return target
 
 
-def load(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+def load(source: Path = SOURCE, build_dir: Optional[Path] = None) -> ctypes.CDLL:
     """Build (if needed) and load a library of ``source``, typed."""
     loaded = ctypes.CDLL(str(build(source, build_dir)))
     for name, (restype, argtypes) in _SIGNATURES.items():

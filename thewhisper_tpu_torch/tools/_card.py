@@ -11,12 +11,13 @@ from typing import Callable
 
 import torch
 
-# One NVIDIA H100 SXM's published peaks (NVIDIA's data sheet, dense rates,
-# at the full 700 W): memory bytes/s and operations/s by type.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
-TF32_FLOPS = 494.7e12
+# One NVIDIA H100 SXM's published peaks, whose home is utils/flops.py.
+from thewhisper_tpu_torch.utils.flops import (  # noqa: F401
+    BF16_FLOPS,
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    TF32_FLOPS,
+)
 
 
 def device(name: str) -> torch.device:

@@ -8,9 +8,9 @@ through ``WhisperEngine``; then the same model quantized as "S" (int8
 decoder and cross K/V, W8A8 encoder), whose batch-1 step is one K3
 launch. For each:
 
-- the profile: ``torch.profiler`` (CUPTI) over four replays of the key's
-  graph, the kernels summed by name: kernels a step, their summed device
-  time a step and the largest six by share;
+- the profile: ``utils.profiling.trace`` (``torch.profiler``, CUPTI) over
+  four replays of the key's graph, the kernels summed by name: kernels a
+  step, their summed device time a step and the largest six by share;
 - the sweep: for each k the graph captured anew with k steps and the loop
   timed, the decode alone (after an eager prefill), host clock around
   ``torch.cuda.synchronize``, p50 of 5, in ms a step call. A check costs
@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
 import time
 from typing import List, Optional
 
@@ -43,6 +44,7 @@ from thewhisper_tpu_torch.engine.decode import STEPS_PER_CHECK
 from thewhisper_tpu_torch.models.quant import quantize_params
 from thewhisper_tpu_torch.models.whisper import init_params
 from thewhisper_tpu_torch.tools import _card
+from thewhisper_tpu_torch.utils import profiling
 
 MAX_NEW = 64
 REPS = 5
@@ -53,18 +55,19 @@ def profile(prog) -> dict:
     """Kernels a step and their device time a step over
     ``PROFILED_REPLAYS`` replays of ``prog``'s graph (its loop's state as
     its last run left it: every step does a step's work and writes
-    nothing), and the largest six kernels by device time."""
+    nothing), and the largest six kernels by device time, from the
+    device's kernel events in a ``utils.profiling.trace``."""
     n = PROFILED_REPLAYS * STEPS_PER_CHECK
     prog.graph.replay()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_REPLAYS):
-            prog.graph.replay()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
-            for e in prof.key_averages()]
-    rows = [r for r in rows if r[2] > 0]
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            for _ in range(PROFILED_REPLAYS):
+                prog.graph.replay()
+            torch.cuda.synchronize()
+        events = profiling.trace_events(log_dir)
+    rows = [(name, cnt, us)
+            for name, (cnt, us) in profiling.kernel_times(events).items()]
     total = sum(r[2] for r in rows) / 1e3 / n
     top = sorted(rows, key=lambda r: -r[2])[:6]
     return {"kernels": sum(r[1] for r in rows) / n, "kernel_ms": total,
