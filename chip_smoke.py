@@ -204,6 +204,25 @@ is false. Phases, each of which raises on failure:
     width (``phase_train``: arms A, B and C, the checkpoint round trip
     through the stdlib safetensors writer and reader, a distilled
     layer-skip student), every training step's launches counted.
+15. [MESH] The ``(dp, tp)`` mesh for serving (``phase_mesh``, after the
+    others, their models freed): K2 against its plain version at the
+    local head counts of tp 2 and 4 (10 and 5 heads) on the views a
+    sharded layer gives it; then ranks in child processes started by
+    ``parallel.launch.spawn`` that load the kernels the parent built:
+    (a) one NCCL rank (dp 1 x tp 1), bf16 large-v3-turbo at full width,
+    a 30 s input with alignment capture, the meshed engine replaying CUDA
+    graphs with its NCCL all-reduces captured: tokens bit-identical to
+    the unsharded engine's; (b) two gloo ranks on the one card (gloo's
+    f32 and bf16 all-reduce and broadcast of CUDA tensors checked
+    first), f32 with TF32 off at dp 1 x tp 2 and dp 2 x tp 1, tokens and
+    ``num_generated`` equal to the unsharded engine's, then bf16 at
+    tp 2, its prefill logits' relative L2 distance from the f32 model's
+    at most 1.5x the unsharded bf16 model's, its agreeing token prefix
+    printed; (c) the dp-2 coalescer, three requests with a language each,
+    its text equal to the unsharded pipeline's. Every rank prints its K1
+    and K2 launches (which must be above 0) and its local head count; the
+    walls carry the card's name and power limit, (b)'s labelled as
+    host-staged gloo on one card, which measures no deployment.
 
 Times come from CUDA events; every time printed is measured in the run,
 and the bounds are computed from the run's shapes. The kernels' JSON line
@@ -3853,6 +3872,78 @@ def phase_train(smi: str) -> dict:
     return counts
 
 
+def phase_mesh(smi: str) -> None:
+    """[MESH] (see the module docstring): the children are
+    ``parallel.dryrun.card_nccl_graphs`` and ``card_gloo_pair``; a
+    child's failure fails the phase."""
+    from thewhisper_tpu_torch.parallel import dryrun
+    from thewhisper_tpu_torch.parallel.launch import spawn
+
+    print("[MESH] rule by backend: an NCCL mesh replays CUDA graphs of its "
+          "decode loop, all-reduces captured; a gloo mesh runs its loop "
+          "eagerly (gloo collectives cannot be captured)", flush=True)
+    t0 = time.perf_counter()
+    # K2 at the local head counts of tp 2 and 4, on (B, S, H, 64) views of
+    # (B, S, H * 64) projections, as a sharded encoder layer gives it; the
+    # tolerances of [K2].
+    shown = []
+    for heads in (10, 5):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(heads)
+            q, k, v = (torch.randn(2, 1500, heads * 64, generator=g,
+                                   device="cuda").to(dtype)
+                       .view(2, 1500, heads, 64) for _ in range(3))
+            out = attn.encoder_attention(q, k, v).float()
+            err = (out - attn.encoder_attention_plain(q, k, v).float()
+                   ).abs().max().item()
+            if dtype == torch.float32:
+                check(err <= 1e-4, f"K2 f32 err {err} at {heads} heads")
+            else:
+                err /= out.abs().max().item()
+                check(err <= 2e-2, f"K2 bf16 rel err {err} at {heads} heads")
+            shown.append(f"{heads} heads {str(dtype)[6:]} {err:.2e}")
+    print(f"[MESH] K2 on (2, 1500, H, 64) views of the sharded projections: "
+          f"{', '.join(shown)} (f32 max abs, bf16 relative)", flush=True)
+    (a,) = spawn(dryrun.card_nccl_graphs, 1, backend="nccl", device="cuda",
+                 timeout_s=300)
+    check(a["same"]["tokens"] and a["same"]["num_generated"],
+          f"(a) tokens differ: {a['same']}")
+    print(f"[MESH] (a) NCCL dp 1 x tp 1, bf16 turbo, 30 s, CUDA graphs: "
+          f"bit-identical to the unsharded engine {a['same']}; "
+          f"{a['counts']['captured_all_reduces']} all-reduces captured, "
+          f"{a['counts']['all_reduces']} issued in all; decode steps "
+          f"{a['steps']}, generated {a['generated']}; wall "
+          f"{a['wall'] * 1e3:.1f} ms meshed, {a['unsharded_wall'] * 1e3:.1f} "
+          f"ms unsharded ({smi}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    b = spawn(dryrun.card_gloo_pair, 2, backend="gloo", device="cuda",
+              timeout_s=600)
+    lead = b[0]
+    for r in b:
+        for name, c in r["counts"].items():
+            tp = 2 if "tp2" in name else 1
+            check(c["K1"] > 0 and c["K2"] > 0,
+                  f"(b) rank {r['rank']} {name}: K1/K2 not launched {c}")
+            check(r["heads"][name] == 20 // tp,
+                  f"(b) rank {r['rank']} {name}: {r['heads'][name]} heads")
+    for name, wall in lead["walls"].items():
+        print(f"[MESH] (b) {name}: wall {wall * 1e3:.1f} ms, host-staged gloo "
+              f"with two ranks on one card, a correctness check that "
+              f"measures no deployment ({smi})", flush=True)
+    print(f"[MESH] (b) f32 tokens and num_generated equal to the unsharded "
+          f"engine's at dp 1 x tp 2 {lead['dp1xtp2 f32']} and dp 2 x tp 1 "
+          f"{lead['dp2xtp1 f32']}; bf16 tp 2 prefill logits, relative L2: "
+          f"{lead['bf16_logits']} (at most 1.5x the unsharded bf16's "
+          f"distance from f32); bf16 tp 2 tokens agreeing with the "
+          f"unsharded bf16 engine's for {lead['bf16_prefix']['agreeing']} "
+          f"of {lead['bf16_prefix']['of']} new tokens", flush=True)
+    print(f"[MESH] (c) dp 2 coalescer, three requests (en, de, fr): text "
+          f"equal to the unsharded pipeline's, {len(lead['text'])} rows "
+          f"({sum(len(t.split()) for t in lead['text'])} words); "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+
 def result_line(kind: str) -> str:
     """The last line. ``count`` is the number of cards the run used: one,
     whatever ``torch.cuda.device_count()`` shows."""
@@ -3896,6 +3987,7 @@ def main() -> None:
     probe_launches = phase_probes()
     k2_bwd = phase_attention_backward(smi)
     train_launches = phase_train(smi)
+    phase_mesh(smi)
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",

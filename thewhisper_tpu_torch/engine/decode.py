@@ -36,7 +36,7 @@ the same pattern.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -209,12 +209,18 @@ class GreedyLoop(_Loop):
     """The greedy (or sampled) loop over ``cache`` (B rows of at least
     P + max_new slots, the cross K/V in place): :meth:`start` prefills and
     picks the first token, :meth:`run` steps to the stop,
-    :meth:`result` reads the outputs."""
+    :meth:`result` reads the outputs.
+
+    ``noise_rows`` = (start, total): the rows are rows [start, start + B)
+    of a batch of ``total`` (a dp rank's share of a meshed engine's
+    bucket), and each sampled step draws the whole batch's noise and keeps
+    theirs, so that they sample what the unsplit batch samples."""
 
     def __init__(self, model: Whisper, cache: DecodeCache, prompt_len: int,
                  max_new_tokens: int, eot: int, suppress=None,
                  begin_suppress=None, capture_alignment: bool = False,
-                 no_speech_id: Optional[int] = None):
+                 no_speech_id: Optional[int] = None,
+                 noise_rows: Optional[Tuple[int, int]] = None):
         super().__init__(model, cache, prompt_len, max_new_tokens, eot,
                          suppress, begin_suppress, capture_alignment,
                          no_speech_id)
@@ -230,6 +236,7 @@ class GreedyLoop(_Loop):
         self.sum_lp = torch.zeros(b, device=dev)
         self.token_lp = torch.zeros(b, max_new_tokens, device=dev)
         self.no_speech_prob = torch.zeros(b, device=dev)
+        self.noise_rows = noise_rows or (0, b)
 
     def _pick(self, logits: torch.Tensor, first: bool,
               temperature: Union[float, torch.Tensor],
@@ -243,7 +250,9 @@ class GreedyLoop(_Loop):
             # torch.multinomial's one-sample draw (p / q, q ~ Exp(1), its
             # argmax) without its host read of the probabilities' range.
             probs = torch.softmax(x / temperature, dim=-1)
-            q = torch.empty_like(probs).exponential_(1, generator=generator)
+            start, total = self.noise_rows
+            q = probs.new_empty((total, probs.shape[1])).exponential_(
+                1, generator=generator)[start:start + probs.shape[0]]
             nxt = torch.argmax(probs / q, dim=-1)
         else:
             nxt = torch.argmax(x, dim=-1)

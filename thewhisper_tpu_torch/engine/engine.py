@@ -52,6 +52,7 @@ ported.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -105,6 +106,8 @@ from thewhisper_tpu_torch.models.whisper import (
     make_cache,
 )
 from thewhisper_tpu_torch.ops.mega_step import mega_pays, pack_mega_params
+from thewhisper_tpu_torch.parallel.follow import Mirror
+from thewhisper_tpu_torch.parallel.mesh import batch_rows
 
 # Batch sizes with a program of their own; a call is padded up to the
 # nearest (the JAX engine's buckets).
@@ -160,6 +163,27 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t, non_blocking=True)
 
 
+def _check_mesh(model: Whisper, mesh, cross_kv_int8: bool, draft_model,
+                spec_ngram: bool) -> None:
+    """What a meshed engine takes (see :class:`WhisperEngine`)."""
+    if not mesh.live:
+        raise RuntimeError(
+            "a meshed engine needs the process group up: "
+            "parallel.launch.init (or spawn), then parallel.make_mesh")
+    if model.tp is None or model.tp.size != mesh.tp:
+        raise ValueError(f"the model must be sharded for the mesh's tp="
+                         f"{mesh.tp} first (parallel.mesh.shard_params)")
+    if model.device != mesh.device:
+        raise ValueError(f"the model is on {model.device}, this rank's "
+                         f"device is {mesh.device}")
+    if cross_kv_int8:
+        raise ValueError("int8 cross K/V (the \"S\" modes) is not ported to "
+                         "a meshed engine")
+    if draft_model is not None or spec_ngram:
+        raise ValueError("speculative decoding is not ported to a meshed "
+                         "engine")
+
+
 def _greedy_only(name: str, options: GenerationOptions) -> None:
     if options.num_beams != 1 or options.temperature:
         raise ValueError(
@@ -199,7 +223,12 @@ class PendingResult:
                  draft_tokens=None, count: bool = True):
         self._engine = engine
         self._x, self._audio = x, audio      # (bb, N) audio or (bb, n_mels, T)
+        self.rows = x.shape[0]               # bb, the padded bucket
         self._enc: Optional[torch.Tensor] = None
+        # A meshed engine's name for the call on every rank, and on the
+        # ranks above 0 the program key rank 0 sent for it.
+        self.id: Optional[int] = None
+        self.mirror_key: Optional[Tuple] = None
         self.mel_frames = x.shape[-1] // HOP_LENGTH if audio else x.shape[-1]
         self.b, self.options, self.languages = b, options, languages
         self.draft_tokens = draft_tokens
@@ -213,14 +242,17 @@ class PendingResult:
         return self._x is not None
 
     def encode(self) -> torch.Tensor:
-        """The call's encoder states, queued now if they are not yet."""
-        if self._x is not None:
-            eng = self._engine
-            with torch.inference_mode():
-                mel = (log_mel_spectrogram(self._x, eng._mel_fb, eng._window)
-                       if self._audio else self._x)
-                self._enc = encoder_forward(eng.model, mel)
-            self._x = None
+        """The call's encoder states, queued now if they are not yet (a
+        meshed engine's: this rank's rows, on every rank at once)."""
+        eng = self._engine
+        with eng._mesh_lock:
+            if self._x is not None:
+                x = self._x if eng._mirror is None else eng._mirror.encode(self)
+                with torch.inference_mode():
+                    mel = (log_mel_spectrogram(x, eng._mel_fb, eng._window)
+                           if self._audio else x)
+                    self._enc = encoder_forward(eng.model, mel)
+                self._x = None
         if self._enc is None:
             raise RuntimeError("this call was released")
         return self._enc
@@ -286,7 +318,10 @@ class _Program:
     encoder frames: its buffers on the device and, once captured, the
     CUDA graph of ``per_check`` of its steps or rounds. A sampled program
     reads the call's temperature from a device scalar, so one graph
-    serves every temperature of the fallback ladder.
+    serves every temperature of the fallback ladder. A meshed engine's
+    program holds this rank's rows of the bucket (``batch_rows``) at its
+    local head count, and its samples are those rows' draws of the whole
+    bucket's.
     ``seconds`` and ``bytes``: the wall time to make it (buffers and
     capture) and the device memory it holds (its buffers, and the graph's
     private pool)."""
@@ -300,10 +335,14 @@ class _Program:
         self.device = engine.device
         self.graph: Optional[StepGraph] = None
         arch = engine.arch
-        rows = bb * beams
+        span = (slice(0, bb) if engine.mesh is None
+                else batch_rows(engine.mesh, bb))
+        rows = (span.stop - span.start) * beams
 
-        def cross(a: WhisperArch, quantized: bool):
-            shape = (a.decoder_layers, rows, a.decoder_heads, t_enc, a.head_dim)
+        def cross(m: Whisper, quantized: bool):
+            a = m.arch
+            heads = m.decoder.layers[0].cross_attn.n_heads
+            shape = (a.decoder_layers, rows, heads, t_enc, a.head_dim)
             if quantized:
                 return QuantizedKV(
                     torch.empty(shape, dtype=torch.int8, device=self.device),
@@ -317,8 +356,8 @@ class _Program:
         w = engine.spec_window
         slots = p + max_new + (w + 1 if mode else 0)
         q = engine.cross_kv_int8
-        self.cache = make_cache(arch, rows, slots, cross(arch, q),
-                                cross(arch, q), dtype=engine.compute_dtype)
+        self.cache = make_cache(arch, rows, slots, cross(self.model, q),
+                                cross(self.model, q), dtype=engine.compute_dtype)
         common = dict(suppress=engine._suppress,
                       begin_suppress=engine._begin_suppress,
                       capture_alignment=timestamps,
@@ -331,8 +370,8 @@ class _Program:
             d_cache = None
             if self.draft is not None:
                 d = self.draft.arch
-                d_cache = make_cache(d, rows, slots, cross(d, False),
-                                     cross(d, False))
+                d_cache = make_cache(d, rows, slots, cross(self.draft, False),
+                                     cross(self.draft, False))
             self.loop = SpecLoop(engine.model, self.draft, self.cache, d_cache,
                                  p, max_new, engine.special.eot, w,
                                  ngram_draft=mode == "ngram",
@@ -341,8 +380,10 @@ class _Program:
             self.loop = BeamLoop(engine.model, self.cache, p, beams,
                                  max_new, engine.special.eot, **common)
         else:
+            noise = None if engine.mesh is None else (span.start, bb)
             self.loop = GreedyLoop(engine.model, self.cache, p, max_new,
-                                   engine.special.eot, **common)
+                                   engine.special.eot, noise_rows=noise,
+                                   **common)
         self.seconds = time.perf_counter() - t0
         self.bytes = (torch.cuda.memory_allocated(self.device) - a0
                       if cuda else 0)
@@ -439,7 +480,23 @@ class WhisperEngine:
     and the outputs do not depend on it. The device buffers and graph of
     each static shape stay with the engine for its next call of that
     shape, for the ``MAX_PROGRAMS`` shapes used last; making one more
-    frees the least recently used."""
+    frees the least recently used.
+
+    ``mesh`` (a live ``parallel.mesh.Mesh``; JAX's ``mesh=``) makes the
+    engine one rank of a ``(dp, tp)`` mesh: ``model`` must be sharded for
+    it (``parallel.mesh.shard_params``). Rank 0's engine is the one the
+    caller uses; every other rank runs ``parallel.follow.follow(engine)``,
+    which mirrors each encode and decode rank 0 launches, until rank 0's
+    :meth:`close`. Each rank featurizes (K1) and encodes (K2 at its local
+    head count) its dp rows of the padded bucket (every row where dp does
+    not divide it), decodes them with the tp all-reduces inside the loop,
+    and rank 0 gathers the rows. As a meshed JAX engine does, a meshed
+    engine neither fuses the self q/k/v nor packs K3/K4; it refuses
+    (``ValueError``) int8 cross K/V and quantized models, draft models,
+    ngram drafting and proposal tokens (speculation under a mesh is not
+    ported), and runs greedy, sampled and beam calls. CUDA graphs need
+    NCCL, whose all-reduces a graph captures; a gloo mesh (several ranks
+    on one card, or the CPU) runs its loops eagerly, by that rule."""
 
     def __init__(
         self,
@@ -455,7 +512,10 @@ class WhisperEngine:
         draft_int8: bool = False,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         cuda_graphs: bool = True,
+        mesh=None,
     ):
+        if mesh is not None:
+            _check_mesh(model, mesh, cross_kv_int8, draft_model, spec_ngram)
         if spec_ngram and draft_model is not None:
             raise ValueError("pick one: a draft model or ngram drafting")
         if draft_model is not None:
@@ -503,14 +563,22 @@ class WhisperEngine:
         # Wall-clock accumulator, as the JAX engine's total_time_worked.
         self.total_time_worked = 0.0
         self.batch_buckets = tuple(batch_buckets)
-        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self.mesh = mesh
+        self._mirror = None if mesh is None else Mirror(mesh)
+        self.cuda_graphs = (bool(cuda_graphs) and self.device.type == "cuda"
+                            and (mesh is None or mesh.backend == "nccl"))
         # The decode programs by static shape, the one used last at the end,
         # the keys warmup made (kept beyond MAX_PROGRAMS), and the lock that
         # keeps one call at a time on their buffers and on the list of
         # handles not yet decoded, in dispatch order.
         self._programs: "OrderedDict[Tuple, _Program]" = OrderedDict()
         self._warm_keys: set = set()
-        self._lock = threading.Lock()
+        # A meshed engine takes the lock around every program it mirrors
+        # (encodes too), so that its messages go out in the order its
+        # programs run, whichever thread calls.
+        self._lock = threading.Lock() if mesh is None else threading.RLock()
+        self._mesh_lock = (contextlib.nullcontext() if mesh is None
+                           else self._lock)
         self._pending: List[weakref.ref] = []
         self._prompts: dict = {}
 
@@ -812,6 +880,9 @@ class WhisperEngine:
         the next decode to queue."""
         if options.num_beams < 1:
             raise ValueError(f"num_beams {options.num_beams} < 1")
+        if self.mesh is not None and draft_tokens is not None:
+            raise ValueError("proposal tokens (speculation) are not ported "
+                             "to a meshed engine")
         handle = PendingResult(self, x, audio, b, options, languages, t0,
                                draft_tokens, count)
         with self._lock:
@@ -824,12 +895,16 @@ class WhisperEngine:
     def _forget(self, handle: PendingResult) -> None:
         with self._lock:
             self._pending = [r for r in self._pending if r() is not handle]
+            if (self._mirror is not None and self._mirror.leader
+                    and handle._enc is not None and handle._result is None):
+                self._mirror.send(("release", handle.id))
 
     def _generate(self, handle: PendingResult,
-                  queue_next: bool = True) -> EngineResult:
+                  queue_next: bool = True) -> Optional[EngineResult]:
         """Decode a dispatched call and return its first ``b`` rows on the
-        host. Once its rows are queued for the copy, the encoder of the
-        next handle still to be queued is queued behind them (unless
+        host (None on a meshed engine's ranks above 0). Once its rows are
+        queued for the copy (a meshed engine's: gathered), the encoder of
+        the next handle still to be queued is queued behind them (unless
         ``queue_next`` is False)."""
         with self._lock:
             enc = handle.encode()
@@ -839,19 +914,22 @@ class WhisperEngine:
                        None)
             return self._unpack(res, handle.b, p, handle.options, handle.t0,
                                 then=nxt.encode if nxt else None,
-                                count=handle.count)
+                                count=handle.count, bucket=handle.rows)
 
     def _decode_call(self, handle: PendingResult, enc: torch.Tensor):
         """The decode of ``handle``'s call on its encoder states ``enc``
         (bb rows) by its key's program. Returns (result on the device,
         prompt length)."""
         options = handle.options
-        bb = enc.shape[0]
+        bb = handle.rows
         props = self._prep_proposals(handle.draft_tokens, options, bb)
         prompt = self._device_prompt(options, bb, handle.languages)
         p = prompt.shape[1]
         key = self._key(bb, handle.mel_frames, p, options,
                         self._spec_mode(options, props))
+        if self._mirror is not None:
+            self._mirror.decode(handle, key, key in self._warm_keys)
+            prompt = prompt[batch_rows(self.mesh, bb)]
         with torch.inference_mode():
             return self._decode(key, enc, prompt, options, props), p
 
@@ -877,26 +955,37 @@ class WhisperEngine:
                            float(options.temperature))
 
     def _unpack(self, res, b: int, p: int, options: GenerationOptions,
-                t0: float, then=None, count: bool = True) -> EngineResult:
+                t0: float, then=None, count: bool = True,
+                bucket: int = 0) -> Optional[EngineResult]:
         """The first ``b`` rows of a decode result, copied to the host (on
         the CPU too: the rows may be a program's buffers, which its next
         call overwrites). ``then`` runs once the copies are queued, before
-        the host waits for them."""
+        the host waits for them; on a meshed engine, once the ``bucket``'s
+        rows are gathered on rank 0 (the other ranks return None)."""
         fields = [res.tokens, res.num_generated, res.sum_logprob,
                   res.token_logprobs, res.no_speech_prob]
         if options.return_timestamps:
             # Shipped at compute precision, as the JAX engine does.
             fields.append(res.align.to(self.compute_dtype).float())
-        out = [_to_host(t[:b]) for t in fields]
+        mesh = self._mirror is not None
+        out = [_to_host(t if mesh else t[:b]) for t in fields]
         copied = None
         if self.device.type == "cuda":
             copied = torch.cuda.Event()
             copied.record()
-        if then is not None:
+        if then is not None and not mesh:
             then()
         if copied is not None:
             copied.synchronize()
         out = [t.numpy() for t in out]
+        steps = res.steps
+        if mesh:
+            gathered = self._mirror.gather_rows(out, steps, bucket)
+            if gathered is None:
+                return None
+            out, steps = [t[:b] for t in gathered[0]], gathered[1]
+            if then is not None:
+                then()
         dt = time.perf_counter() - t0
         if count:
             self.total_time_worked += dt
@@ -905,7 +994,7 @@ class WhisperEngine:
             sum_logprob=out[2], align=out[5] if len(out) > 5 else None,
             decode_time_s=dt, token_logprobs=out[3], no_speech_prob=out[4],
             spec_rounds=getattr(res, "rounds", None),
-            decode_steps=res.steps)
+            decode_steps=steps)
 
     def warmup(self, t_mel: int, batches: Sequence[int] = (1,),
                max_new_tokens: int = 128, timestamps: bool = True,
@@ -933,6 +1022,13 @@ class WhisperEngine:
                     self._key(bb, t_mel, p, opts, self._spec_mode(opts, dt)))
                 self.transcribe_features(mel, opts, draft_tokens=dt)
 
+    def close(self) -> None:
+        """Rank 0 of a meshed engine: end the other ranks' ``follow``
+        loops (the engine takes no call after). A no-op elsewhere."""
+        if self._mirror is not None and self._mirror.leader:
+            with self._lock:
+                self._mirror.send(("close",))
+
     def programs(self) -> list:
         """One dict a decode program, the one used last at the end: its
         key, the seconds and device bytes it took to make (buffers and
@@ -949,7 +1045,9 @@ class WhisperEngine:
         b = mel.shape[0]
         mel = self._padded(mel)
         sp = self.special
-        with torch.inference_mode():
+        with self._mesh_lock, torch.inference_mode():
+            if self._mirror is not None and self._mirror.leader:
+                self._mirror.send(("detect", tuple(mel.shape), "float32"), mel)
             enc = encoder_forward(self.model, mel)
             ck, cv = compute_cross_kv(self.model, enc)
             cache = make_cache(self.arch, mel.shape[0], 4, ck, cv)

@@ -14,6 +14,12 @@ the capture recorded without passing through the wrappers, so the graph
 adds that to the counters at each replay, and the capture itself, which
 launches nothing, leaves them as they were.
 
+A meshed engine's steps hold the tp all-reduces (``parallel.mesh``): the
+warm-up on the side stream runs them first, so the NCCL communicator
+exists before the capture records them. Gloo's collectives cannot be
+captured, so a gloo mesh's engine makes no graph: the engine's rule by
+backend (``engine.WhisperEngine``).
+
 A captured step that draws random numbers (a sampled step) draws from a
 ``torch.Generator`` that the graph registers (``generators``): each
 replay then reads the generator's seed and offset when it runs and

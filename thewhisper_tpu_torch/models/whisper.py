@@ -113,11 +113,14 @@ def _conv(mod: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """Whisper attention projections; k has no bias."""
+    """Whisper attention projections; k has no bias. ``n_heads`` is the
+    heads this module holds: all of them, or a tp rank's share of a model
+    sharded by ``parallel.mesh.shard_params``."""
 
     def __init__(self, d: int, n_heads: int, **kw):
         super().__init__()
         self.n_heads = n_heads
+        self.head_dim = d // n_heads
         self.q = nn.Linear(d, d, **kw)
         self.k = nn.Linear(d, d, bias=False, **kw)
         self.v = nn.Linear(d, d, **kw)
@@ -125,8 +128,8 @@ class Attention(nn.Module):
 
     def heads(self, proj: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) -> (B, S, H, dh) view of a projection."""
-        b, s, d = x.shape
-        return _linear(proj, x).view(b, s, self.n_heads, d // self.n_heads)
+        b, s, _ = x.shape
+        return _linear(proj, x).view(b, s, self.n_heads, self.head_dim)
 
 
 class EncoderLayer(nn.Module):
@@ -143,7 +146,7 @@ class EncoderLayer(nn.Module):
         at = self.attn
         a = attention(at.heads(at.q, a_in), at.heads(at.k, a_in),
                       at.heads(at.v, a_in))
-        x = x + _linear(at.out, a.reshape(x.shape))
+        x = x + _linear(at.out, a.reshape(*x.shape[:-1], -1))
         return x + _linear(self.fc2, _gelu(_linear(self.fc1, self.ln2(x))))
 
 
@@ -220,6 +223,9 @@ class Whisper(nn.Module):
         self.decoder = TextDecoder(arch, **kw)
         # The K3 operands (ops.mega_step.pack_mega_params), or None.
         self.mega = None
+        # The tp group of a model sharded by parallel.mesh.shard_params
+        # (a parallel.mesh.TensorParallel), or None.
+        self.tp = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -291,7 +297,8 @@ def encoder_forward(model: Whisper, mel: torch.Tensor,
 
 
 def _alignment_selector(arch: WhisperArch) -> np.ndarray:
-    """(L, H, A) one-hot selecting each alignment head's (layer, head)."""
+    """(L, H, A) one-hot selecting each alignment head's (layer, head) of
+    all H heads."""
     heads = arch.alignment_heads
     sel = np.zeros((arch.decoder_layers, arch.decoder_heads, max(1, len(heads))),
                    dtype=np.float32)
@@ -321,10 +328,11 @@ def make_cache(arch: WhisperArch, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None) -> DecodeCache:
     """Zeroed self K/V of ``max_len`` slots beside the cross K/V (tensors
     or ``QuantizedKV``; the self cache takes ``dtype``, else the cross
-    K/V's type)."""
-    shape = (arch.decoder_layers, batch, arch.decoder_heads, max_len,
-             arch.head_dim)
+    K/V's type, and the cross K/V's head count: a tp rank's share of a
+    sharded model's)."""
     like = cross_k.s if isinstance(cross_k, QuantizedKV) else cross_k
+    shape = (arch.decoder_layers, batch, like.shape[2], max_len,
+             arch.head_dim)
     kw = {"device": like.device, "dtype": dtype or like.dtype}
     return DecodeCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw),
                        cross_k, cross_v)
@@ -472,12 +480,23 @@ def _layer(kv, l: int):
 
 def _selector(model: Whisper) -> torch.Tensor:
     """:func:`_alignment_selector` on the model's device, made once: a
-    host-to-device copy per decode step would synchronize the stream."""
+    host-to-device copy per decode step would synchronize the stream. A
+    sharded model's rows are its tp rank's heads (the others' alignment
+    heads select nothing here: :func:`_tp_sum` adds them)."""
     sel = getattr(model, "_align_sel", None)
     if sel is None or sel.device != model.device:
-        sel = torch.from_numpy(_alignment_selector(model.arch)).to(model.device)
+        sel = _alignment_selector(model.arch)
+        if model.tp is not None:
+            h = sel.shape[1] // model.tp.size
+            sel = sel[:, model.tp.rank * h:(model.tp.rank + 1) * h]
+        sel = torch.from_numpy(np.ascontiguousarray(sel)).to(model.device)
         model._align_sel = sel
     return sel
+
+
+def _tp_sum(model: Whisper, align: torch.Tensor) -> torch.Tensor:
+    """A sharded model's alignment, summed over its tp ranks' heads."""
+    return align if model.tp is None else model.tp.all_reduce(align)
 
 
 def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
@@ -502,7 +521,7 @@ def decoder_prefill(model: Whisper, tokens: torch.Tensor, cache: DecodeCache
                                _layer(cache.cross_v, l), sel[l])
         align = align + al
     x = dec.ln_post(x)
-    return _logits(model, x), cache, align
+    return _logits(model, x), cache, _tp_sum(model, align)
 
 
 def step_position(position, device) -> torch.Tensor:
@@ -550,7 +569,7 @@ def decoder_step(model: Whisper, token: torch.Tensor, position,
                                _layer(cache.cross_v, l), sel[l])
         align = align + al
     x = dec.ln_post(x)
-    return _logits(model, x)[:, 0], cache, align[:, 0]
+    return _logits(model, x)[:, 0], cache, _tp_sum(model, align)[:, 0]
 
 
 def decoder_verify(model: Whisper, tokens: torch.Tensor,
@@ -603,7 +622,7 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
                                _layer(cache.cross_v, l), sel[l])
         align = align + al
     x = dec.ln_post(x)
-    return _logits(model, x), cache, align
+    return _logits(model, x), cache, _tp_sum(model, align)
 
 
 def _decoder_train_layer(layer: DecoderLayer, x: torch.Tensor,

@@ -81,7 +81,13 @@ def init_train_state(model: Whisper, learning_rate: float = 1e-5,
     """(state, tx): every parameter of ``model`` set to require grad, and
     ``torch.optim.AdamW`` with optax's ``adamw`` defaults (b1 0.9, b2 0.999,
     eps 1e-8 outside the square root, decay of the old weights decoupled
-    from the moments) in two groups, decayed and not (:func:`decay_mask`)."""
+    from the moments) in two groups, decayed and not (:func:`decay_mask`).
+    A model sharded by ``parallel.mesh.shard_params`` raises ``ValueError``:
+    the sharded train step is not ported (its all-reduces have no
+    backward here)."""
+    if model.tp is not None:
+        raise ValueError("a sharded model does not train: the (dp, tp) "
+                         "train step is not ported")
     model.requires_grad_(True)
     mask = decay_mask(model)
     groups = [{"params": [p for n, p in model.named_parameters() if mask[n] == d],
