@@ -223,6 +223,31 @@ is false. Phases, each of which raises on failure:
     and K2 launches (which must be above 0) and its local head count; the
     walls carry the card's name and power limit, (b)'s labelled as
     host-staged gloo on one card, which measures no deployment.
+16. [MESH_TRAIN] The ``(dp, tp)`` mesh for training and the
+    sequence-parallel encoder (``phase_mesh_train``, after [MESH]): K2
+    with S_q != S_k (750, 375 and 188 queries over 1500 keys, 13 over 52
+    with valid_len 50; f32 and bf16) against its plain version, timed
+    beside the square K2; then large-v3-turbo at full width, the encoder
+    cut to 4 layers, random f32 weights and biases, 10 s through K1, 64
+    tokens, masks that zero a 4-token prompt and pad every row to its own
+    length, the unsharded references computed in the parent: (a) one
+    NCCL rank (dp 1 x tp 1), two f32 AdamW steps at batch 2 (the second
+    with remat), loss, every gradient leaf and every updated parameter
+    bit-identical to ``make_train_step`` on the unsharded model; (b) two
+    gloo ranks on the one card, one f32 step at dp 1 x tp 2 and at
+    dp 2 x tp 1 on a global batch of 4, a remat step at tp 2 (the loss
+    within 1e-5 of the unsharded step's, every gathered gradient leaf
+    within 1e-4 relative L2; replicated leaves bit-identical across tp
+    ranks, every leaf across dp ranks; K2-fwd-res, K2-dkv and K2-dq
+    launched on every rank at 10 local heads, no output gradient copied),
+    then a bf16-compute step at tp 2 over f32 master weights (its
+    gradients' distance from f32 at most 1.5x the unsharded bf16 step's);
+    (c) the sequence-parallel encoder at tp 2 on whole 32-layer weights,
+    30 s (750 queries a rank over 1500 keys), f32 within 1e-4 relative L2
+    of the unsharded encoder, bf16 within 1.5x the unsharded bf16
+    encoder's distance from f32. Walls and peak memory (reset between
+    arms) beside the card's name and power limit, the gloo ones labelled
+    host-staged on one card.
 
 Times come from CUDA events; every time printed is measured in the run,
 and the bounds are computed from the run's shapes. The kernels' JSON line
@@ -230,8 +255,9 @@ gives each kernel's launches on its path, its error against the plain
 version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the peak rate for their
 type) and, where one PyTorch call computes the same function, that call's
-time (and, for K3 and K4, ``graph_ms``, the device time from a CUDA
-graph; for P2 the pack's time and its phase stamps, for P3 the
+time (and, for K2, ``sq_ne_sk``, [MESH_TRAIN]'s S_q != S_k cases with
+their times, the square K2's and their bounds; for K3 and K4,
+``graph_ms``, the device time from a CUDA graph; for P2 the pack's time and its phase stamps, for P3 the
 L2-resident time of one layer replayed; for P4 and P5 the measured
 launch floors; for P5 ``l2_resident_ms``, its ``ms``, ``cold_ms``, the
 HBM-cold time, and ``sector_floor_ms``, a second bound computed as
@@ -3944,6 +3970,173 @@ def phase_mesh(smi: str) -> None:
           f"{time.perf_counter() - t1:.1f} s", flush=True)
 
 
+# [MESH_TRAIN] the (dp, tp) mesh for training and the sequence-parallel
+# encoder
+
+# K2 with S_q != S_k: (B, S_q, S_k, valid_len), H = 20. The first three are
+# a 30 s encoder's rows split over tp 2, 4 and 8; the last the tiny
+# encoder's 50 positions over tp 4 (13 rows a rank, the keys padded to 52).
+SP_K2_CASES = ((2, 750, 1500, None), (2, 375, 1500, None),
+               (2, 188, 1500, None), (2, 13, 52, 50))
+
+
+def k2_uneven_rows(smi: str) -> dict:
+    """K2 alone with S_q != S_k (``SP_K2_CASES``, f32 and bf16) against its
+    plain version, [K2]'s tolerances (f32 max abs 1e-4, bf16 max abs over
+    the output's max 2e-2), on the layout the sequence-parallel encoder
+    gives it: k and v views of one gathered (2, B, S_k, H, 64) tensor.
+    Each case's time beside the square K2's (S_k queries over the same
+    keys) and the plain version's; bound from the case's operations (f32
+    at the CUDA cores' rate, as [K2]'s f32 bound) and bytes."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(24)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s_q, s_k, valid in SP_K2_CASES:
+            q = torch.randn(b, s_q, 20 * 64, generator=g, device=dev).to(
+                dtype).view(b, s_q, 20, 64)
+            kv = torch.randn(2, b, s_k, 20 * 64, generator=g, device=dev).to(
+                dtype).view(2, b, s_k, 20, 64)
+            k, v = kv[0], kv[1]
+            out = attn.encoder_attention(q, k, v, valid)
+            ref = attn.encoder_attention_plain(q, k, v, valid)
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                check(err <= 1e-4, f"K2 f32 S_q {s_q} over {s_k}: err {err}")
+            else:
+                err /= out.float().abs().max().item()
+                check(err <= 2e-2, f"K2 bf16 S_q {s_q} over {s_k}: rel err {err}")
+            square = torch.randn(b, s_k, 20, 64, generator=g, device=dev).to(dtype)
+            ms = cuda_ms(lambda: attn.encoder_attention(q, k, v, valid))
+            square_ms = cuda_ms(lambda: attn.encoder_attention(square, k, v, valid))
+            plain_ms = cuda_ms(lambda: attn.encoder_attention_plain(q, k, v, valid))
+            flops = 4 * b * 20 * s_q * (valid or s_k) * 64
+            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            case = {"dtype": str(dtype)[6:], "b": b, "s_q": s_q, "s_k": s_k,
+                    "valid_len": valid, "max_abs_err": err, "ms": ms,
+                    "square_ms": square_ms, "plain_ms": plain_ms,
+                    **bound(nbytes(q, k, v, out), flops, peak)}
+            cases.append(case)
+            print(f"[MESH_TRAIN] K2 {case['dtype']:>8} B={b} S_q={s_q} over "
+                  f"S_k={s_k} valid={valid}: {'max abs' if dtype == torch.float32 else 'rel'} "
+                  f"err {err:.3e}; kernel {ms:.4f} ms, the square K2 ({s_k} "
+                  f"queries) {square_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']}); {smi}",
+                  flush=True)
+            del q, kv, k, v, out, ref, square
+    return {"cases": cases}
+
+
+def phase_mesh_train(smi: str) -> dict:
+    """[MESH_TRAIN] (see the module docstring). The parent builds the
+    kernels (``phase_build``), checks K2 with S_q != S_k
+    (:func:`k2_uneven_rows`) and computes every unsharded reference on the
+    card (``parallel.dryrun.mesh_train_reference``: its f32 gradients
+    written under a temporary directory of the checkout for the gloo
+    ranks), frees it, then spawns the children,
+    ``parallel.dryrun.card_train_nccl`` and ``card_train_gloo_pair``; a
+    child's failure or a mismatch fails the phase. The ``run_finetune``
+    CLI itself does not run here: the card machine has no
+    ``transformers``, so it finds no tokenizer and exits; the phase drives
+    the training calls the CLI makes (``shard_params``,
+    ``init_train_state``, ``make_train_step(mesh=)``, ``place_batch``'s
+    rows, K1 on each rank's rows), and the CLI's mesh flags are held on
+    the CPU by ``tests/test_torch_parallel_train.py``. Returns K2's
+    S_q != S_k cases for the kernels line."""
+    from thewhisper_tpu_torch.parallel import dryrun
+    from thewhisper_tpu_torch.parallel.launch import spawn
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    t0 = time.perf_counter()
+    k2 = k2_uneven_rows(smi)
+    arch, layers = dryrun.TRAIN_CARD_ARCH, dryrun.TRAIN_CARD_ARCH.encoder_layers
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="mesh_train_") as tmp:
+        path = str(Path(tmp) / "grads.pt")
+        ref = dryrun.mesh_train_reference(path)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        (a,) = spawn(dryrun.card_train_nccl, 1, ref["a"], backend="nccl",
+                     device="cuda", timeout_s=300)
+        t2 = time.perf_counter()
+        pair = spawn(dryrun.card_train_gloo_pair, 2, path, ref, backend="gloo",
+                     device="cuda", timeout_s=600)
+        t3 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    dryrun.check_mesh_train(a, pair)
+    want = {"K2-fwd-res": 3 * layers, "K2-dkv": 2 * layers, "K2-dq": 2 * layers}
+    got = {k: a["counts"][k] for k in want}
+    check(got == want, f"(a) launches {got}, want {want}")
+    check(a["heads"] == arch.encoder_heads, f"(a) {a['heads']} heads")
+    report_mesh_train(ref, a, pair, smi, (t0, t1, t2, t3))
+    return k2
+
+
+def report_mesh_train(ref, a, pair, smi: str, times) -> None:
+    """[MESH_TRAIN]'s lines: the references, (a), (b) and (c)."""
+    from thewhisper_tpu_torch.parallel import dryrun
+
+    t0, t1, t2, t3 = times
+    layers = dryrun.TRAIN_CARD_ARCH.encoder_layers
+    walls = lambda steps: ", ".join(                       # noqa: E731
+        f"{s['wall'] * 1e3:.1f} ms (peak {s['peak_gib']:.2f} GiB)" for s in steps)
+    print(f"[MESH_TRAIN] large-v3-turbo at full width, the encoder cut to "
+          f"{layers} layers, random f32 weights and biases (seed 0), TF32 off, "
+          f"10 s through K1, {dryrun.CARD_TRAIN_TOKENS} tokens, a 4-token "
+          f"prompt and every row padded to its own length", flush=True)
+    print(f"[MESH_TRAIN] unsharded references on the card: (a) two steps "
+          f"(the second remat) {walls(ref['a'])}; (b) the f32 step at batch 4 "
+          f"{walls([ref['b']['f32']])}, loss {ref['b']['f32']['loss']:.6f}, bf16 "
+          f"compute {walls([ref['b']['bf16']])}, its gradients "
+          f"{ref['b']['bf16_vs_f32']:.3e} from f32 (relative L2); (c) the 30 s "
+          f"encoder at B = {dryrun.CARD_SP_ROWS}, {dryrun.CARD_ARCH.encoder_layers} layers, f32 "
+          f"{walls([ref['c']['f32']])}, bf16 {walls([ref['c']['bf16']])}, bf16 "
+          f"{ref['c']['bf16_vs_f32']:.3e} from f32; {smi}; {t1 - t0:.1f} s",
+          flush=True)
+    losses = " then ".join(f"{s['loss']:.6f}" for s in a["steps"])
+    print(f"[MESH_TRAIN] (a) NCCL dp 1 x tp 1: loss {losses}, all "
+          f"{a['leaves']} gradient leaves and updated parameters of both steps "
+          f"bit-identical to make_train_step on the unsharded model; launches "
+          f"{a['counts']}, {a['heads']} heads; meshed step walls "
+          f"{walls(a['steps'])} ({smi}); {t2 - t1:.1f} s", flush=True)
+    lead = pair[0]
+    for name, r in lead["arms"].items():
+        ranks = [p["arms"][name] for p in pair]
+        line = (f"[MESH_TRAIN] (b) {name}: loss {r['loss']:.6f} (unsharded "
+                f"{ref['b']['bf16' if 'bf16' in name else 'f32']['loss']:.6f})")
+        if "bf16" in name:
+            line += (f", gradients {r['all_leaves']:.3e} from the unsharded f32 "
+                     f"step's (the unsharded bf16 step's {ref['b']['bf16_vs_f32']:.3e}, "
+                     f"bound {dryrun.BF16_RATIO}x), master weights f32")
+        else:
+            line += (f", worst gradient leaf {r['worst_leaf'][0]:.3e} "
+                     f"({r['worst_leaf'][1]}), all leaves {r['all_leaves']:.3e} "
+                     f"(bound {dryrun.CARD_GRAD_REL} a leaf)")
+        launched = [tuple(x["counts"][k] for k in ("K2-fwd-res", "K2-dkv", "K2-dq"))
+                    for x in ranks]
+        step_walls = ", ".join(f"{x['wall'] * 1e3:.1f} ms" for x in ranks)
+        peaks = ", ".join(f"{x['peak_gib']:.2f} GiB" for x in ranks)
+        line += (f"; per rank: K2-fwd-res/dkv/dq {launched}, local heads "
+                 f"{[x['heads'] for x in ranks]}; step wall {step_walls}, peak "
+                 f"{peaks}: host-staged gloo with two ranks on one card, a "
+                 f"correctness check that measures no deployment ({smi})")
+        print(line, flush=True)
+    print("[MESH_TRAIN] (b) replicated leaves and their gradients bit-identical "
+          "on both tp ranks of every tp-2 arm; every parameter bit-identical on "
+          "both dp ranks of dp 2 x tp 1", flush=True)
+    for name, r in lead["sp"].items():
+        print(f"[MESH_TRAIN] (c) SP tp 2 {name}, 30 s, B = {dryrun.CARD_SP_ROWS}: "
+              f"{r['rows']} of {r['of']} queries a rank over {r['of']} keys, K2 "
+              f"{r['K2']} launches a rank; {r['vs_f32']:.3e} from the unsharded "
+              f"f32 encoder (bound {r['bound']:.3e})"
+              + (f", {r['vs_unsharded_bf16']:.3e} from the unsharded bf16 one"
+                 if "vs_unsharded_bf16" in r else "")
+              + f"; wall {r['wall'] * 1e3:.1f} ms, peak {r['peak_gib']:.2f} GiB "
+              f"(rank 0; host-staged gloo on one card, no deployment; {smi})",
+              flush=True)
+    print(f"[MESH_TRAIN] gloo children {t3 - t2:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def result_line(kind: str) -> str:
     """The last line. ``count`` is the number of cards the run used: one,
     whatever ``torch.cuda.device_count()`` shows."""
@@ -3988,6 +4181,7 @@ def main() -> None:
     k2_bwd = phase_attention_backward(smi)
     train_launches = phase_train(smi)
     phase_mesh(smi)
+    k2_sp = phase_mesh_train(smi)
     kernels = [
         {"name": "logmel", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/logmel.cu",
@@ -3996,7 +4190,8 @@ def main() -> None:
         {"name": "encoder_attention", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "thewhisper_tpu/models/whisper.py:189",
-         "launches": launches["encoder_attention"], **k2},
+         "launches": launches["encoder_attention"], **k2,
+         "sq_ne_sk": k2_sp},
         {"name": "mega_step", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/mega_step.cu",
          "replaces": "thewhisper_tpu/ops/mega_step.py:602",

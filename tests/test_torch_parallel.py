@@ -31,7 +31,10 @@ from thewhisper_tpu_torch.models.load import params_from_jax
 from thewhisper_tpu_torch.models.whisper import Whisper
 from thewhisper_tpu_torch.parallel import dryrun, launch, mesh
 from thewhisper_tpu_torch.streaming.pipeline import DEFAULTS
-from thewhisper_tpu_torch.training.train import init_train_state
+from thewhisper_tpu_torch.training.train import (
+    init_train_state,
+    make_train_step,
+)
 
 from _torch_tiny import one_cpu_thread  # noqa: F401
 
@@ -261,8 +264,9 @@ def test_meshed_engine_needs_a_process_group(tree):
         WhisperEngine(model, mesh=layout)
     with pytest.raises(ValueError, match="sharded already"):
         mesh.shard_params(model, layout)
-    with pytest.raises(ValueError, match="does not train"):
-        init_train_state(model)
+    state, tx = init_train_state(model)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_train_step(tx, mesh=layout)
 
 
 def test_spawn_reraises_a_child_failure():

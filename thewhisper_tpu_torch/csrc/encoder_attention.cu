@@ -6,13 +6,17 @@
 // own thewhisper_tpu/ops/attention_pallas.py::encoder_flash_attention
 // (same math, kept there as a negative result).
 //
-// Interface: q, k, v are (B, S, H, 64) with any batch/sequence/head strides
-// and a unit stride on the head dimension (the layout the projections
-// produce, so no transpose or pad copy is made); both routes load them by
-// TMA, which needs 16-byte-aligned base pointers and strides. Keys at or past valid_len
-// are masked; S needs no tile multiple (1500 and 500 run as they are, the
-// ragged tile is masked here instead of padded to 512 as on the TPU). The
-// output is written in the input type, (B, S, H, 64) contiguous.
+// Interface: q is (B, S_q, H, 64), k and v (B, S_k, H, 64), with any
+// batch/sequence/head strides and a unit stride on the head dimension (the
+// layout the projections produce, so no transpose or pad copy is made);
+// both routes load them by TMA, which needs 16-byte-aligned base pointers
+// and strides. The encoder's own attention has S_q = S_k = S; the
+// sequence-parallel encoder gives a rank's S_q queries over the S_k keys
+// gathered from every rank. Keys at or past valid_len are masked; S needs
+// no tile multiple (1500 and 500 run as they are, the ragged tile is masked
+// here instead of padded to 512 as on the TPU). The output is written in
+// the input type, (B, S_q, H, 64) contiguous. Inside the kernels `S` is
+// S_q: it bounds the query rows stored; the key loop reads only valid_len.
 //
 // Bound on the H100: arithmetic. 4 S^2 dh FLOPs per (batch, head) against
 // 3 S dh elements in, so the work is the two products.
@@ -429,18 +433,24 @@ encoder_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. Strides are in elements. 1 <= valid_len <= S.
-// lse: null, or f32 (B, H, S) for the rows' log-sum-exp (see above).
+// dtype: 0 = f32, 1 = bf16. Strides are in elements. q is (B, S_q, H, 64),
+// k and v (B, S_k, H, 64): S_q query rows over S_k keys, 1 <= valid_len <= S_k
+// (the encoder's own attention has S_q = S_k; the sequence-parallel encoder
+// runs a rank's block of queries over the keys gathered from every rank,
+// its pad rows past valid_len masked as any other key). The key loop and
+// the K/V tensor maps take S_k, the grid, the Q map, the output and lse
+// S_q. lse: null, or f32 (B, H, S_q) for the rows' log-sum-exp (see above).
 // Both types need 16-byte-aligned base pointers and strides (TMA).
 // Returns cudaGetLastError() (cudaErrorInvalidValue for dh != 64, a
 // misaligned operand or a tensor map the driver refuses).
 extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v, void* out,
-                                     void* lse, int dtype, int B, int S, int H, int dh,
-                                     long long q_sb, long long q_ss, long long q_sh,
+                                     void* lse, int dtype, int B, int S_q, int S_k, int H,
+                                     int dh, long long q_sb, long long q_ss, long long q_sh,
                                      long long k_sb, long long k_ss, long long k_sh,
                                      long long v_sb, long long v_ss, long long v_sh,
                                      int valid_len, int device, void* stream) {
-  if (dh != kDh || valid_len < 1 || valid_len > S) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh != kDh || S_q < 1 || valid_len < 1 || valid_len > S_k)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -450,20 +460,20 @@ extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v
       return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap maps[3];
     int perms[3];
-    if (!make_map(&maps[0], &perms[0], q, B, S, H, q_sb, q_ss, q_sh, kTcBlockQ) ||
-        !make_map(&maps[1], &perms[1], k, B, S, H, k_sb, k_ss, k_sh, kTcBlockK) ||
-        !make_map(&maps[2], &perms[2], v, B, S, H, v_sb, v_ss, v_sh, kTcBlockK))
+    if (!make_map(&maps[0], &perms[0], q, B, S_q, H, q_sb, q_ss, q_sh, kTcBlockQ) ||
+        !make_map(&maps[1], &perms[1], k, B, S_k, H, k_sb, k_ss, k_sh, kTcBlockK) ||
+        !make_map(&maps[2], &perms[2], v, B, S_k, H, v_sb, v_ss, v_sh, kTcBlockK))
       return static_cast<int>(cudaErrorInvalidValue);
     // The shared-memory opt-in is per device; set it on every call (a
     // host-side attribute write, no device work).
     err = cudaFuncSetAttribute(encoder_attention_tc_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((S + kTcBlockQ - 1) / kTcBlockQ, B * H);
+    const dim3 grid((S_q + kTcBlockQ - 1) / kTcBlockQ, B * H);
     // 64 ** -0.5 (exact) times log2(e): scores go straight to ex2.
     encoder_attention_tc_kernel<<<grid, kTcThreads, kTcSmem, st>>>(
         maps[0], maps[1], maps[2], perms[0], perms[1], perms[2],
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, valid_len,
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S_q, H, valid_len,
         0.125f * kLog2e);
   } else {
     if (!aligned16(q, q_sb, q_ss, q_sh, 4) || !aligned16(k, k_sb, k_ss, k_sh, 4) ||
@@ -471,17 +481,17 @@ extern "C" int twt_encoder_attention(const void* q, const void* k, const void* v
       return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap maps[3];
     int perms[3];
-    if (!make_map(&maps[0], &perms[0], q, B, S, H, q_sb, q_ss, q_sh, kF32BlockQ, true) ||
-        !make_map(&maps[1], &perms[1], k, B, S, H, k_sb, k_ss, k_sh, kF32Tile, true) ||
-        !make_map(&maps[2], &perms[2], v, B, S, H, v_sb, v_ss, v_sh, kF32Tile, true))
+    if (!make_map(&maps[0], &perms[0], q, B, S_q, H, q_sb, q_ss, q_sh, kF32BlockQ, true) ||
+        !make_map(&maps[1], &perms[1], k, B, S_k, H, k_sb, k_ss, k_sh, kF32Tile, true) ||
+        !make_map(&maps[2], &perms[2], v, B, S_k, H, v_sb, v_ss, v_sh, kF32Tile, true))
       return static_cast<int>(cudaErrorInvalidValue);
     err = cudaFuncSetAttribute(encoder_attention_f32_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((S + kF32BlockQ - 1) / kF32BlockQ, B * H);
+    const dim3 grid((S_q + kF32BlockQ - 1) / kF32BlockQ, B * H);
     encoder_attention_f32_kernel<<<grid, kF32Threads, kF32Smem, st>>>(
         maps[0], maps[1], maps[2], perms[0], perms[1], perms[2], static_cast<float*>(out),
-        static_cast<float*>(lse), S, H, valid_len, 0.125f * kLog2e);
+        static_cast<float*>(lse), S_q, H, valid_len, 0.125f * kLog2e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,12 @@ one ``torch.save`` file (port of thewhisper_tpu's ``models/checkpoint.py``).
 - :func:`save_train_state` / :func:`load_train_state` persist a fine-tuning
   state (weights, optimizer moments, step) with ``torch.save``, in place of
   JAX's orbax.
+
+A model sharded over a ``(dp, tp)`` mesh saves as an unsharded one does:
+every rank calls the save (the shards are gathered over tp, a
+collective), rank 0 writes the same files an unsharded run writes, the
+other ranks write nothing; a saved train state loads onto any mesh (each
+rank keeps its shards of it), as orbax restores onto any sharding.
 """
 
 from __future__ import annotations
@@ -25,7 +31,14 @@ import torch
 
 from thewhisper_tpu_torch.config import WhisperArch
 from thewhisper_tpu_torch.models.load import jax_tree_from_model, read_safetensors
-from thewhisper_tpu_torch.models.whisper import Whisper
+from thewhisper_tpu_torch.models.whisper import Whisper, model_from_state
+from thewhisper_tpu_torch.parallel.mesh import (
+    gather_leaf,
+    gather_params,
+    local_part,
+    param_pspecs,
+    placement,
+)
 
 _ST_CODES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
              np.dtype(np.float64): "F64", np.dtype(np.int64): "I64",
@@ -125,7 +138,17 @@ def save_hf_checkpoint(
     and ``max_source_positions`` set to match. Pass ``chunk_length_s`` for
     flexible-chunk fine-tunes: it writes a ``chunk_length`` marker into
     generation_config.json, so ``load_checkpoint`` truncates positions on
-    reload instead of interpolating them."""
+    reload instead of interpolating them.
+
+    A sharded model (``parallel.mesh.shard_params``): every rank calls this;
+    the whole weights are gathered to rank 0, which writes the directory an
+    unsharded model writes, and the other ranks write nothing."""
+    if model.tp is not None:
+        full = gather_params(model, rank0_only=True)
+        if full is None:
+            return path
+        model = model_from_state(full, model.arch, dtype=model.dtype,
+                                 device="cpu")
     tree = jax_tree_from_model(model)
     os.makedirs(path, exist_ok=True)
     write_safetensors(_hf_state_dict(tree, arch),
@@ -200,13 +223,44 @@ def shard_safetensors(path: str, shards: int = 2) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _param_specs(model, opt) -> list:
+    """The placement of each of ``opt``'s parameters, in the order of its
+    state dict's indices (its groups' parameters in turn)."""
+    specs = param_pspecs()
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [placement(names[id(p)], specs)
+            for g in opt.param_groups for p in g["params"]]
+
+
+def _opt_state_leaves(opt_sd, specs, fn):
+    """``opt_sd`` with ``fn(tensor, spec)`` applied to every per-element
+    state tensor (the moments, ``ndim > 0``; the step counts stay)."""
+    state = {i: {k: fn(v, specs[i]) if torch.is_tensor(v) and v.ndim else v
+                 for k, v in entry.items()}
+             for i, entry in opt_sd["state"].items()}
+    return {**opt_sd, "state": state}
+
+
 def save_train_state(state, path: str) -> str:
     """Write a ``TrainState`` (or ``DistillState``) to one file: the model's
-    weights, the optimizer's state (moments, step counts) and the step."""
+    weights, the optimizer's state (moments, step counts) and the step.
+
+    A sharded model: every rank calls this; its weights and moments are
+    gathered over tp to rank 0, which writes the file an unsharded state
+    writes (moments included), and the other ranks write nothing."""
+    import torch.distributed as dist
+
     path = os.path.abspath(path)
+    model, opt = state[0], state.opt_state
+    params, opt_sd = model.state_dict(), opt.state_dict()
+    if model.tp is not None:
+        params = gather_params(model, rank0_only=True)
+        opt_sd = _opt_state_leaves(opt_sd, _param_specs(model, opt),
+                                   lambda v, spec: gather_leaf(v, spec, model.tp))
+        if dist.get_rank() != 0:
+            return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"params": state[0].state_dict(),
-                "opt_state": state.opt_state.state_dict(),
+    torch.save({"params": params, "opt_state": opt_sd,
                 "step": int(state.step)}, path)
     return path
 
@@ -214,9 +268,20 @@ def save_train_state(state, path: str) -> str:
 def load_train_state(path: str, template):
     """Restore a state written by :func:`save_train_state` into
     ``template``'s model and optimizer (in place, on their device); returns
-    the template's type with the saved step."""
-    saved = torch.load(os.path.abspath(path), map_location=template[0].device,
+    the template's type with the saved step. A sharded template (any mesh,
+    whatever mesh saved the file) keeps this rank's shards of the saved
+    weights and moments."""
+    model, opt = template[0], template.opt_state
+    saved = torch.load(os.path.abspath(path), map_location=model.device,
                        weights_only=True)
-    template[0].load_state_dict(saved["params"])
-    template.opt_state.load_state_dict(saved["opt_state"])
+    params, opt_sd = saved["params"], saved["opt_state"]
+    if model.tp is not None:
+        specs = param_pspecs()
+        params = {k: local_part(v, placement(k, specs), model.tp)
+                  for k, v in params.items()}
+        opt_sd = _opt_state_leaves(opt_sd, _param_specs(model, opt),
+                                   lambda v, spec: local_part(v, spec,
+                                                              model.tp).clone())
+    model.load_state_dict(params)
+    opt.load_state_dict(opt_sd)
     return template._replace(step=saved["step"])

@@ -41,6 +41,13 @@ are cast to it by every linear, conv and embedding (:func:`_linear`),
 while LayerNorm and the logits stay f32; and ``remat=True`` recomputes
 each layer in the backward (``torch.utils.checkpoint``, JAX's
 ``jax.checkpoint``).
+
+On a model sharded by ``parallel.mesh.shard_params`` the training
+forward carries Megatron's conjugates: each LayerNorm output that enters
+column-parallel linears goes through *f* (``copy_to_tp``), the encoder
+states once before the decoder, and the row-parallel ``out``/``fc2`` sum
+through *g*. ``encoder_forward(..., seq=mesh)`` is the sequence-parallel
+encoder (whole weights, inference only).
 """
 
 from __future__ import annotations
@@ -63,6 +70,14 @@ from thewhisper_tpu_torch.models.quant import (
     swap_in_quantized,
 )
 from thewhisper_tpu_torch.ops.attention import encoder_attention
+from thewhisper_tpu_torch.parallel.mesh import (
+    Mesh,
+    RowParallelLinear,
+    copy_to_tp,
+    gather_kv,
+    seq_block,
+    seq_rows,
+)
 
 AttentionFn = Callable[..., torch.Tensor]
 
@@ -141,13 +156,27 @@ class EncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, d_ff, **kw)
         self.fc2 = nn.Linear(d_ff, d, **kw)
 
-    def forward(self, x: torch.Tensor, attention: AttentionFn) -> torch.Tensor:
-        a_in = self.ln1(x)
+    def forward(self, x: torch.Tensor, attention: AttentionFn,
+                seq: Optional[Tuple[Mesh, int]] = None) -> torch.Tensor:
+        """One pre-LN layer. On a tp-sharded layer (its ``fc2`` a
+        ``RowParallelLinear``) the LayerNorm outputs enter the
+        column-parallel q/k/v and fc1 through *f* (``copy_to_tp``) and
+        ``out``/``fc2`` sum over tp through *g*. ``seq`` = (mesh, T): x is
+        this rank's padded block of time rows (the sequence-parallel
+        encoder); K and V are gathered over tp and the local queries
+        attend every key below T."""
+        tp = self.fc2.tp if isinstance(self.fc2, RowParallelLinear) else None
+        a_in = copy_to_tp(self.ln1(x), tp)
         at = self.attn
-        a = attention(at.heads(at.q, a_in), at.heads(at.k, a_in),
-                      at.heads(at.v, a_in))
+        q, k, v = (at.heads(p, a_in) for p in (at.q, at.k, at.v))
+        if seq is None:
+            a = attention(q, k, v)
+        else:
+            k, v = gather_kv(seq[0], k, v)
+            a = attention(q, k, v, seq[1])
         x = x + _linear(at.out, a.reshape(*x.shape[:-1], -1))
-        return x + _linear(self.fc2, _gelu(_linear(self.fc1, self.ln2(x))))
+        m_in = copy_to_tp(self.ln2(x), tp)
+        return x + _linear(self.fc2, _gelu(_linear(self.fc1, m_in)))
 
 
 class AudioEncoder(nn.Module):
@@ -165,7 +194,10 @@ class AudioEncoder(nn.Module):
     def forward(self, mel: torch.Tensor,
                 attention: AttentionFn = encoder_attention,
                 compute_dtype: Optional[torch.dtype] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False,
+                seq: Optional[Mesh] = None) -> torch.Tensor:
+        if seq is not None:
+            self._check_sequence_parallel(seq)
         x = mel.to(compute_dtype or self.conv1.weight.dtype)
         x = _gelu(_conv(self.conv1, x))
         x = _gelu(_conv(self.conv2, x)).transpose(1, 2)       # (B, T, d)
@@ -175,10 +207,37 @@ class AudioEncoder(nn.Module):
                 f"mel input produces {t} encoder positions but the loaded "
                 f"position table has {n_pos}")
         x = x + self.pos_emb[:t].to(x.dtype)
+        time = None
+        if seq is not None:
+            # This rank's time rows, padded to the block every rank holds:
+            # pad rows sit past T in the gathered keys, where K2's
+            # valid_len masks them.
+            rows = seq_rows(seq, t)
+            n = rows.stop - rows.start
+            x = F.pad(x[:, rows], (0, 0, 0, seq_block(seq, t) - n))
+            time = (seq, t)
         for layer in self.layers:
-            x = (checkpoint(layer, x, attention, use_reentrant=False) if remat
-                 else layer(x, attention))
+            x = (checkpoint(layer, x, attention, time, use_reentrant=False)
+                 if remat else layer(x, attention, time))
+        if seq is not None:
+            x = x[:, :n]
         return self.ln_post(x)
+
+    def _check_sequence_parallel(self, mesh: Mesh) -> None:
+        """Refuse what the sequence-parallel encoder does not run, before
+        any collective: a layout without a process group, tp-sharded
+        weights and autograd."""
+        if not mesh.live:
+            raise RuntimeError("the sequence-parallel encoder needs a live "
+                               "process group (parallel.launch.init, then "
+                               "make_mesh)")
+        if any(isinstance(layer.fc2, RowParallelLinear) for layer in self.layers):
+            raise ValueError("the sequence-parallel encoder runs on whole "
+                             "weights: this encoder is tp-sharded")
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in self.parameters()):
+            raise ValueError("the sequence-parallel encoder has no backward: "
+                             "run it under torch.no_grad or inference_mode")
 
 
 class DecoderLayer(nn.Module):
@@ -279,7 +338,8 @@ def model_from_state(state: Mapping[str, object], arch: WhisperArch,
 def encoder_forward(model: Whisper, mel: torch.Tensor,
                     attention: AttentionFn = encoder_attention,
                     compute_dtype: Optional[torch.dtype] = None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False,
+                    seq: Optional[Mesh] = None) -> torch.Tensor:
     """(B, n_mels, T_mel) features -> (B, T_mel // 2, d) encoder states.
 
     ``attention`` is the encoder's attention function: the kernel wrapper by
@@ -287,8 +347,16 @@ def encoder_forward(model: Whisper, mel: torch.Tensor,
     version on any device (to hold the kernel path against it).
     ``compute_dtype`` (default: the weights' type) is the activations'
     type; ``remat`` recomputes each layer in the backward pass instead of
-    keeping its internals (JAX's ``jax.checkpoint`` on the layer body)."""
-    return model.encoder(mel, attention, compute_dtype, remat)
+    keeping its internals (JAX's ``jax.checkpoint`` on the layer body).
+
+    ``seq``: a live ``parallel.mesh.Mesh`` for the sequence-parallel
+    encoder (JAX's ``act_sharding=seq_sharding(mesh)``): ``mel`` holds
+    this rank's dp rows, each tp rank keeps its block of the T time rows
+    after the stem (``parallel.mesh.seq_rows``), every layer runs on those
+    rows with K and V gathered over tp, and the result is this rank's
+    (B, rows, d) block (``parallel.mesh.gather_seq`` assembles it). Whole
+    (unsharded) weights and no autograd, or ``ValueError``."""
+    return model.encoder(mel, attention, compute_dtype, remat, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -397,11 +465,12 @@ def fuse_self_qkv(model: Whisper) -> Whisper:
     return model
 
 
-def _self_qkv(layer: DecoderLayer, x: torch.Tensor):
+def _self_qkv(layer: DecoderLayer, x: torch.Tensor, tp=None):
     """LN1 then self-attention q, k, v as (B, H, S, dh); one projection
-    when the layer is fused (:func:`fuse_self_qkv`)."""
+    when the layer is fused (:func:`fuse_self_qkv`). ``tp``: the training
+    forward's tp group, whose *f* the LN1 output enters through."""
     sa = layer.self_attn
-    q_in = layer.ln1(x)
+    q_in = copy_to_tp(layer.ln1(x), tp)
     qkv = getattr(sa, "qkv", None)
     if qkv is not None:
         b, s, _ = q_in.shape
@@ -626,18 +695,23 @@ def decoder_verify(model: Whisper, tokens: torch.Tensor,
 
 
 def _decoder_train_layer(layer: DecoderLayer, x: torch.Tensor,
-                         enc_out: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+                         enc_out: torch.Tensor, causal: torch.Tensor,
+                         tp=None) -> torch.Tensor:
     """One decoder layer over a whole sequence: causal self-attention,
-    cross-attention to ``enc_out``, the MLP."""
-    q, k, v = _self_qkv(layer, x)
+    cross-attention to ``enc_out``, the MLP. On a tp-sharded model the
+    LayerNorm outputs enter the column-parallel linears through *f*
+    (``enc_out`` has been through it once, in
+    :func:`decoder_train_forward`)."""
+    q, k, v = _self_qkv(layer, x, tp)
     a, _ = _attend(q, k, v, causal)
     x = x + _linear(layer.self_attn.out, _merge_heads(a))
     ca = layer.cross_attn
-    cq = ca.heads(ca.q, layer.ln_cross(x)).transpose(1, 2)
+    cq = ca.heads(ca.q, copy_to_tp(layer.ln_cross(x), tp)).transpose(1, 2)
     ck, cv = (ca.heads(p, enc_out).transpose(1, 2) for p in (ca.k, ca.v))
     c, _ = _attend(cq, ck, cv)
     x = x + _linear(ca.out, _merge_heads(c))
-    return x + _linear(layer.fc2, _gelu(_linear(layer.fc1, layer.ln2(x))))
+    m_in = copy_to_tp(layer.ln2(x), tp)
+    return x + _linear(layer.fc2, _gelu(_linear(layer.fc1, m_in)))
 
 
 def decoder_train_forward(model: Whisper, tokens: torch.Tensor,
@@ -647,17 +721,19 @@ def decoder_train_forward(model: Whisper, tokens: torch.Tensor,
     """Teacher-forced decoder over (B, S) tokens at positions [0, S)
     against (B, T, d) encoder states (JAX's ``decoder_train_forward``):
     returns f32 logits (B, S, V). ``compute_dtype`` and ``remat`` as in
-    :func:`encoder_forward`."""
+    :func:`encoder_forward`. On a tp-sharded model the encoder states enter
+    every layer's column-parallel cross k/v through one *f*, so their
+    gradient is summed over tp once, not once a layer."""
     dec = model.decoder
     dtype = compute_dtype or model.dtype
     s = tokens.shape[1]
     x = _lookup(model, tokens).to(dtype) + dec.pos_emb[:s].to(dtype)
     causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-    enc_out = enc_out.to(dtype)
+    enc_out = copy_to_tp(enc_out.to(dtype), model.tp)
     for layer in dec.layers:
         x = (checkpoint(_decoder_train_layer, layer, x, enc_out, causal,
-                        use_reentrant=False) if remat
-             else _decoder_train_layer(layer, x, enc_out, causal))
+                        model.tp, use_reentrant=False) if remat
+             else _decoder_train_layer(layer, x, enc_out, causal, model.tp))
     return _logits(model, dec.ln_post(x))
 
 

@@ -1,15 +1,17 @@
 """Encoder self-attention: the K2 kernels' wrappers and their plain versions.
 
 ``encoder_attention`` computes softmax(q k^T / sqrt(dh)) v over keys below
-``valid_len``, non-causal, on (B, S, H, dh) tensors: the attention every
-encoder layer runs, which thewhisper_tpu sends to the Pallas TPU flash
-attention (``models/whisper.py::_flash_attention``). On a CUDA tensor it
-launches ``csrc/encoder_attention.cu`` (dh = 64, f32 or bf16, any S, no
+``valid_len``, non-causal, on (B, S, H, dh) tensors (q may have another
+row count than k and v: the sequence-parallel encoder's local queries over
+the keys gathered from every rank): the attention every encoder layer
+runs, which thewhisper_tpu sends to the Pallas TPU flash attention
+(``models/whisper.py::_flash_attention``). On a CUDA tensor it launches ``csrc/encoder_attention.cu`` (dh = 64, f32 or bf16, any S, no
 padded copies), on the tensor cores in both types: bf16 by TMA and wgmma,
 f32 by TMA and mma.sync in 3xTF32 (each operand split into a TF32 high
 part and rest, so the result keeps f32's precision). TMA needs
 16-byte-aligned base pointers and strides. On a CPU tensor it runs
-:func:`encoder_attention_plain`.
+:func:`encoder_attention_plain`. The gradient path is square: S_q != S_k
+under autograd raises ``ValueError``.
 
 Its gradient is the library kernel's custom VJP ported: when grad mode is
 on and an input requires grad, ``encoder_attention`` goes through
@@ -38,13 +40,18 @@ ATTN_LAUNCHES = 0
 ATTN_RES_LAUNCHES = 0
 ATTN_BWD_DKV_LAUNCHES = 0
 ATTN_BWD_DQ_LAUNCHES = 0
+# Output gradients EncoderAttention.backward had to copy (a unit stride
+# missing on the head dim, or TMA's 16-byte rule broken), on any device:
+# the layers' views are meant to keep the rule themselves.
+DOUT_COPIES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor,
             valid_len: Optional[int]) -> torch.Tensor:
-    """f32 (B, H, S, S) scores q k^T / sqrt(dh), keys >= valid_len at -1e9."""
+    """f32 (B, H, S_q, S_k) scores q k^T / sqrt(dh) of q (B, S_q, H, dh)
+    over k (B, S_k, H, dh), keys >= valid_len at -1e9."""
     dh = q.shape[-1]
     logits = torch.matmul((q.transpose(1, 2) * dh ** -0.5).float(),
                           k.transpose(1, 2).float().transpose(-1, -2))
@@ -57,7 +64,8 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             valid_len: Optional[int] = None) -> torch.Tensor:
     """Plain torch version, the math of thewhisper_tpu's ``_attention``:
     f32 scores and softmax, probabilities cast to v's type for the value
-    product. Returns (B, S, H, dh) in q's type."""
+    product. Returns (B, S_q, H, dh) in q's type (q's row count; k and v
+    share theirs)."""
     probs = torch.softmax(_scores(q, k, valid_len), dim=-1)
     out = torch.matmul(probs.to(v.dtype), v.transpose(1, 2))
     return out.transpose(1, 2).to(q.dtype)
@@ -65,7 +73,7 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
                         valid_len: Optional[int] = None) -> torch.Tensor:
-    """f32 (B, H, S): the natural-log log-sum-exp of each row's scaled
+    """f32 (B, H, S_q): the natural-log log-sum-exp of each row's scaled
     scores over keys < valid_len, the residual K2 writes for the backward."""
     return torch.logsumexp(_scores(q, k, valid_len), dim=-1)
 
@@ -93,22 +101,26 @@ def encoder_attention_backward_plain(
 
 def _checked(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              valid_len: Optional[int]) -> int:
-    """Refuse what the kernels do not take; returns valid_len as an int."""
+    """Refuse what the kernels do not take: q (B, S_q, H, dh) and k, v of
+    one (B, S_k, H, dh) shape, S_q >= 1. Returns valid_len as an int."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
-    if not (q.shape == k.shape == v.shape) or q.ndim != 4:
-        raise ValueError(f"{name}: q, k, v must share one (B, S, H, dh) shape")
+    if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or q.shape[1] < 1
+            or (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2],
+                                                        k.shape[3])):
+        raise ValueError(f"{name}: q must be (B, S_q, H, dh) and k, v share "
+                         "one (B, S_k, H, dh) shape")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v must share one device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
-    s, dh = q.shape[1], q.shape[3]
+    s_k, dh = k.shape[1], q.shape[3]
     if dh != 64:
         raise ValueError(f"{name}: head dim {dh} not supported "
                          "(the kernel takes 64)")
-    valid = s if valid_len is None else int(valid_len)
-    if not 1 <= valid <= s:
-        raise ValueError(f"{name}: valid_len {valid} outside [1, {s}]")
+    valid = s_k if valid_len is None else int(valid_len)
+    if not 1 <= valid <= s_k:
+        raise ValueError(f"{name}: valid_len {valid} outside [1, {s_k}]")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError(f"{name}: head dim must be contiguous")
     return valid
@@ -138,7 +150,8 @@ def _forward(q, k, v, valid_len, with_lse: bool):
     code = _build.lib().twt_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
-        b, s, h, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        b, s, k.shape[1], h, dh, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3],
         valid, q.device.index or 0, _build.stream_handle(q.device))
     _build.check(code, "twt_encoder_attention")
     return out, lse
@@ -147,7 +160,7 @@ def _forward(q, k, v, valid_len, with_lse: bool):
 def encoder_attention_residuals(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, valid_len: Optional[int] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 with residuals: (out (B, S, H, dh), lse (B, H, S) f32).
+    """K2 with residuals: (out (B, S_q, H, dh), lse (B, H, S_q) f32).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernel
     (one launch writes both) or raise."""
@@ -171,10 +184,12 @@ def encoder_attention_backward(
     launch the dK/dV kernel and the dQ kernel or raise (q, k, v and dout
     must meet TMA's alignment, ``ValueError`` otherwise). ``di`` =
     rowsum(out dout) is one torch reduction here, as it is plain JAX in the
-    library."""
+    library. The kernels are square: S_q != S_k raises ``ValueError`` on
+    every device."""
+    name = "encoder_attention_backward"
+    _check_square(name, q, k)
     if q.device.type == "cpu":
         return encoder_attention_backward_plain(q, k, v, out, lse, dout, valid_len)
-    name = "encoder_attention_backward"
     valid = _checked(name, q, k, v, valid_len)
     b, s, h, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, s):
@@ -230,12 +245,21 @@ def launch_backward_dq(q, k, v, dout, lse, di, valid: int):
     return dq
 
 
+def _check_square(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"{name}: the gradient kernels take S_q = S_k, not "
+                         f"{q.shape[1]} queries over {k.shape[1]} keys (the "
+                         "sequence-parallel encoder has no backward)")
+
+
 class EncoderAttention(torch.autograd.Function):
     """``encoder_attention`` with its gradient: the forward saves q, k, v,
-    the output and lse; the backward runs :func:`encoder_attention_backward`."""
+    the output and lse; the backward runs :func:`encoder_attention_backward`.
+    Square only: S_q != S_k raises ``ValueError``."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len):
+        _check_square("EncoderAttention", q, k)
         out, lse = encoder_attention_residuals(q, k, v, valid_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.valid_len = valid_len
@@ -243,9 +267,11 @@ class EncoderAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        global DOUT_COPIES
         q, k, v, out, lse = ctx.saved_tensors
         # Autograd may hand over an expanded or a misaligned gradient: a copy.
-        if dout.stride(-1) != 1 or (dout.is_cuda and not _tma_aligned(dout)):
+        if dout.stride(-1) != 1 or not _tma_aligned(dout):
+            DOUT_COPIES += 1
             dout = dout.clone(memory_format=torch.contiguous_format)
         return (*encoder_attention_backward(q, k, v, out, lse, dout,
                                             ctx.valid_len), None)
@@ -253,7 +279,8 @@ class EncoderAttention(torch.autograd.Function):
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       valid_len: Optional[int] = None) -> torch.Tensor:
-    """(B, S, H, dh) q, k, v -> (B, S, H, dh); keys >= valid_len masked.
+    """(B, S_q, H, dh) q over (B, S_k, H, dh) k, v -> (B, S_q, H, dh); keys
+    >= valid_len masked (S_q = S_k but for the sequence-parallel encoder).
 
     With grad mode on and an input that requires grad, the call goes
     through :class:`EncoderAttention`. Otherwise CPU tensors take

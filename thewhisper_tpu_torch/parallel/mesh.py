@@ -25,6 +25,40 @@ heads of every tp rank (``models.whisper``). The residual stream after
 each reduce is the same on every rank of a tp group, so the replicated
 logits and the tokens picked from them are too (the tests assert it).
 
+Training (JAX's ``shard_params`` before ``tx.init``, the batch on
+``P("dp")``, GSPMD's gradient psums) has one process a rank here, so the
+conjugate pairs are written out as Megatron's *f* and *g*, each a
+``torch.autograd.Function``:
+
+- :func:`reduce_from_tp` (*g*): all-reduce over ``tp`` forward, identity
+  backward; :class:`RowParallelLinear` sums its partial product through
+  it, so its bias (added once, after the reduce) gets a replicated
+  gradient.
+- :func:`copy_to_tp` (*f*): identity forward, all-reduce over ``tp``
+  backward; ``models.whisper`` puts it where a replicated activation
+  enters column-parallel linears (the LayerNorm outputs before q/k/v and
+  fc1, the cross q's input, the encoder states once before the decoder).
+  With it, every replicated leaf's gradient (LayerNorms, embeddings, the
+  conv stem, positions) comes out the same bits on every tp rank (the
+  conv stem's once cuDNN runs deterministic algorithms, which a meshed
+  train step asks for).
+
+Both are identities at tp = 1, where the row-parallel bias stays inside
+the product, so a mesh of one rank computes what the unsharded model
+does. Over ``dp``, :func:`reduce_gradients` sums the gradients in flat
+buckets after the backward (``training.train.make_train_step``), and
+:func:`sum_over_dp` gives the loss its global denominator.
+
+The sequence-parallel encoder (JAX's ``seq_sharding``: batch over ``dp``,
+time over ``tp``; :func:`seq_rows`, :func:`gather_seq`) runs on whole
+encoder weights: each tp rank keeps a block of time rows, all-gathers K
+and V over ``tp`` and runs K2 with its queries over every key. Splitting
+heads and time over the same axis at once would need an all-to-all that
+JAX's GSPMD hides; SP's purpose is activation memory on long audio, which
+whole weights leave intact (a turbo encoder is 1.3 GB in bf16). So a
+tp-sharded model passed to it raises ``ValueError``, and so does SP under
+autograd (its backward is not ported).
+
 Rank r sits at (r // tp, r % tp) of the mesh: JAX's ``reshape(dp, tp)``
 of the device list. ``torch.distributed`` is imported inside the
 functions that need it, so importing this module stays cheap.
@@ -42,9 +76,15 @@ import torch.nn.functional as F
 
 # All-reduces a sharded model issued since import, and how many of them
 # were recorded into a CUDA graph (a replay runs those again without
-# counting them).
+# counting them); all-gathers (the sequence-parallel encoder's K/V,
+# gather_seq, gather_params).
 ALL_REDUCES = 0
 CAPTURED_ALL_REDUCES = 0
+ALL_GATHERS = 0
+
+# Bytes of gradients summed over dp by one all-reduce
+# (DistributedDataParallel's default bucket).
+GRAD_BUCKET_BYTES = 25 * 2 ** 20
 
 # Seconds a collective of the host group (a meshed engine's messages) may
 # wait: the ranks above 0 wait there while rank 0's server is idle.
@@ -237,6 +277,30 @@ def batch_rows(mesh: Mesh, bucket: int) -> slice:
     return slice(0, bucket)
 
 
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, in place (x must be contiguous)."""
+    import torch.distributed as dist
+
+    global ALL_REDUCES, CAPTURED_ALL_REDUCES
+    dist.all_reduce(x, group=group)
+    ALL_REDUCES += 1
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        CAPTURED_ALL_REDUCES += 1
+    return x
+
+
+def _all_gather(x: torch.Tensor, group, size: int):
+    """Every rank's ``x`` of ``group`` (``size`` ranks), in rank order."""
+    import torch.distributed as dist
+
+    global ALL_GATHERS
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(out, x, group=group)
+    ALL_GATHERS += 1
+    return out
+
+
 class TensorParallel(NamedTuple):
     """A sharded model's tp group (``model.tp``): its size, this rank's
     place in it and the process group (None in a layout)."""
@@ -250,24 +314,69 @@ class TensorParallel(NamedTuple):
         where x is not contiguous (NCCL takes no strides); returns the sum.
         Also at size 1, so that a mesh of one card runs the collectives it
         would run on more."""
-        import torch.distributed as dist
+        return _all_reduce(x.contiguous(), self.group)
 
-        global ALL_REDUCES, CAPTURED_ALL_REDUCES
-        x = x.contiguous()
-        dist.all_reduce(x, group=self.group)
-        ALL_REDUCES += 1
-        if x.is_cuda and torch.cuda.is_current_stream_capturing():
-            CAPTURED_ALL_REDUCES += 1
+    def summed(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_reduce` into a new tensor (``x`` left as it is)."""
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                           self.group)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, the gradient all-reduced over
+    ``tp`` backward (each rank's column-parallel linears give the part of
+    the input's gradient that its heads or hidden units make)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.summed(grad), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's *g*: the partial products all-reduced over ``tp``
+    forward, the gradient passed on as it is backward (every rank's
+    partial product had the whole sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.summed(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """*f* on a replicated activation ``x`` that enters column-parallel
+    linears: ``x`` itself where there is no tp group or no gradient to
+    carry (inference runs no collective here)."""
+    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
         return x
+    return _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """*g*: ``x``'s partial products summed over ``tp``; under autograd
+    through :class:`_ReduceFromTP` into a new tensor, else in place (the
+    serving path, whose all-reduces a CUDA graph captures)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromTP.apply(x, tp)
+    return tp.all_reduce(x)
 
 
 class RowParallelLinear(nn.Linear):
     """A linear that holds this rank's block of input columns: the partial
-    product is all-reduced over ``tp``, then the bias, which every rank
-    holds whole, is added once (JAX's ``P(None)`` bias after GSPMD's
-    reduce). At tp = 1 the bias goes into the product, as ``nn.Linear``
-    adds it, so a mesh of one rank computes what the unsharded model
-    does, bit for bit. Weights of another type than x are cast to x's
+    product is all-reduced over ``tp`` (:func:`reduce_from_tp`), then the
+    bias, which every rank holds whole, is added once (JAX's ``P(None)``
+    bias after GSPMD's reduce), so its gradient is the replicated one. At
+    tp = 1 the bias goes into the product, as ``nn.Linear`` adds it, so a
+    mesh of one rank computes what the unsharded model does, bit for bit.
+    Weights of another type than x are cast to x's
     (``models.whisper._linear``'s rule)."""
 
     tp: TensorParallel
@@ -277,8 +386,8 @@ class RowParallelLinear(nn.Linear):
         if w.dtype != x.dtype:
             w, b = w.to(x.dtype), b.to(x.dtype)
         if self.tp.size == 1:
-            return self.tp.all_reduce(F.linear(x, w, b))
-        return self.tp.all_reduce(F.linear(x, w)) + b
+            return reduce_from_tp(F.linear(x, w, b), self.tp)
+        return reduce_from_tp(F.linear(x, w), self.tp) + b
 
 
 def _row_parallel(lin: nn.Linear, weight: torch.Tensor,
@@ -286,8 +395,9 @@ def _row_parallel(lin: nn.Linear, weight: torch.Tensor,
     with torch.device("meta"):
         row = RowParallelLinear(weight.shape[1], weight.shape[0],
                                 dtype=weight.dtype)
-    row.weight = nn.Parameter(weight, requires_grad=False)
-    row.bias = nn.Parameter(lin.bias.detach(), requires_grad=False)
+    row.weight = nn.Parameter(weight, requires_grad=lin.weight.requires_grad)
+    row.bias = nn.Parameter(lin.bias.detach(),
+                            requires_grad=lin.bias.requires_grad)
     row.tp = tp
     return row
 
@@ -309,7 +419,9 @@ def shard_params(model, mesh: Mesh):
     tp`` heads, and ``model.tp`` is the tp group. Refuses (``ValueError``)
     a quantized model, a decoder whose self q/k/v are fused, a model
     already sharded and a tp that does not divide the heads or ``d_ff``.
-    Returns ``model``."""
+    Every leaf keeps ``requires_grad`` as the caller set it (JAX shards
+    before ``tx.init``: so may a caller here, or after
+    ``training.train.init_train_state``'s unfreezing). Returns ``model``."""
     if getattr(model, "tp", None) is not None:
         raise ValueError("the model is sharded already")
     if model.mega is not None:
@@ -330,7 +442,7 @@ def shard_params(model, mesh: Mesh):
         spec = placement(name, specs)
         if not spec.is_shard():
             continue
-        part = param.detach().chunk(tp.size, dim=spec.dim)[tp.rank].clone()
+        part = local_part(param.detach(), spec, tp).clone()
         mod_name, leaf = name.rsplit(".", 1)
         mod = model.get_submodule(mod_name)
         if isinstance(mod, nn.Linear) and spec.dim == 1:
@@ -338,7 +450,7 @@ def shard_params(model, mesh: Mesh):
             setattr(model.get_submodule(parent), child,
                     _row_parallel(mod, part, tp))
             continue
-        setattr(mod, leaf, nn.Parameter(part, requires_grad=False))
+        setattr(mod, leaf, nn.Parameter(part, requires_grad=param.requires_grad))
         if isinstance(mod, nn.Linear) and leaf == "weight":
             mod.out_features = part.shape[0]
     for attn in _attentions(model):
@@ -346,3 +458,132 @@ def shard_params(model, mesh: Mesh):
     model.tp = tp
     model.__dict__.pop("_align_sel", None)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Leaves: this rank's part of a whole tensor, and the whole from the parts
+# ---------------------------------------------------------------------------
+
+
+def local_part(x: torch.Tensor, spec, tp: TensorParallel) -> torch.Tensor:
+    """This tp rank's block of the whole tensor ``x`` under placement
+    ``spec`` (a view; ``x`` itself for a replicated one)."""
+    if not spec.is_shard():
+        return x
+    return x.chunk(tp.size, dim=spec.dim)[tp.rank]
+
+
+def gather_leaf(x: torch.Tensor, spec, tp: TensorParallel) -> torch.Tensor:
+    """The whole tensor from every tp rank's block ``x`` (a collective of
+    the tp group; a replicated ``x`` comes back as it is)."""
+    if not spec.is_shard():
+        return x
+    return torch.cat(_all_gather(x.detach(), tp.group, tp.size), dim=spec.dim)
+
+
+def gather_params(model, rank0_only: bool = False):
+    """{state-dict name: whole tensor} of ``model``: every sharded leaf
+    all-gathered over its tp group back to the full tensor, the replicated
+    ones as they are (detached), on every rank, or with ``rank0_only`` on
+    global rank 0 alone (the others return None). Every rank of the mesh
+    calls it (the gathers are collectives). Used to save a meshed model,
+    to compare it in tests and to hand trained weights to the
+    sequence-parallel encoder. An unsharded model gives its own leaves."""
+    import torch.distributed as dist
+
+    state = model.state_dict(keep_vars=True)
+    if model.tp is None:
+        return {k: v.detach() for k, v in state.items()}
+    specs = param_pspecs()
+    out = {k: gather_leaf(v, placement(k, specs), model.tp)
+           for k, v in state.items()}
+    if rank0_only and dist.get_rank() != 0:
+        return None
+    return {k: v.detach() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Training over dp
+# ---------------------------------------------------------------------------
+
+
+def sum_over_dp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over this rank's dp group, as a new tensor of x's
+    shape (a loss, a mask count)."""
+    flat = x.detach().reshape(1, -1).clone()
+    return _all_reduce(flat, mesh.group("dp")).reshape(x.shape)
+
+
+def reduce_gradients(params, mesh: Mesh) -> int:
+    """Sum the gradients of ``params`` (those that require grad, in order;
+    a missing gradient counts as zeros) over the dp group, in place: the
+    gradients are packed into flat buckets of one type and device of at
+    most ``GRAD_BUCKET_BYTES`` (one gradient larger than that is a bucket
+    of its own), each all-reduced and copied back. Every rank of a dp group
+    holds the same leaves in the same order, so the buckets match.
+    Returns the number of all-reduces."""
+    grads = []
+    for p in params:
+        if not p.requires_grad:
+            continue
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    buckets, size = [], 0
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        last = buckets[-1] if buckets else None
+        if (last is None or last[0].dtype != g.dtype
+                or last[0].device != g.device
+                or size + nbytes > GRAD_BUCKET_BYTES):
+            buckets.append([g])
+            size = nbytes
+        else:
+            last.append(g)
+            size += nbytes
+    group = mesh.group("dp")
+    for bucket in buckets:
+        flat = _all_reduce(torch.cat([g.reshape(-1) for g in bucket]), group)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+    return len(buckets)
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel encoder's time split
+# ---------------------------------------------------------------------------
+
+
+def seq_block(mesh: Mesh, t: int) -> int:
+    """The rows of every tp rank's time block: ``ceil(t / tp)``."""
+    return -(-t // mesh.tp)
+
+
+def seq_rows(mesh: Mesh, t: int) -> slice:
+    """This rank's time rows of ``t`` encoder positions (JAX's
+    ``seq_sharding``, time over ``tp``): ``[r c, min((r + 1) c, t))`` for
+    tp rank r and block ``c`` (:func:`seq_block`); the last ranks' blocks
+    may be short or empty where tp does not divide t."""
+    c = seq_block(mesh, t)
+    return slice(min(mesh.tp_rank * c, t), min((mesh.tp_rank + 1) * c, t))
+
+
+def gather_kv(mesh: Mesh, k: torch.Tensor, v: torch.Tensor):
+    """A sequence-parallel layer's keys and values: this rank's (B, c, H,
+    dh) blocks all-gathered over tp (one collective for both) into
+    (B, c tp, H, dh) views of one contiguous (2, B, c tp, H, dh) tensor,
+    rank r's block at rows [r c, (r + 1) c): the layout K2's TMA maps take
+    (16-byte-aligned bases and strides)."""
+    parts = _all_gather(torch.stack([k, v]), mesh.group("tp"), mesh.tp)
+    kv = torch.cat(parts, dim=2)
+    return kv[0], kv[1]
+
+
+def gather_seq(mesh: Mesh, x: torch.Tensor, t: int) -> torch.Tensor:
+    """The sequence-parallel encoder's output assembled: this rank's
+    (B, rows, d) time block (:func:`seq_rows`) all-gathered over tp into
+    (B, t, d), the same on every rank of the tp group."""
+    c = seq_block(mesh, t)
+    block = F.pad(x, (0, 0, 0, c - x.shape[1]))
+    parts = _all_gather(block, mesh.group("tp"), mesh.tp)
+    return torch.cat(parts, dim=1)[:, :t]

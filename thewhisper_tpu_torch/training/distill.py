@@ -10,7 +10,10 @@ shallow decoder trained on the teacher's distribution).
 The teacher is frozen (its encoder and logits under ``torch.no_grad``, so
 its attention takes K2's inference launch, no backward); the student is a
 decoder-only model. Both read the same encoder states, as a draft does in
-``WhisperEngine``.
+``WhisperEngine``. Distillation runs on one device: a model sharded by
+``parallel.mesh.shard_params`` (student or teacher) raises ``ValueError``,
+as JAX has no meshed distillation entry (``run_distill`` has no
+``--dp``/``--tp``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ class DistillState(NamedTuple):
     student: Whisper
     opt_state: torch.optim.AdamW
     step: int
+
+
+def _unsharded(model: Whisper, role: str) -> None:
+    if model.tp is not None:
+        raise ValueError(f"distillation runs on one device: the {role} is "
+                         "sharded over a mesh")
 
 
 def _teacher_pass(teacher: Whisper, batch, compute_dtype):
@@ -88,7 +97,9 @@ def init_distill_state(student: Whisper, learning_rate: float = 1e-4,
                        ) -> Tuple[DistillState, torch.optim.AdamW]:
     """(state, tx) on a copy of ``student``: a layer-skip student shares its
     modules (layers, tables, final LayerNorm) with the teacher, and
-    training them in place would change the teacher."""
+    training them in place would change the teacher. A sharded student
+    raises ``ValueError``."""
+    _unsharded(student, "student")
     state, tx = init_train_state(copy.deepcopy(student), learning_rate,
                                  weight_decay)
     return DistillState(state.params, tx, 0), tx
@@ -97,9 +108,11 @@ def init_distill_state(student: Whisper, learning_rate: float = 1e-4,
 def make_distill_step(tx: torch.optim.Optimizer,
                       compute_dtype: torch.dtype = torch.float32,
                       temperature: float = 2.0, remat: bool = False):
-    """One step: ``(state, teacher, batch) -> (state, loss)``."""
+    """One step: ``(state, teacher, batch) -> (state, loss)``; a sharded
+    teacher raises ``ValueError``."""
 
     def step(state: DistillState, teacher: Whisper, batch):
+        _unsharded(teacher, "teacher")
         tx.zero_grad(set_to_none=True)
         loss = distill_loss_fn(state.student, teacher, batch, compute_dtype,
                                temperature, remat)
