@@ -223,11 +223,28 @@ is false. Phases, each of which raises on failure:
     and K2 launches (which must be above 0) and its local head count; the
     walls carry the card's name and power limit, (b)'s labelled as
     host-staged gloo on one card, which measures no deployment.
-16. [MESH_TRAIN] The ``(dp, tp)`` mesh for training and the
-    sequence-parallel encoder (``phase_mesh_train``, after [MESH]): K2
-    with S_q != S_k (750, 375 and 188 queries over 1500 keys, 13 over 52
-    with valid_len 50; f32 and bf16) against its plain version, timed
-    beside the square K2; then large-v3-turbo at full width, the encoder
+16. [MESH_SPEC] Speculation under the mesh (``phase_mesh_spec``, after
+    [MESH]): ngram drafting, the two-layer layer-skip draft of the
+    sharded target and proposal tokens (the unsharded greedy call's
+    tokens, every third one changed), each through ``WhisperEngine(mesh=)``
+    in child processes: (a) one NCCL rank (dp 1 x tp 1), bf16
+    large-v3-turbo at full width, a 30 s input with alignment capture, 64
+    tokens, the rounds replayed from CUDA graphs with their all-reduces
+    captured: tokens, ``num_generated`` and ``spec_rounds`` bit-identical
+    to the unsharded speculative engine's; (b) two gloo ranks on the one
+    card (gloo's collectives, its reduce-scatter among them, checked
+    first), f32 with TF32 off, two 30 s rows, 32 tokens, at dp 1 x tp 2
+    and dp 2 x tp 1: tokens, lengths and rounds equal to the unsharded
+    engine's, every round's accepted counts equal on both tp ranks. Every
+    rank's K1 and K2 launches (above 0) and local heads; walls and peaks
+    beside the card's name and power limit, (b)'s labelled host-staged.
+17. [MESH_TRAIN] The ``(dp, tp)`` mesh for training and the
+    sequence-parallel encoder (``phase_mesh_train``, after [MESH_SPEC]):
+    K2 with S_q != S_k (750, 375 and 188 queries over 1500 keys, 13 over
+    52 with valid_len 50; f32 and bf16) against its plain version, timed
+    beside the square K2, and K2-dkv and K2-dq on the same inputs against
+    the plain backward (dK and dV in the keys' shape, the pad keys' zero),
+    timed beside the square kernels with their bounds; then large-v3-turbo at full width, the encoder
     cut to 4 layers, random f32 weights and biases, 10 s through K1, 64
     tokens, masks that zero a 4-token prompt and pad every row to its own
     length, the unsharded references computed in the parent: (a) one
@@ -245,9 +262,15 @@ is false. Phases, each of which raises on failure:
     (c) the sequence-parallel encoder at tp 2 on whole 32-layer weights,
     30 s (750 queries a rank over 1500 keys), f32 within 1e-4 relative L2
     of the unsharded encoder, bf16 within 1.5x the unsharded bf16
-    encoder's distance from f32. Walls and peak memory (reset between
-    arms) beside the card's name and power limit, the gloo ones labelled
-    host-staged on one card.
+    encoder's distance from f32; (d) its backward at tp 2, the 30 s
+    encoder cut to 4 layers, the loss ``(out * g).sum()`` on the
+    gathered output for a seeded cotangent: every gradient leaf, summed
+    over tp, within 1e-4 relative L2 of the unsharded encoder's f32
+    gradient (bf16 compute within 1.5x the unsharded bf16 distance), the
+    summed gradients bit-identical on both ranks, K2-fwd-res, K2-dkv and
+    K2-dq (S_q != S_k) once a layer on every rank. Walls and peak memory
+    (reset between arms) beside the card's name and power limit, the gloo
+    ones labelled host-staged on one card.
 
 Times come from CUDA events; every time printed is measured in the run,
 and the bounds are computed from the run's shapes. The kernels' JSON line
@@ -255,8 +278,8 @@ gives each kernel's launches on its path, its error against the plain
 version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the peak rate for their
 type) and, where one PyTorch call computes the same function, that call's
-time (and, for K2, ``sq_ne_sk``, [MESH_TRAIN]'s S_q != S_k cases with
-their times, the square K2's and their bounds; for K3 and K4,
+time (and, for K2, K2-dkv and K2-dq, ``sq_ne_sk``, [MESH_TRAIN]'s
+S_q != S_k cases with their times, the square kernels' and their bounds; for K3 and K4,
 ``graph_ms``, the device time from a CUDA graph; for P2 the pack's time and its phase stamps, for P3 the
 L2-resident time of one layer replayed; for P4 and P5 the measured
 launch floors; for P5 ``l2_resident_ms``, its ``ms``, ``cold_ms``, the
@@ -3970,6 +3993,59 @@ def phase_mesh(smi: str) -> None:
           f"{time.perf_counter() - t1:.1f} s", flush=True)
 
 
+def phase_mesh_spec(smi: str) -> None:
+    """[MESH_SPEC] (see the module docstring): the children are
+    ``parallel.dryrun.card_spec_nccl`` and ``card_spec_gloo_pair``; a
+    child's failure, a mismatch or a kernel not launched fails the phase."""
+    from thewhisper_tpu_torch.parallel import dryrun
+    from thewhisper_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    (a,) = spawn(dryrun.card_spec_nccl, 1, backend="nccl", device="cuda",
+                 timeout_s=400)
+    for arm, r in a["arms"].items():
+        same, c = r["same"], r["counts"]
+        check(same["tokens"] and same["num_generated"] and same["spec_rounds"],
+              f"(a) {arm}: {same}")
+        check(c["K1"] > 0 and c["K2"] > 0 and c["captured_all_reduces"] > 0,
+              f"(a) {arm}: counts {c}")
+        print(f"[MESH_SPEC] (a) NCCL dp 1 x tp 1, bf16 turbo, 30 s, 64 tokens, "
+              f"{arm}: bit-identical to the unsharded speculative engine "
+              f"{same}; {r['rounds']} rounds from CUDA graphs, generated "
+              f"{r['generated']}; {c['captured_all_reduces']} all-reduces "
+              f"captured, {c['all_reduces']} issued in all, K1 {c['K1']} K2 "
+              f"{c['K2']} launches; wall {r['wall'] * 1e3:.1f} ms meshed, "
+              f"{r['unsharded_wall'] * 1e3:.1f} ms unsharded, peak "
+              f"{r['peak_gib']:.2f} GiB (unsharded {a['unsharded_peak_gib']:.2f}) "
+              f"({smi})", flush=True)
+    t1 = time.perf_counter()
+    b = spawn(dryrun.card_spec_gloo_pair, 2, backend="gloo", device="cuda",
+              timeout_s=900)
+    dryrun.check_spec_tp_ranks(b)
+    lead = b[0]
+    for r in b:
+        for name, c in r["counts"].items():
+            tp = 2 if "tp2" in name else 1
+            check(c["K1"] > 0 and c["K2"] > 0,
+                  f"(b) rank {r['rank']} {name}: K1/K2 not launched {c}")
+            check(r["heads"][name] == 20 // tp,
+                  f"(b) rank {r['rank']} {name}: {r['heads'][name]} heads")
+    for name, arm in lead["arms"].items():
+        peaks = ", ".join(f"{r['peaks'][name]:.2f}" for r in b)
+        launched = [(r["counts"][name]["K1"], r["counts"][name]["K2"]) for r in b]
+        print(f"[MESH_SPEC] (b) {name} f32: tokens, num_generated and "
+              f"{arm['rounds']} rounds equal to the unsharded engine's "
+              f"(generated {arm['generated']}); K1/K2 launches a rank "
+              f"{launched}; wall {lead['walls'][name] * 1e3:.1f} ms (unsharded "
+              f"{lead['walls'][f'unsharded {name.split()[1]} f32'] * 1e3:.1f} ms), "
+              f"peak {peaks} GiB a rank: host-staged gloo with two ranks on "
+              f"one card, a correctness check that measures no deployment "
+              f"({smi})", flush=True)
+    print(f"[MESH_SPEC] (b) accepted counts of every round bit-equal on both "
+          f"tp ranks of each tp-2 arm; {time.perf_counter() - t1:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # [MESH_TRAIN] the (dp, tp) mesh for training and the sequence-parallel
 # encoder
 
@@ -3987,10 +4063,12 @@ def k2_uneven_rows(smi: str) -> dict:
     gives it: k and v views of one gathered (2, B, S_k, H, 64) tensor.
     Each case's time beside the square K2's (S_k queries over the same
     keys) and the plain version's; bound from the case's operations (f32
-    at the CUDA cores' rate, as [K2]'s f32 bound) and bytes."""
+    at the CUDA cores' rate, as [K2]'s f32 bound) and bytes. Then K2-dkv
+    and K2-dq on the same inputs (:func:`backward_uneven_rows`). Returns
+    {"cases": K2's, "backward": K2-dkv's and K2-dq's}."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(24)
-    cases = []
+    cases, bwd = [], []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s_q, s_k, valid in SP_K2_CASES:
             q = torch.randn(b, s_q, 20 * 64, generator=g, device=dev).to(
@@ -4023,8 +4101,85 @@ def k2_uneven_rows(smi: str) -> dict:
                   f"queries) {square_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{case['bound_ms']:.4f} ms ({case['bound_by']}); {smi}",
                   flush=True)
+            bwd.extend(backward_uneven_rows(q, k, v, valid, square, g, smi))
             del q, kv, k, v, out, ref, square
-    return {"cases": cases}
+    return {"cases": cases, "backward": bwd}
+
+
+def backward_uneven_rows(q, k, v, valid, square, g, smi: str) -> list:
+    """K2-dkv and K2-dq with S_q != S_k on one of ``SP_K2_CASES``' inputs
+    (the layout the sequence-parallel encoder's backward gives them: k
+    and v views of the gathered tensor, dK and dV in their shape, dQ in
+    q's), against the plain backward on the same out and lse by [TRAIN]'s
+    rules (f32 1e-4 relative L2; bf16 at most ``F32_RATIO`` x the plain
+    bf16 backward's distance from the f32 gradients; pad keys' dK and dV
+    zero). Each kernel's time beside the square kernels' (``square``:
+    S_k queries over the same keys) and the plain backward's; bounds from
+    the case's operations (f32 at the CUDA cores' rate, and ``tc_bound_ms``
+    at the TF32 tensor rate for three products of each) and bytes. Returns
+    one entry a kernel."""
+    dtype, (b, s_q), s_k = q.dtype, q.shape[:2], k.shape[1]
+    f32 = dtype == torch.float32
+    do = torch.randn(q.shape, generator=g, device=q.device).to(dtype)
+    out, lse = attn.encoder_attention_residuals(q, k, v, valid)
+    got = attn.encoder_attention_backward(q, k, v, out, lse, do, valid)
+    plain = attn.encoder_attention_backward_plain(q, k, v, out, lse, do, valid)
+    check(got[0].shape == q.shape and got[1].shape == got[2].shape == k.shape,
+          f"backward shapes {[x.shape for x in got]}")
+    if valid is not None:
+        check(not got[1][:, valid:].any() and not got[2][:, valid:].any(),
+              f"S_q {s_q} over {s_k}: dK/dV of pad keys not zero")
+    if f32:
+        errs = [l2_rel(x, r).item() for x, r in zip(got, plain)]
+        check(max(errs) <= 1e-4, f"backward f32 S_q {s_q} over {s_k}: {errs}")
+    else:
+        fq = [x.float() for x in (q, k, v, do)]
+        out32, lse32 = attn.encoder_attention_residuals(*fq[:3], valid)
+        ref = attn.encoder_attention_backward_plain(*fq[:3], out32, lse32, fq[3],
+                                                    valid)
+        errs = [f32_ratio(x, p, r) for x, p, r in zip(got, plain, ref)]
+        check(max(errs) <= F32_RATIO, f"backward bf16 S_q {s_q} over {s_k}: {errs}")
+        del fq, out32, lse32, ref
+    keys = valid or s_k
+    di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    sdo = torch.randn(square.shape, generator=g, device=q.device).to(dtype)
+    sout, slse = attn.encoder_attention_residuals(square, k, v, valid)
+    sdi = (sout.float() * sdo.float()).sum(-1).transpose(1, 2).contiguous()
+    times = {"dkv": cuda_ms(lambda: attn.launch_backward_dkv(q, k, v, do, lse, di, keys)),
+             "dq": cuda_ms(lambda: attn.launch_backward_dq(q, k, v, do, lse, di, keys))}
+    square_times = {
+        "dkv": cuda_ms(lambda: attn.launch_backward_dkv(square, k, v, sdo, slse, sdi, keys)),
+        "dq": cuda_ms(lambda: attn.launch_backward_dq(square, k, v, sdo, slse, sdi, keys))}
+    plain_ms = cuda_ms(lambda: attn.encoder_attention_backward_plain(
+        q, k, v, out, lse, do, valid), iters=3)
+    pairs = b * 20 * s_q * keys * 64               # (query, key, dim) triples
+    io = nbytes(q, k, v, do, lse, di)
+    moved = {"dkv": (io + nbytes(*got[1:]), 8 * pairs),
+             "dq": (io + nbytes(got[0]), 6 * pairs)}
+    entries = []
+    for (name, (nb, flops)), err in zip(moved.items(), (max(errs[1:]), errs[0])):
+        entry = {"kernel": name, "dtype": str(dtype)[6:], "b": b, "s_q": s_q,
+                 "s_k": s_k, "valid_len": valid,
+                 ("max_rel_l2" if f32 else "f32_ratio"): err,
+                 "ms": times[name], "square_ms": square_times[name],
+                 "plain_ms": plain_ms,
+                 **bound(nb, flops, F32_FLOPS if f32 else BF16_FLOPS)}
+        if f32:
+            entry["tc_bound_ms"] = bound(nb, 3 * flops, TF32_FLOPS)["bound_ms"]
+        entries.append(entry)
+    print(f"[MESH_TRAIN] K2 backward {str(dtype)[6:]:>8} B={b} S_q={s_q} over "
+          f"S_k={s_k} valid={valid}: "
+          + ("rel L2 dq/dk/dv " + " ".join(f"{e:.2e}" for e in errs) if f32 else
+             "distance from f32 over the plain bf16's, dq/dk/dv "
+             + " ".join(f"{e:.3f}" for e in errs))
+          + "; " + ", ".join(
+              f"{e['kernel']} {e['ms']:.4f} ms (square {e['square_ms']:.4f}, bound "
+              f"{e['bound_ms']:.4f} {e['bound_by']}"
+              + (f", 3xTF32 {e['tc_bound_ms']:.4f}" if f32 else "") + ")"
+              for e in entries)
+          + f", plain backward {plain_ms:.4f} ms; {smi}", flush=True)
+    del do, out, lse, got, plain, di, sdo, sout, slse, sdi
+    return entries
 
 
 def phase_mesh_train(smi: str) -> dict:
@@ -4133,6 +4288,30 @@ def report_mesh_train(ref, a, pair, smi: str, times) -> None:
               + f"; wall {r['wall'] * 1e3:.1f} ms, peak {r['peak_gib']:.2f} GiB "
               f"(rank 0; host-staged gloo on one card, no deployment; {smi})",
               flush=True)
+    d = ref["d"]
+    print(f"[MESH_TRAIN] (d) unsharded reference: the 30 s encoder cut to "
+          f"{dryrun.CARD_SP_GRAD_LAYERS} layers, B = {dryrun.CARD_SP_ROWS}, "
+          f"{d['leaves']} leaves; f32 {walls([d['f32']])}, bf16 compute "
+          f"{walls([d['bf16']])}, its gradients {d['bf16_vs_f32']:.3e} from "
+          f"f32; {smi}", flush=True)
+    for name, r in lead["sp_grad"].items():
+        ranks = [p["sp_grad"][name] for p in pair]
+        c = r["counts"]
+        line = (f"[MESH_TRAIN] (d) SP backward tp 2 {name}: 750 queries a rank "
+                f"over 1500 keys; K2-fwd-res/dkv/dq {c['K2-fwd-res']}/"
+                f"{c['K2-dkv']}/{c['K2-dq']} a rank, {c['reduce_scatters']} "
+                f"reduce-scatters, {c['dout_copies']} output gradients copied; ")
+        if "worst_leaf" in r:
+            line += (f"worst gradient leaf {r['worst_leaf'][0]:.3e} "
+                     f"({r['worst_leaf'][1]}), bound {dryrun.CARD_GRAD_REL}; ")
+        else:
+            line += (f"gradients {r['vs_f32']:.3e} from the unsharded f32 "
+                     f"(bound {r['bound']:.3e}); ")
+        line += (f"summed gradients bit-identical on both tp ranks; walls "
+                 + ", ".join(f"{x['wall'] * 1e3:.1f} ms" for x in ranks)
+                 + ", peaks " + ", ".join(f"{x['peak_gib']:.2f} GiB" for x in ranks)
+                 + f" (host-staged gloo on one card, no deployment; {smi})")
+        print(line, flush=True)
     print(f"[MESH_TRAIN] gloo children {t3 - t2:.1f} s; phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4181,6 +4360,7 @@ def main() -> None:
     k2_bwd = phase_attention_backward(smi)
     train_launches = phase_train(smi)
     phase_mesh(smi)
+    phase_mesh_spec(smi)
     k2_sp = phase_mesh_train(smi)
     kernels = [
         {"name": "logmel", "route": "cuda",
@@ -4191,7 +4371,7 @@ def main() -> None:
          "source": "thewhisper_tpu_torch/csrc/encoder_attention.cu",
          "replaces": "thewhisper_tpu/models/whisper.py:189",
          "launches": launches["encoder_attention"], **k2,
-         "sq_ne_sk": k2_sp},
+         "sq_ne_sk": k2_sp["cases"]},
         {"name": "mega_step", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/mega_step.cu",
          "replaces": "thewhisper_tpu/ops/mega_step.py:602",
@@ -4233,11 +4413,13 @@ def main() -> None:
         {"name": "encoder_attention_bwd_dkv", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/encoder_attention_bwd.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-         "launches": train_launches["encoder_attention_bwd_dkv"], **k2_bwd["dkv"]},
+         "launches": train_launches["encoder_attention_bwd_dkv"], **k2_bwd["dkv"],
+         "sq_ne_sk": [c for c in k2_sp["backward"] if c["kernel"] == "dkv"]},
         {"name": "encoder_attention_bwd_dq", "route": "cuda",
          "source": "thewhisper_tpu_torch/csrc/encoder_attention_bwd.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-         "launches": train_launches["encoder_attention_bwd_dq"], **k2_bwd["dq"]},
+         "launches": train_launches["encoder_attention_bwd_dq"], **k2_bwd["dq"],
+         "sq_ne_sk": [c for c in k2_sp["backward"] if c["kernel"] == "dq"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -73,17 +73,19 @@ def _guarded(flat, bh0, cols, s, fill, guard=True):
 
 
 def emulate_dkv(q, k, v, do, lse, di, valid, dtype, guard_lse=True, guard_di=True):
-    """dK, dV of the dK/dV kernel's walk. q, k, v, do: (B, H, S, 64) f32
-    holding the operand values; lse, di: (B, H, S) f32."""
+    """dK, dV of the dK/dV kernel's walk. q, do: (B, H, S_q, 64) and k, v:
+    (B, H, S_k, 64) f32 holding the operand values; lse, di: (B, H, S_q)
+    f32."""
     b, h, s, _ = q.shape
+    s_k = k.shape[2]
     rnd = _rounder(dtype)
     n_tiles = math.ceil(s / ROWS)
     qp, dop = _pad(q, n_tiles * ROWS), _pad(do, n_tiles * ROWS)
-    kp, vp = _pad(k, math.ceil(s / BLOCK) * BLOCK), _pad(v, math.ceil(s / BLOCK) * BLOCK)
+    kp, vp = (_pad(x, math.ceil(s_k / BLOCK) * BLOCK) for x in (k, v))
     lse_f, di_f = _flat(lse), _flat(di)
     bh0 = torch.arange(b * h).view(b, h) * s
-    dk, dv = torch.zeros(b, h, s, 64), torch.zeros(b, h, s, 64)
-    for row0 in range(0, s, BLOCK):
+    dk, dv = torch.zeros(b, h, s_k, 64), torch.zeros(b, h, s_k, 64)
+    for row0 in range(0, s_k, BLOCK):
         if row0 >= valid:
             continue                                   # a block of zeros
         for wg in range(CONSUMERS):
@@ -101,7 +103,7 @@ def emulate_dkv(q, k, v, do, lse, di, valid, dtype, guard_lse=True, guard_di=Tru
                 p = torch.where((keys < valid)[:, None], p, torch.tensor(0.0))
                 acc_v += rnd(p) @ dot
                 acc_k += rnd(p * (dp_t - di_c[:, :, None, :])) @ qt
-            keep = keys < s
+            keep = keys < s_k
             dk[:, :, keys[keep]] = (acc_k * SCALE)[:, :, keep]
             dv[:, :, keys[keep]] = acc_v[:, :, keep]
     return dk, dv
@@ -110,9 +112,10 @@ def emulate_dkv(q, k, v, do, lse, di, valid, dtype, guard_lse=True, guard_di=Tru
 def emulate_dq(q, k, v, do, lse, di, valid, dtype, mask_keys=True):
     """dQ of the dQ kernel's walk (arguments as ``emulate_dkv``)."""
     b, h, s, _ = q.shape
+    s_k = k.shape[2]
     rnd = _rounder(dtype)
     n_tiles = math.ceil(valid / ROWS)
-    kp, vp = _pad(k, max(s, n_tiles * ROWS)), _pad(v, max(s, n_tiles * ROWS))
+    kp, vp = (_pad(x, max(s_k, n_tiles * ROWS)) for x in (k, v))
     padded = math.ceil(s / BLOCK) * BLOCK
     qp, dop = _pad(q, padded), _pad(do, padded)
     lse_f, di_f = _flat(lse), _flat(di)
@@ -138,16 +141,19 @@ def emulate_dq(q, k, v, do, lse, di, valid, dtype, mask_keys=True):
     return dq
 
 
-def _case(b, h, s, valid_len, dtype, seed=0):
+def _case(b, h, s, valid_len, dtype, seed=0, s_q=None):
+    """Seeded q, k, v, dO and the forward's out and lse: S keys and, with
+    ``s_q``, that many queries (the sequence-parallel encoder's)."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(b, s, h, 64, generator=g).to(dtype) for _ in range(4))
+    rows = (s_q or s, s, s, s_q or s)
+    q, k, v, do = (torch.randn(b, n, h, 64, generator=g).to(dtype) for n in rows)
     out, lse = ta.encoder_attention_residuals(q, k, v, valid_len)
     return q, k, v, do, out, lse
 
 
 def _emulate(q, k, v, do, out, lse, valid_len, **kw):
     """(dq, dk, dv) of both kernels, (B, S, H, 64) in the operand type."""
-    dtype, valid = q.dtype, valid_len or q.shape[1]
+    dtype, valid = q.dtype, valid_len or k.shape[1]
     tq, tk, tv, tdo = (x.transpose(1, 2).float() for x in (q, k, v, do))
     di = (out.float() * do.float()).sum(-1).transpose(1, 2)
     dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, di, valid, dtype, **kw)
@@ -178,6 +184,36 @@ def test_schedule_matches_plain(s, valid_len, dtype):
         torch.testing.assert_close(got[2].float(), do.float(), atol=0, rtol=1e-5)
         assert max(g_.float().abs().max().item() for g_ in got[:2]) <= 1e-3
         return
+    if dtype == torch.float32:
+        for name, g_, p_ in zip("qkv", got, plain):
+            assert _l2(g_, p_) <= 1e-5, name
+        return
+    f = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = ta.encoder_attention_residuals(*f[:3], valid_len)
+    ref = ta.encoder_attention_backward_plain(*f[:3], out32, lse32, f[3], valid_len)
+    for name, g_, p_, r_ in zip("qkv", got, plain, ref):
+        assert _l2(g_, r_) <= 1.5 * _l2(p_, r_), name
+
+
+# (queries, keys, valid_len): a sequence-parallel rank's queries over the
+# keys gathered from every rank (T = 50 at tp 4: blocks of 13, 52 keys),
+# fewer queries than a key block, and more queries than keys.
+SQ_CASES = [(13, 52, 50), (75, 150, 140), (188, 130, 100), (200, 77, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k,valid_len", SQ_CASES)
+def test_schedule_with_other_query_and_key_counts_matches_plain(s_q, s_k,
+                                                               valid_len, dtype):
+    """S_q != S_k: the dK/dV grid over S_k key blocks streaming S_q
+    queries (lse and di guarded past S_q), the dQ grid over S_q query
+    blocks streaming keys below valid_len; pad keys get zero dK and dV."""
+    q, k, v, do, out, lse = _case(2, 2, s_k, valid_len, dtype, seed=s_q, s_q=s_q)
+    got = _emulate(q, k, v, do, out, lse, valid_len)
+    plain = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
+    assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in plain]
+    if valid_len is not None:
+        assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()
     if dtype == torch.float32:
         for name, g_, p_ in zip("qkv", got, plain):
             assert _l2(g_, p_) <= 1e-5, name

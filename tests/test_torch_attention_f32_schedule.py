@@ -172,16 +172,17 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 
 def emulate_dkv(q, k, v, do, lse, di, valid, terms=3, p_lo=True, guard_lse=True,
                 guard_di=True):
-    """dK, dV of the dK/dV kernel's walk over 64-query tiles. q, k, v, do:
-    (B, H, S, 64) f32; lse, di: (B, H, S) f32. Every key row is
-    independent, so all keys walk at once; keys >= valid_len (their blocks
-    write zeros, their rows in a live block get P = 0) end as zeros."""
+    """dK, dV of the dK/dV kernel's walk over 64-query tiles. q, do:
+    (B, H, S_q, 64) and k, v: (B, H, S_k, 64) f32; lse, di: (B, H, S_q)
+    f32. Every key row is independent, so all keys walk at once; keys >=
+    valid_len (their blocks write zeros, their rows in a live block get
+    P = 0) end as zeros."""
     b, h, s, _ = q.shape
     n_tiles = math.ceil(s / BWD_TILE)
     qp, dop = _pad(q, n_tiles * BWD_TILE), _pad(do, n_tiles * BWD_TILE)
     lse_f, di_f = _flat(lse), _flat(di)
     bh0 = torch.arange(b * h).view(b, h) * s
-    live = (torch.arange(s) < valid)[:, None]
+    live = (torch.arange(k.shape[2]) < valid)[:, None]
     dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
     for t in range(n_tiles):
         cols = torch.arange(t * BWD_TILE, (t + 1) * BWD_TILE)
@@ -203,7 +204,8 @@ def emulate_dkv(q, k, v, do, lse, di, valid, terms=3, p_lo=True, guard_lse=True,
 
 def emulate_dq(q, k, v, do, lse, di, valid, terms=3, ds_lo=True):
     """dQ of the dQ kernel's walk over the 64-key tiles below ``valid``;
-    q, k, v, do: (B, H, S, 64) f32; lse, di: (B, H, S) f32. Every query row
+    q, do: (B, H, S_q, 64) and k, v: (B, H, S_k, 64) f32; lse, di:
+    (B, H, S_q) f32. Every query row
     is independent, so all queries walk at once; the keys >= valid of the
     last tile (real rows when valid < S, zero rows past S) get P = 0 by
     column. ``ds_lo`` False leaves dS's lo term out of dQ's product."""
@@ -282,6 +284,30 @@ def test_walks_meet_the_card_bounds(s, valid_len):
     if valid_len is not None:
         dk, dv = errs["dkv"]
         assert not dk[:, :, valid_len:].any() and not dv[:, :, valid_len:].any()
+
+
+@pytest.mark.parametrize("s_q,s_k,valid_len", [(13, 52, 50), (188, 500, 500),
+                                                (200, 77, 30)])
+def test_walks_with_other_query_and_key_counts_meet_the_card_bounds(
+        s_q, s_k, valid_len):
+    """S_q != S_k (the sequence-parallel encoder's backward: a rank's
+    queries over every rank's keys): the dK/dV walk streams the S_q queries
+    of its (B, H, S_q) lse and di rows, the dQ walk the keys below
+    valid_len; pad keys end as zeros."""
+    g = torch.Generator().manual_seed(s_q)
+    q, do = (torch.randn(2, s_q, 2, 64, generator=g) for _ in range(2))
+    k, v = (torch.randn(2, s_k, 2, 64, generator=g) for _ in range(2))
+    out, lse = ta.encoder_attention_residuals(q, k, v, valid_len)
+    di = (out * do).sum(-1).transpose(1, 2)
+    pq, pk, pv = ta.encoder_attention_backward_plain(q, k, v, out, lse, do,
+                                                     valid_len)
+    tq, tk, tv, tdo = _bhsd(q, k, v, do)
+    dk, dv = emulate_dkv(tq, tk, tv, tdo, lse, di, valid_len)
+    dq = emulate_dq(tq, tk, tv, tdo, lse, di, valid_len)
+    assert dk.shape == dv.shape == tk.shape and dq.shape == tq.shape
+    errs = [_l2(x.transpose(1, 2), ref) for x, ref in ((dq, pq), (dk, pk), (dv, pv))]
+    assert max(errs) <= 1e-4, errs
+    assert not dk[:, :, valid_len:].any() and not dv[:, :, valid_len:].any()
 
 
 def test_walks_meet_the_card_bounds_at_one_key():

@@ -28,8 +28,9 @@ that checks the programmatic launches' ordering, and a device slot outside
 the cache trapping in a child process (``mega_mutants --kernel cache``
 checks these against broken copies of ``csrc/cache_write.cu``). K2's lse
 and its backward kernels at S = 1, the bf16 route's tile edges 64, 65 and
-128, a ragged 77 (with valid_len 30), 500 and 1500 (valid_len 1100), f32
-and bf16, with lse and di that hold NaN past their last row, and through
+128, a ragged 77 (with valid_len 30), 500 and 1500 (valid_len 1100), with
+other query than key counts (13 over 52, 750, 375 and 188 over 1500, 200
+over 77), f32 and bf16, with lse and di that hold NaN past their last row, and through
 autograd on the encoder's strided views (``mega_mutants --kernel
 attn_bwd`` checks these and K2's own tests against broken copies of
 ``csrc/encoder_attention_bwd.cu``, of ``csrc/tc_common.cuh`` and of K2's
@@ -288,6 +289,39 @@ def test_attention_backward_kernels_match_plain(cuda_device, dtype, b, s, valid_
     plain = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
     for g in got:
         assert g.shape == q.shape and g.dtype == dtype and g.is_contiguous()
+    if valid_len is not None:
+        assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()
+    if dtype == torch.float32:
+        for name, g, r in zip("qkv", got, plain):
+            assert _l2(g, r) <= 1e-4, name
+        return
+    f = [x.float() for x in (q, k, v, do)]
+    out32, lse32 = ta.encoder_attention_residuals(*f[:3], valid_len)
+    ref = ta.encoder_attention_backward_plain(*f[:3], out32, lse32, f[3], valid_len)
+    for name, g, p, r in zip("qkv", got, plain, ref):
+        assert _l2(g, r) <= 1.5 * _l2(p, r), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_q,s_k,valid_len", [
+    (13, 52, 50), (750, 1500, None), (375, 1500, None), (188, 1500, None),
+    (200, 77, 30)])
+def test_attention_backward_kernels_take_other_query_and_key_counts(
+        cuda_device, dtype, s_q, s_k, valid_len):
+    """S_q != S_k (the sequence-parallel encoder's backward: a rank's
+    queries over the keys gathered from every rank, tp 4 of T = 50 and tp
+    2, 4 and 8 of T = 1500): dQ in q's shape, dK and dV in k's, against the
+    plain version by the rules of the square test; pad keys' dK and dV
+    exactly zero."""
+    q = _qkv(2, s_q, 4, dtype, cuda_device, seed=13)[0]
+    do = _qkv(2, s_q, 4, dtype, cuda_device, seed=14)[0]
+    k, v = _qkv(2, s_k, 4, dtype, cuda_device, seed=15)[1:]
+    out, lse = ta.encoder_attention_residuals(q, k, v, valid_len)
+    got = ta.encoder_attention_backward(q, k, v, out, lse, do, valid_len)
+    torch.cuda.synchronize()
+    plain = ta.encoder_attention_backward_plain(q, k, v, out, lse, do, valid_len)
+    for g, p in zip(got, plain):
+        assert g.shape == p.shape and g.dtype == dtype and g.is_contiguous()
     if valid_len is not None:
         assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()
     if dtype == torch.float32:

@@ -14,7 +14,8 @@ one. Tolerances (f32 on both sides), those of
 ``test_torch_training.py``: the loss 1e-5 relative, every gradient leaf
 1e-4 relative L2, three AdamW steps' updates 1e-3 relative L2 against
 optax; remat against no remat 1e-5 relative, 1e-6 absolute; the
-sequence-parallel encoder 1e-5 absolute.
+sequence-parallel encoder 1e-5 absolute (its backward:
+``test_torch_parallel_seq_grad.py``).
 """
 
 import dataclasses
@@ -254,16 +255,25 @@ def test_sequence_parallel_encoder_matches_jax(runs, tree, shape):
 
 
 def test_sequence_parallel_refuses_sharded_weights_and_autograd(runs):
+    """tp-sharded weights still raise; autograd, refused until SP's
+    backward was ported, now runs on every rank: no refusal, one
+    reduce-scatter a layer, finite gradients on every encoder leaf
+    (``tests/test_torch_parallel_seq_grad.py`` holds them to JAX)."""
     for r in runs[(2, 2)] + runs[(1, 4)]:
         refusals = r["seq"]["refusals"]
         assert "whole weights" in refusals["sharded"]
-        assert "no backward" in refusals["autograd"]
+        assert "autograd" not in refusals
+        assert r["seq"]["autograd"] == {"reduce_scatters": ARCH.encoder_layers,
+                                        "finite": True}
 
 
 def test_k2_plain_with_fewer_queries_equals_the_square_rows():
     """K2's plain version with S_q != S_k (a rank's queries over every key,
     pad keys past valid_len) gives the matching rows of the square call,
-    and its lse; the gradient path refuses S_q != S_k."""
+    and its lse; the gradient path takes S_q != S_k too: 13 queries over
+    52 keys with valid_len 50, through ``EncoderAttention`` and through
+    ``encoder_attention_backward``, equal autograd of
+    ``encoder_attention_plain``, the pad keys' dK and dV zero."""
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 52, 3, 64)).astype(
         np.float32)) for _ in range(3))
@@ -275,11 +285,19 @@ def test_k2_plain_with_fewer_queries_equals_the_square_rows():
             rtol=0, atol=0)
         torch.testing.assert_close(attn.attention_lse_plain(q[:, rows], k, 50),
                                    lse[:, :, rows], rtol=0, atol=0)
-    with pytest.raises(ValueError, match="S_q = S_k"):
-        attn.encoder_attention(q[:, :13].requires_grad_(True), k, v, 50)
-    with pytest.raises(ValueError, match="S_q = S_k"):
-        attn.encoder_attention_backward(q[:, :13], k, v, full[:, :13],
-                                        lse[:, :, :13], full[:, :13], 50)
+    dout = torch.from_numpy(rng.standard_normal((2, 13, 3, 64)).astype(np.float32))
+    grads = []
+    for fn in (attn.encoder_attention, attn.encoder_attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (q[:, :13], k, v)]
+        (fn(*leaves, 50) * dout).sum().backward()
+        grads.append([x.grad for x in leaves])
+    got = attn.encoder_attention_backward(q[:, :13], k, v, full[:, :13],
+                                          lse[:, :, :13], dout, 50)
+    for a, b, c in zip(grads[0], grads[1], got):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(c, b, rtol=1e-5, atol=1e-6)
+    assert got[0].shape == (2, 13, 3, 64) and got[1].shape == (2, 52, 3, 64)
+    assert not got[1][:, 50:].any() and not got[2][:, 50:].any()
 
 
 def test_gather_params_after_shard_params_returns_the_original(runs):
@@ -457,3 +475,7 @@ def test_mesh_train_card_children_rehearse_on_the_cpu(tmp_path):
                             "dp2xtp1 f32"]
     assert arms["dp1xtp2 f32"]["worst_leaf"][0] <= dryrun.CARD_GRAD_REL
     assert [p["sp"]["f32"]["rows"] for p in pair] == [25, 25]
+    sp_grad = pair[0]["sp_grad"]
+    assert sp_grad["f32"]["worst_leaf"][0] <= dryrun.CARD_GRAD_REL
+    assert sp_grad["bf16"]["vs_f32"] <= sp_grad["bf16"]["bound"]
+    assert sp_grad["f32"]["counts"]["reduce_scatters"] == arch.encoder_layers

@@ -10,26 +10,30 @@
 // additive bias, has no use here: Whisper has no bias). The library's
 // split is kept: one kernel per key block walks every query and holds dK
 // and dV in registers, one kernel per query block walks every key and
-// holds dQ, so neither needs atomics or an S x S scratch.
+// holds dQ, so neither needs atomics or an S_q x S_k scratch.
 //
-// Inputs: q, k, v and dO as (B, S, H, 64) views (any batch, sequence and
-// head strides, unit stride on the head dim), f32 or bf16; lse, f32
-// (B, H, S), the natural-log log-sum-exp of each row's scaled scores that
-// K2 writes with its output (csrc/encoder_attention.cu); di = rowsum(O *
-// dO), f32 (B, H, S), one torch reduction in the wrapper as in the
-// library (plain JAX there). Both kernels recompute
+// Inputs: q and dO as (B, S_q, H, 64) views, k and v as (B, S_k, H, 64)
+// views (any batch, sequence and head strides, unit stride on the head
+// dim), f32 or bf16; lse, f32 (B, H, S_q), the natural-log log-sum-exp of
+// each row's scaled scores that K2 writes with its output
+// (csrc/encoder_attention.cu); di = rowsum(O * dO), f32 (B, H, S_q), one
+// torch reduction in the wrapper as in the library (plain JAX there). The
+// encoder's own attention has S_q = S_k; the sequence-parallel encoder's
+// backward gives a rank's S_q queries over the S_k keys gathered from
+// every rank. Both kernels recompute
 // P = exp(s / sqrt(dh) - lse) = exp2(s scale log2 e - lse log2 e) and
-// dS = P (dO v^T - di). Keys >= valid_len are masked: their P is 0, and
-// their dK and dV rows are written as zeros. Every query row < S takes
-// part. Gradients are written contiguous (B, S, H, 64) in the operand
-// type; sums are f32. In bf16, P and dS are rounded to bf16 before their
+// dS = P (dO v^T - di). Keys >= valid_len (<= S_k) are masked: their P is
+// 0, and their dK and dV rows are written as zeros. Every query row < S_q
+// takes part. Gradients are written contiguous in the operand type, dK and
+// dV (B, S_k, H, 64), dQ (B, S_q, H, 64); sums are f32. In bf16, P and dS are rounded to bf16 before their
 // products (dV = P^T dO, dK = dS^T q, dQ = dS k), the rule the forward
 // keeps for P and the library keeps for both; dS is computed from the
 // f32 P.
 //
-// Bound on the H100: arithmetic, 14 S^2 dh FLOPs per (batch, head) (the
-// dK/dV kernel 8: the scores, dO v^T, P^T dO and dS^T q; the dQ kernel 6:
-// the scores, dO v^T and dS k) against 5 S dh elements in.
+// Bound on the H100: arithmetic, 14 S_q S_k dh FLOPs per (batch, head)
+// (the dK/dV kernel 8: the scores, dO v^T, P^T dO and dS^T q; the dQ
+// kernel 6: the scores, dO v^T and dS k) against 2 (S_q + S_k) dh elements
+// in.
 //
 // bf16 (the encoder's training type): TMA + wgmma, every product on the
 // tensor cores. One kernel template serves both sides: a block holds 128
@@ -37,7 +41,7 @@
 // with their dO rows for dQ) and streams 64-row tiles of the other side
 // (q and dO, or k and v) through a four-stage ring. A producer warpgroup
 // (one thread issues the TMA loads: 4-D tensor maps over the strided views,
-// 128-byte swizzle, rows past S read as zeros) and two consumer warpgroups
+// 128-byte swizzle, rows past each side's count read as zeros) and two consumer warpgroups
 // of 64 resident rows, setmaxnreg moving the producer's registers to them.
 // For each streamed tile a consumer computes, with 64 x 64 tiles on both
 // sides so that its four f32 accumulators take 128 registers:
@@ -51,14 +55,16 @@
 // Products are issued together where they do not depend on each other
 // (S and dP; dV and the dS math), and each consumer waits for its own.
 // For dK/dV the producer warp's lanes also write each tile's 64 columns of
-// lse log2 e and di into its stage (plain loads from the (B, H, S) rows: a
-// bulk copy would need S * 4 % 16 == 0) and arrive on the stage's barrier,
+// lse log2 e and di into its stage (plain loads from the (B, H, S_q) rows: a
+// bulk copy would need S_q * 4 % 16 == 0) and arrive on the stage's barrier,
 // in place of 32 global loads a consumer thread a tile, which held the
-// kernel back more than any of its products. Masks: queries >= S in the last query tile of dK/dV
-// arrive as zero rows of q and dO but have no lse or di, so their lse is
-// taken as +inf (P = 0) and their di as 0, and nothing past S is read; keys >= valid_len get P = 0 (dK/dV: by row; dQ: the columns of
-// its last key tile, whose rows hold real data); a dK/dV block whose keys
-// are all >= valid_len only writes zeros; rows >= S are not written. dK and
+// kernel back more than any of its products. Masks: queries >= S_q in the last query tile of
+// dK/dV arrive as zero rows of q and dO but have no lse or di, so their lse
+// is taken as +inf (P = 0) and their di as 0, and nothing past S_q is
+// read; keys >= valid_len get P = 0 (dK/dV: by row; dQ: the columns of its
+// last key tile, whose rows hold real data); a dK/dV block whose keys are
+// all >= valid_len only writes zeros; resident rows past their side's
+// count (S_k for dK/dV, S_q for dQ) are not written. dK and
 // dQ are scaled by 1 / sqrt(dh) at the end.
 //
 // f32: TMA + mma.sync in 3xTF32 (tf32_common.cuh: each operand split into a
@@ -70,7 +76,8 @@
 // resident rows in eight MMA warps of 16 (k and v rows for dK/dV, q and dO
 // rows for dQ, loaded once) and a producer warp streams 64-row tiles of the
 // other side (q and dO, or k and v) through a three-stage ring by TMA (f32
-// boxes of 32 floats, 128-byte swizzle, rows past S as zeros). For dK/dV it
+// boxes of 32 floats, 128-byte swizzle, rows past each side's count as
+// zeros). For dK/dV it
 // also writes each tile's lse log2 e and di into its stage, as the bf16
 // route's does; a dQ thread loads its two queries' once. For each tile a
 // warp computes
@@ -81,8 +88,8 @@
 //          against the same K tile read by rows;
 // P and dS split like any other operand. The bf16 route's masks: keys >=
 // valid_len get P = 0 (dK/dV by row, a block of them only writing zeros;
-// dQ by column in its last key tile), queries past S take lse = +inf and
-// di = 0, and nothing past S is read.
+// dQ by column in its last key tile), queries past S_q take lse = +inf
+// and di = 0, and nothing past S_q is read.
 
 #include <math.h>
 
@@ -118,8 +125,8 @@ attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
                          const __grid_constant__ CUtensorMap str1_map, int res0_perm,
                          int res1_perm, int str0_perm, int str1_perm,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ out0, float* __restrict__ out1, int S, int H,
-                         int valid_len, float scale_log2, float out0_scale) {
+                         float* __restrict__ out0, float* __restrict__ out1, int Sq, int Sk,
+                         int H, int valid_len, float scale_log2, float out0_scale) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
   // Offsetting smem_raw itself (not an integer address) keeps the tiles'
@@ -142,22 +149,23 @@ attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
   const int b = bh / H;
   const int h = bh - b * H;
   const int row0 = blockIdx.x * kF32Rows;  // first resident row (key or query)
-  const float* lse_bh = lse + static_cast<long long>(bh) * S;
-  const float* di_bh = di + static_cast<long long>(bh) * S;
+  const int S = kKeys ? Sk : Sq;            // resident rows of the side
+  const float* lse_bh = lse + static_cast<long long>(bh) * Sq;
+  const float* di_bh = di + static_cast<long long>(bh) * Sq;
 
   if (kKeys && row0 >= valid_len) {
     // Every key of the block is masked: dK and dV rows of zeros.
-    const int rows = min(kF32Rows, S - row0);
+    const int rows = min(kF32Rows, Sk - row0);
     for (int idx = threadIdx.x; idx < rows * (kDh / 4); idx += kF32Threads) {
       const long long off =
-          ((static_cast<long long>(b) * S + row0 + idx / 16) * H + h) * kDh + 4 * (idx % 16);
+          ((static_cast<long long>(b) * Sk + row0 + idx / 16) * H + h) * kDh + 4 * (idx % 16);
       *reinterpret_cast<float4*>(out0 + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       *reinterpret_cast<float4*>(out1 + off) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     return;
   }
   // Streamed tiles: every query for dK/dV, keys < valid_len for dQ.
-  const int n_tiles = ((kKeys ? S : valid_len) + kF32Tile - 1) / kF32Tile;
+  const int n_tiles = ((kKeys ? Sq : valid_len) + kF32Tile - 1) / kF32Tile;
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
@@ -172,8 +180,8 @@ attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
   if (warp == kF32Warps) {
     // The producer warp: one thread issues every TMA load; for dK/dV all
     // 32 lanes write the tile's query columns, lse log2 e and di, and
-    // arrive. Queries past S have neither: their lse is +inf (P = 0) and
-    // their di 0, and nothing past S is read.
+    // arrive. Queries past S_q have neither: their lse is +inf (P = 0) and
+    // their di 0, and nothing past S_q is read.
     if (lane == 0) {
       mbar_expect_tx(res_full, 2 * kF32ResBytes);
       load_rows_f32<kF32Rows>(res0, &res0_map, res0_perm, row0, h, b, res_full);
@@ -193,8 +201,8 @@ attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
         float* cl = cols + st * 2 * kF32Tile;
         for (int c = lane; c < kF32Tile; c += 32) {
           const int qi = t * kF32Tile + c;
-          cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;
-          cl[kF32Tile + c] = qi < S ? di_bh[qi] : 0.0f;
+          cl[c] = qi < Sq ? lse_bh[qi] * kLog2e : INFINITY;
+          cl[kF32Tile + c] = qi < Sq ? di_bh[qi] : 0.0f;
         }
         mbar_arrive(&full[st]);
       }
@@ -208,14 +216,14 @@ attention_bwd_f32_kernel(const __grid_constant__ CUtensorMap res0_map,
   const int r0 = 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
   // dK/dV: whether each of the thread's keys is < valid_len. dQ: each of
-  // its queries' lse log2 e and di (+inf and 0 past S, where nothing is read).
+  // its queries' lse log2 e and di (+inf and 0 past S_q, where nothing is read).
   const bool key_live[2] = {row0 + r0 < valid_len, row0 + r0 + 8 < valid_len};
   float row_lse[2], row_di[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = row0 + r0 + 8 * i;
-    row_lse[i] = (!kKeys && qi < S) ? lse_bh[qi] * kLog2e : INFINITY;
-    row_di[i] = (!kKeys && qi < S) ? di_bh[qi] : 0.0f;
+    row_lse[i] = (!kKeys && qi < Sq) ? lse_bh[qi] * kLog2e : INFINITY;
+    row_di[i] = (!kKeys && qi < Sq) ? di_bh[qi] : 0.0f;
   }
   float acc0[8][4], acc1[8][4];  // dK and dV, or dQ
 #pragma unroll
@@ -342,7 +350,8 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
                         int res1_perm, int str0_perm, int str1_perm,
                         const float* __restrict__ lse, const float* __restrict__ di,
                         __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
-                        int S, int H, int valid_len, float scale_log2, float out0_scale) {
+                        int Sq, int Sk, int H, int valid_len, float scale_log2,
+                        float out0_scale) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: tiles start on that.
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -364,22 +373,23 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
   const int b = bh / H;
   const int h = bh - b * H;
   const int row0 = blockIdx.x * kTcBlock;  // first resident row (key or query)
-  const float* lse_bh = lse + static_cast<long long>(bh) * S;
-  const float* di_bh = di + static_cast<long long>(bh) * S;
+  const int S = kKeys ? Sk : Sq;            // resident rows of the side
+  const float* lse_bh = lse + static_cast<long long>(bh) * Sq;
+  const float* di_bh = di + static_cast<long long>(bh) * Sq;
 
   if (kKeys && row0 >= valid_len) {
     // Every key of the block is masked: dK and dV rows of zeros.
-    const int rows = min(kTcBlock, S - row0);
+    const int rows = min(kTcBlock, Sk - row0);
     for (int idx = threadIdx.x; idx < rows * (kDh / 8); idx += kTcThreads) {
       const long long off =
-          ((static_cast<long long>(b) * S + row0 + idx / 8) * H + h) * kDh + 8 * (idx % 8);
+          ((static_cast<long long>(b) * Sk + row0 + idx / 8) * H + h) * kDh + 8 * (idx % 8);
       *reinterpret_cast<uint4*>(out0 + off) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(out1 + off) = make_uint4(0, 0, 0, 0);
     }
     return;
   }
   // Streamed tiles: every query for dK/dV, keys < valid_len for dQ.
-  const int n_tiles = ((kKeys ? S : valid_len) + kTcRows - 1) / kTcRows;
+  const int n_tiles = ((kKeys ? Sq : valid_len) + kTcRows - 1) / kTcRows;
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
@@ -394,8 +404,9 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
   if (warp < 4) {
     // Producer warpgroup: its first warp fills the ring. One thread issues
     // every TMA load; for dK/dV all 32 lanes also write the tile's query
-    // columns, lse log2 e and di, and arrive. Queries past S have neither:
-    // their lse is +inf (P = 0) and their di 0, and nothing past S is read.
+    // columns, lse log2 e and di, and arrive. Queries past S_q have
+    // neither: their lse is +inf (P = 0) and their di 0, and nothing past
+    // S_q is read.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == 0) {
       if (lane == 0) {
@@ -415,8 +426,8 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
           float* cl = cols + st * 2 * kTcRows;
           for (int c = lane; c < kTcRows; c += 32) {
             const int q = t * kTcRows + c;
-            cl[c] = q < S ? lse_bh[q] * kLog2e : INFINITY;
-            cl[kTcRows + c] = q < S ? di_bh[q] : 0.0f;
+            cl[c] = q < Sq ? lse_bh[q] * kLog2e : INFINITY;
+            cl[kTcRows + c] = q < Sq ? di_bh[q] : 0.0f;
           }
           mbar_arrive(&full[st]);
         }
@@ -433,15 +444,15 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
     const uint64_t res1_desc = sw128_desc(res1 + wg * kTcTileBytes);
 
     // dK/dV: whether each of the thread's keys is < valid_len. dQ: each
-    // of its queries' lse log2 e and di (+inf and 0 past S).
+    // of its queries' lse log2 e and di (+inf and 0 past S_q).
     bool key_live[2];
     float row_lse[2], row_di[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row + 8 * i;
       key_live[i] = r < valid_len;
-      row_lse[i] = (!kKeys && r < S) ? lse_bh[r] * kLog2e : INFINITY;
-      row_di[i] = (!kKeys && r < S) ? di_bh[r] : 0.0f;
+      row_lse[i] = (!kKeys && r < Sq) ? lse_bh[r] * kLog2e : INFINITY;
+      row_di[i] = (!kKeys && r < Sq) ? di_bh[r] : 0.0f;
     }
 
     float acc0[32], acc1[32];  // dK and dV, or dQ
@@ -500,20 +511,20 @@ attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap res0_map,
   }
 }
 
-// The four tensor maps of a launch (res0, res1, str0, str1): bf16 (resident
-// boxes of kTcBlock rows, streamed ones of kTcRows) or, with `f32`, the f32
-// kernels' (kF32Rows and kF32Tile rows); false if one is misaligned or
-// refused.
+// The four tensor maps of a launch (res0, res1, str0, str1), over rows[i]
+// rows each (S_k for k and v, S_q for q and dO): bf16 (resident boxes of
+// kTcBlock rows, streamed ones of kTcRows) or, with `f32`, the f32 kernels'
+// (kF32Rows and kF32Tile rows); false if one is misaligned or refused.
 struct TcMaps {
   CUtensorMap map[4];
   int perm[4];
 };
 
-bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3], int B, int S,
-                  int H, bool f32) {
+bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3], int B,
+                  const int rows[4], int H, bool f32) {
   for (int i = 0; i < 4; ++i)
     if (!aligned16(ptr[i], st[i][0], st[i][1], st[i][2], f32 ? 4 : 2) ||
-        !make_map(&m->map[i], &m->perm[i], ptr[i], B, S, H, st[i][0], st[i][1], st[i][2],
+        !make_map(&m->map[i], &m->perm[i], ptr[i], B, rows[i], H, st[i][0], st[i][1], st[i][2],
                   f32 ? (i < 2 ? kF32Rows : kF32Tile) : (i < 2 ? kTcBlock : kTcRows), f32))
       return false;
   return true;
@@ -521,59 +532,62 @@ bool make_tc_maps(TcMaps* m, const void* const ptr[4], const long long (*st)[3],
 
 template <bool kKeys>
 int launch_tc(const TcMaps& m, const float* lse, const float* di, void* out0, void* out1,
-              int B, int S, int H, int valid_len, float out0_scale, cudaStream_t st) {
+              int B, int Sq, int Sk, int H, int valid_len, float out0_scale, cudaStream_t st) {
   // The shared-memory opt-in is per device; set it on every call (a
   // host-side attribute write, no device work).
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_tc_kernel<kKeys>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kTcBlock - 1) / kTcBlock, B * H);
+  // Blocks over the resident side: keys for dK/dV, queries for dQ.
+  const dim3 grid(((kKeys ? Sk : Sq) + kTcBlock - 1) / kTcBlock, B * H);
   // 64 ** -0.5 (exact) times log2(e): scores go straight to ex2.
   attention_bwd_tc_kernel<kKeys><<<grid, kTcThreads, kTcSmem, st>>>(
       m.map[0], m.map[1], m.map[2], m.map[3], m.perm[0], m.perm[1], m.perm[2], m.perm[3], lse,
-      di, static_cast<__nv_bfloat16*>(out0), static_cast<__nv_bfloat16*>(out1), S, H,
+      di, static_cast<__nv_bfloat16*>(out0), static_cast<__nv_bfloat16*>(out1), Sq, Sk, H,
       valid_len, 0.125f * kLog2e, out0_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kKeys>
 int launch_f32(const TcMaps& m, const float* lse, const float* di, void* out0, void* out1,
-               int B, int S, int H, int valid_len, float out0_scale, cudaStream_t st) {
+               int B, int Sq, int Sk, int H, int valid_len, float out0_scale, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_f32_kernel<kKeys>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kF32Rows - 1) / kF32Rows, B * H);
+  const dim3 grid(((kKeys ? Sk : Sq) + kF32Rows - 1) / kF32Rows, B * H);
   // 64 ** -0.5 (exact) times log2(e): scores go straight to exp2.
   attention_bwd_f32_kernel<kKeys><<<grid, kF32Threads, kF32Smem, st>>>(
       m.map[0], m.map[1], m.map[2], m.map[3], m.perm[0], m.perm[1], m.perm[2], m.perm[3], lse,
-      di, static_cast<float*>(out0), static_cast<float*>(out1), S, H, valid_len,
+      di, static_cast<float*>(out0), static_cast<float*>(out1), Sq, Sk, H, valid_len,
       0.125f * kLog2e, out0_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_args(int dtype, int B, int S, int H, int dh, int valid_len) {
-  return dh != kDh || (dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1 ||
-         B * H > 65535 || valid_len < 1 || valid_len > S;
+bool bad_args(int dtype, int B, int Sq, int Sk, int H, int dh, int valid_len) {
+  return dh != kDh || (dtype != 0 && dtype != 1) || B < 1 || Sq < 1 || Sk < 1 || H < 1 ||
+         B * H > 65535 || valid_len < 1 || valid_len > Sk;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. Strides are in elements; dk, dv (and dq) are
-// contiguous (B, S, H, 64) of the operand type, lse and di f32 (B, H, S).
-// 1 <= valid_len <= S. Both kernels, in both types, need 16-byte-aligned
+// dtype: 0 = f32, 1 = bf16. Strides are in elements; q and dout are
+// (B, S_q, H, 64), k and v (B, S_k, H, 64); dk and dv are contiguous
+// (B, S_k, H, 64), dq (B, S_q, H, 64), of the operand type; lse and di f32
+// (B, H, S_q). 1 <= valid_len <= S_k. Both kernels, in both types, need 16-byte-aligned
 // base pointers and strides of q, k, v and dout (TMA). Returns
 // cudaGetLastError() (cudaErrorInvalidValue for dh != 64, an argument out
 // of range, a misaligned operand or a tensor map cuTensorMapEncodeTiled
 // refuses).
 extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* di,
-                                     void* dk, void* dv, int dtype, int B, int S, int H, int dh,
-                                     long long q_sb, long long q_ss, long long q_sh,
-                                     long long k_sb, long long k_ss, long long k_sh,
-                                     long long v_sb, long long v_ss, long long v_sh,
-                                     long long do_sb, long long do_ss, long long do_sh,
-                                     int valid_len, int device, void* stream) {
-  if (bad_args(dtype, B, S, H, dh, valid_len)) return static_cast<int>(cudaErrorInvalidValue);
+                                     void* dk, void* dv, int dtype, int B, int S_q, int S_k,
+                                     int H, int dh, long long q_sb, long long q_ss,
+                                     long long q_sh, long long k_sb, long long k_ss,
+                                     long long k_sh, long long v_sb, long long v_ss,
+                                     long long v_sh, long long do_sb, long long do_ss,
+                                     long long do_sh, int valid_len, int device, void* stream) {
+  if (bad_args(dtype, B, S_q, S_k, H, dh, valid_len))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* l = static_cast<const float*>(lse);
@@ -581,24 +595,27 @@ extern "C" int twt_attention_bwd_dkv(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Resident k and v, streamed q and dout.
   const void* ptrs[4] = {k, v, q, dout};
+  const int rows[4] = {S_k, S_k, S_q, S_q};
   const long long strides[4][3] = {
       {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}};
   TcMaps m;
-  if (!make_tc_maps(&m, ptrs, strides, B, S, H, dtype == 0))
+  if (!make_tc_maps(&m, ptrs, strides, B, rows, H, dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) return launch_tc<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* dK */, st);
-  return launch_f32<true>(m, l, d, dk, dv, B, S, H, valid_len, 0.125f /* f32 dK */, st);
+  if (dtype == 1)
+    return launch_tc<true>(m, l, d, dk, dv, B, S_q, S_k, H, valid_len, 0.125f /* dK */, st);
+  return launch_f32<true>(m, l, d, dk, dv, B, S_q, S_k, H, valid_len, 0.125f /* f32 dK */, st);
 }
 
 extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* di, void* dq,
-                                    int dtype, int B, int S, int H, int dh,
+                                    int dtype, int B, int S_q, int S_k, int H, int dh,
                                     long long q_sb, long long q_ss, long long q_sh,
                                     long long k_sb, long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh,
                                     long long do_sb, long long do_ss, long long do_sh,
                                     int valid_len, int device, void* stream) {
-  if (bad_args(dtype, B, S, H, dh, valid_len)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, B, S_q, S_k, H, dh, valid_len))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* l = static_cast<const float*>(lse);
@@ -606,12 +623,15 @@ extern "C" int twt_attention_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // Resident q and dout, streamed k and v.
   const void* ptrs[4] = {q, dout, k, v};
+  const int rows[4] = {S_q, S_q, S_k, S_k};
   const long long strides[4][3] = {
       {q_sb, q_ss, q_sh}, {do_sb, do_ss, do_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}};
   TcMaps m;
-  if (!make_tc_maps(&m, ptrs, strides, B, S, H, dtype == 0))
+  if (!make_tc_maps(&m, ptrs, strides, B, rows, H, dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
-    return launch_tc<false>(m, l, d, dq, nullptr, B, S, H, valid_len, 0.125f /* dQ */, st);
-  return launch_f32<false>(m, l, d, dq, nullptr, B, S, H, valid_len, 0.125f /* f32 dQ */, st);
+    return launch_tc<false>(m, l, d, dq, nullptr, B, S_q, S_k, H, valid_len, 0.125f /* dQ */,
+                            st);
+  return launch_f32<false>(m, l, d, dq, nullptr, B, S_q, S_k, H, valid_len,
+                           0.125f /* f32 dQ */, st);
 }

@@ -46,8 +46,8 @@ and a batch-1 bf16 "S" engine, at any decoder depth, decodes through the
 K3 kernel (``ops.mega_step``), its position a device operand. With a
 draft model, ngram drafting or proposal tokens a greedy call decodes
 speculatively (``engine.speculative``; the verify rounds of a batch-1 "S"
-call without timestamps run K4 at a device window position). Int4 is not
-ported.
+call without timestamps run K4 at a device window position), on one
+device or on a mesh.
 """
 
 from __future__ import annotations
@@ -104,10 +104,11 @@ from thewhisper_tpu_torch.models.whisper import (
     encoder_forward,
     fuse_self_qkv,
     make_cache,
+    model_from_state,
 )
 from thewhisper_tpu_torch.ops.mega_step import mega_pays, pack_mega_params
 from thewhisper_tpu_torch.parallel.follow import Mirror
-from thewhisper_tpu_torch.parallel.mesh import batch_rows
+from thewhisper_tpu_torch.parallel.mesh import batch_rows, gather_params
 
 # Batch sizes with a program of their own; a call is padded up to the
 # nearest (the JAX engine's buckets).
@@ -163,9 +164,17 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t, non_blocking=True)
 
 
+def _shares_layers(draft: Whisper, model: Whisper) -> bool:
+    """Whether ``draft`` runs some of ``model``'s decoder layers (a
+    layer-skip draft)."""
+    return any(a is b for a, b in zip(draft.decoder.layers,
+                                      model.decoder.layers))
+
+
 def _check_mesh(model: Whisper, mesh, cross_kv_int8: bool, draft_model,
-                spec_ngram: bool) -> None:
-    """What a meshed engine takes (see :class:`WhisperEngine`)."""
+                draft_int8: bool) -> None:
+    """What a meshed engine takes (see :class:`WhisperEngine`); raises
+    before any collective."""
     if not mesh.live:
         raise RuntimeError(
             "a meshed engine needs the process group up: "
@@ -179,9 +188,15 @@ def _check_mesh(model: Whisper, mesh, cross_kv_int8: bool, draft_model,
     if cross_kv_int8:
         raise ValueError("int8 cross K/V (the \"S\" modes) is not ported to "
                          "a meshed engine")
-    if draft_model is not None or spec_ngram:
-        raise ValueError("speculative decoding is not ported to a meshed "
-                         "engine")
+    draft_tp = None if draft_model is None else draft_model.tp
+    if draft_tp is not None and draft_tp.size != mesh.tp:
+        raise ValueError(f"the draft is sharded for tp={draft_tp.size}, the "
+                         f"mesh's tp is {mesh.tp}: shard it for the mesh or "
+                         "pass it whole")
+    if (draft_tp is not None and draft_int8
+            and not _shares_layers(draft_model, model)):
+        raise ValueError("draft_int8 on a tp-sharded draft: quantized leaves "
+                         "have no placement rule; pass the draft whole")
 
 
 def _greedy_only(name: str, options: GenerationOptions) -> None:
@@ -491,12 +506,23 @@ class WhisperEngine:
     head count) its dp rows of the padded bucket (every row where dp does
     not divide it), decodes them with the tp all-reduces inside the loop,
     and rank 0 gathers the rows. As a meshed JAX engine does, a meshed
-    engine neither fuses the self q/k/v nor packs K3/K4; it refuses
-    (``ValueError``) int8 cross K/V and quantized models, draft models,
-    ngram drafting and proposal tokens (speculation under a mesh is not
-    ported), and runs greedy, sampled and beam calls. CUDA graphs need
-    NCCL, whose all-reduces a graph captures; a gloo mesh (several ranks
-    on one card, or the CPU) runs its loops eagerly, by that rule."""
+    engine neither fuses the self q/k/v (the target's or a draft's) nor
+    packs K3/K4; it refuses (``ValueError``) int8 cross K/V and quantized
+    models, and runs greedy, sampled, beam and speculative calls: ngram
+    drafting, proposal tokens (which travel with rank 0's decode message,
+    each rank keeping its rows) and a draft model, either sharded for the
+    mesh's tp (``make_layer_skip_draft`` of the sharded target, whose
+    layers issue their own all-reduces, or a draft through
+    ``shard_params``) or whole on every rank (JAX's replicated draft; no
+    collective). ``draft_int8`` makes a whole int8 draft: a layer-skip
+    draft's layers are gathered whole first (``gather_params``); a draft
+    sharded on its own, or for another tp, raises. Every tp rank of a
+    group accepts the same tokens each round (the verify logits follow an
+    all-reduce, the drafts the same inputs), and ``spec_rounds`` is the
+    most rounds any dp group ran, as one loop over the bucket runs. CUDA
+    graphs need NCCL, whose all-reduces a graph captures; a gloo mesh
+    (several ranks on one card, or the CPU) runs its loops eagerly, by
+    that rule."""
 
     def __init__(
         self,
@@ -514,10 +540,10 @@ class WhisperEngine:
         cuda_graphs: bool = True,
         mesh=None,
     ):
-        if mesh is not None:
-            _check_mesh(model, mesh, cross_kv_int8, draft_model, spec_ngram)
         if spec_ngram and draft_model is not None:
             raise ValueError("pick one: a draft model or ngram drafting")
+        if mesh is not None:
+            _check_mesh(model, mesh, cross_kv_int8, draft_model, draft_int8)
         if draft_model is not None:
             if draft_model.arch.vocab_size != model.arch.vocab_size:
                 raise ValueError("draft vocab must match the target vocab")
@@ -530,17 +556,23 @@ class WhisperEngine:
                 and mega_pays(model.arch)):
             pack_mega_params(fuse_self_qkv(model))
         if draft_model is not None:
-            shared = any(a is b for a, b in zip(draft_model.decoder.layers,
-                                                model.decoder.layers))
+            shared = _shares_layers(draft_model, model)
             if draft_int8:
-                if shared and any(type(m) is nn.Linear for m in
-                                  draft_model.decoder.layers.modules()):
+                if shared and draft_model.tp is not None:
+                    # The layers of a sharded target, gathered whole (every
+                    # rank builds its engine, so every rank gathers).
+                    draft_model = model_from_state(
+                        gather_params(draft_model), draft_model.arch,
+                        draft_model.dtype, draft_model.device)
+                    shared = False
+                elif shared and any(type(m) is nn.Linear for m in
+                                    draft_model.decoder.layers.modules()):
                     # Quantizing in place must not touch the target's layers.
                     draft_model.decoder.layers = copy.deepcopy(
                         draft_model.decoder.layers)
                     shared = False
                 quantize_params(draft_model, components=("decoder",))
-            if not shared:
+            if not shared and mesh is None:
                 fuse_self_qkv(draft_model)
         self.draft_model = draft_model
         self.spec_window = spec_window
@@ -649,10 +681,10 @@ class WhisperEngine:
         return key + (sampled, mode) if sampled or mode else key
 
     def _prep_proposals(self, draft_tokens, options: GenerationOptions,
-                        b: int) -> Optional[torch.Tensor]:
-        """Caller-supplied proposal tokens as (b, max_new) on the device,
-        zero-padded or cut; None for beam or sampling calls (speculation
-        is greedy-only)."""
+                        b: int) -> Optional[np.ndarray]:
+        """Caller-supplied proposal tokens as (b, max_new) int64 on the
+        host, zero-padded or cut; None for beam or sampling calls
+        (speculation is greedy-only)."""
         if (draft_tokens is None or options.num_beams != 1
                 or options.temperature):
             return None
@@ -663,7 +695,7 @@ class WhisperEngine:
         arr = np.zeros((b, max_new), np.int64)
         r, c = min(dt.shape[0], b), min(dt.shape[1], max_new)
         arr[:r, :c] = dt[:r, :c]
-        return to_device(arr, self.device)
+        return arr
 
     def _device_prompt(self, options: GenerationOptions, bb: int,
                        languages) -> torch.Tensor:
@@ -880,9 +912,6 @@ class WhisperEngine:
         the next decode to queue."""
         if options.num_beams < 1:
             raise ValueError(f"num_beams {options.num_beams} < 1")
-        if self.mesh is not None and draft_tokens is not None:
-            raise ValueError("proposal tokens (speculation) are not ported "
-                             "to a meshed engine")
         handle = PendingResult(self, x, audio, b, options, languages, t0,
                                draft_tokens, count)
         with self._lock:
@@ -918,8 +947,9 @@ class WhisperEngine:
 
     def _decode_call(self, handle: PendingResult, enc: torch.Tensor):
         """The decode of ``handle``'s call on its encoder states ``enc``
-        (bb rows) by its key's program. Returns (result on the device,
-        prompt length)."""
+        (bb rows) by its key's program (a meshed engine's: this rank's
+        rows, its proposals sent by rank 0 with the decode). Returns
+        (result on the device, prompt length)."""
         options = handle.options
         bb = handle.rows
         props = self._prep_proposals(handle.draft_tokens, options, bb)
@@ -928,8 +958,12 @@ class WhisperEngine:
         key = self._key(bb, handle.mel_frames, p, options,
                         self._spec_mode(options, props))
         if self._mirror is not None:
-            self._mirror.decode(handle, key, key in self._warm_keys)
-            prompt = prompt[batch_rows(self.mesh, bb)]
+            self._mirror.decode(handle, key, key in self._warm_keys, props)
+            rows = batch_rows(self.mesh, bb)
+            prompt = prompt[rows]
+            props = None if props is None else props[rows]
+        if props is not None:
+            props = to_device(props, self.device)
         with torch.inference_mode():
             return self._decode(key, enc, prompt, options, props), p
 
@@ -978,12 +1012,12 @@ class WhisperEngine:
         if copied is not None:
             copied.synchronize()
         out = [t.numpy() for t in out]
-        steps = res.steps
+        steps, rounds = res.steps, getattr(res, "rounds", None)
         if mesh:
-            gathered = self._mirror.gather_rows(out, steps, bucket)
+            gathered = self._mirror.gather_rows(out, (steps, rounds), bucket)
             if gathered is None:
                 return None
-            out, steps = [t[:b] for t in gathered[0]], gathered[1]
+            out, (steps, rounds) = [t[:b] for t in gathered[0]], gathered[1]
             if then is not None:
                 then()
         dt = time.perf_counter() - t0
@@ -993,8 +1027,7 @@ class WhisperEngine:
             tokens=out[0], num_generated=out[1], prompt_len=p,
             sum_logprob=out[2], align=out[5] if len(out) > 5 else None,
             decode_time_s=dt, token_logprobs=out[3], no_speech_prob=out[4],
-            spec_rounds=getattr(res, "rounds", None),
-            decode_steps=steps)
+            spec_rounds=rounds, decode_steps=steps)
 
     def warmup(self, t_mel: int, batches: Sequence[int] = (1,),
                max_new_tokens: int = 128, timestamps: bool = True,

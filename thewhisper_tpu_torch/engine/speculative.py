@@ -66,7 +66,10 @@ ROUNDS_PER_CHECK = 1
 def make_layer_skip_draft(model: Whisper, n_layers: int) -> Whisper:
     """A decoder-only draft made of the target's first ``n_layers`` decoder
     layers, its final LayerNorm and its tables: the same modules, no copy.
-    Alignment heads beyond the kept layers are dropped."""
+    Alignment heads beyond the kept layers are dropped. The draft of a
+    target sharded by ``parallel.mesh.shard_params`` is sharded as its
+    layers are: it takes the target's tp group (``tp``), so its alignment
+    capture and checks count the heads of every tp rank."""
     arch = dataclasses.replace(
         model.arch, decoder_layers=n_layers,
         alignment_heads=tuple((l, h) for l, h in model.arch.alignment_heads
@@ -80,6 +83,7 @@ def make_layer_skip_draft(model: Whisper, n_layers: int) -> Whisper:
     for name in ("token_emb", "pos_emb", "ln_post"):
         delattr(dec, name)
         setattr(dec, name, getattr(src, name))
+    draft.tp = model.tp
     return draft
 
 

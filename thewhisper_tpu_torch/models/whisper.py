@@ -47,7 +47,8 @@ forward carries Megatron's conjugates: each LayerNorm output that enters
 column-parallel linears goes through *f* (``copy_to_tp``), the encoder
 states once before the decoder, and the row-parallel ``out``/``fc2`` sum
 through *g*. ``encoder_forward(..., seq=mesh)`` is the sequence-parallel
-encoder (whole weights, inference only).
+encoder (whole weights; under autograd its collectives carry their
+conjugates, ``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -75,8 +76,8 @@ from thewhisper_tpu_torch.parallel.mesh import (
     RowParallelLinear,
     copy_to_tp,
     gather_kv,
-    seq_block,
     seq_rows,
+    split_seq,
 )
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -209,12 +210,10 @@ class AudioEncoder(nn.Module):
         x = x + self.pos_emb[:t].to(x.dtype)
         time = None
         if seq is not None:
-            # This rank's time rows, padded to the block every rank holds:
-            # pad rows sit past T in the gathered keys, where K2's
-            # valid_len masks them.
+            # This rank's time rows, padded to the block every rank holds.
             rows = seq_rows(seq, t)
             n = rows.stop - rows.start
-            x = F.pad(x[:, rows], (0, 0, 0, seq_block(seq, t) - n))
+            x = split_seq(seq, x)
             time = (seq, t)
         for layer in self.layers:
             x = (checkpoint(layer, x, attention, time, use_reentrant=False)
@@ -225,8 +224,8 @@ class AudioEncoder(nn.Module):
 
     def _check_sequence_parallel(self, mesh: Mesh) -> None:
         """Refuse what the sequence-parallel encoder does not run, before
-        any collective: a layout without a process group, tp-sharded
-        weights and autograd."""
+        any collective: a layout without a process group and tp-sharded
+        weights."""
         if not mesh.live:
             raise RuntimeError("the sequence-parallel encoder needs a live "
                                "process group (parallel.launch.init, then "
@@ -234,10 +233,6 @@ class AudioEncoder(nn.Module):
         if any(isinstance(layer.fc2, RowParallelLinear) for layer in self.layers):
             raise ValueError("the sequence-parallel encoder runs on whole "
                              "weights: this encoder is tp-sharded")
-        if torch.is_grad_enabled() and any(p.requires_grad
-                                           for p in self.parameters()):
-            raise ValueError("the sequence-parallel encoder has no backward: "
-                             "run it under torch.no_grad or inference_mode")
 
 
 class DecoderLayer(nn.Module):
@@ -355,7 +350,11 @@ def encoder_forward(model: Whisper, mel: torch.Tensor,
     after the stem (``parallel.mesh.seq_rows``), every layer runs on those
     rows with K and V gathered over tp, and the result is this rank's
     (B, rows, d) block (``parallel.mesh.gather_seq`` assembles it). Whole
-    (unsharded) weights and no autograd, or ``ValueError``."""
+    (unsharded) weights, or ``ValueError``. Under autograd each rank's
+    gradient of every encoder leaf (and of ``mel``) covers its own time
+    rows: ``parallel.mesh.sum_over_tp`` sums them over tp (then
+    ``reduce_gradients`` over dp), as JAX's ``jax.grad`` through
+    ``seq_sharding`` sums them."""
     return model.encoder(mel, attention, compute_dtype, remat, seq)
 
 

@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "twt_logmel": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "twt_encoder_attention": [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, _I, _P],
-    "twt_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_L] * 12 + [_I, _I, _P],
-    "twt_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_I, _I, _P],
+    "twt_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_I, _I, _P],
+    "twt_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_I, _I, _P],
     "twt_mega_step": [_P] * 19 + [_L] + [_P] * 5 + [_I] * 15 + [_P],
     "twt_mega_verify": [_P] * 18 + [_L] + [_P] * 4 + [_I] * 14 + [_P],
     "twt_attention_control": [_P] * 5 + [_I] * 6 + [_P],

@@ -10,8 +10,7 @@ padded copies), on the tensor cores in both types: bf16 by TMA and wgmma,
 f32 by TMA and mma.sync in 3xTF32 (each operand split into a TF32 high
 part and rest, so the result keeps f32's precision). TMA needs
 16-byte-aligned base pointers and strides. On a CPU tensor it runs
-:func:`encoder_attention_plain`. The gradient path is square: S_q != S_k
-under autograd raises ``ValueError``.
+:func:`encoder_attention_plain`.
 
 Its gradient is the library kernel's custom VJP ported: when grad mode is
 on and an input requires grad, ``encoder_attention`` goes through
@@ -22,7 +21,9 @@ log-sum-exp (:func:`encoder_attention_residuals`, the library's
 (:func:`encoder_attention_backward`): bf16 on the tensor cores (TMA and
 wgmma), f32 on them too (TMA and mma.sync in 3xTF32), each type one kernel
 template for dK/dV and dQ; the same alignment rule holds for q, k, v and
-``dout`` in both types. CPU tensors take the plain versions of all three.
+``dout`` in both types. The gradient path takes S_q != S_k as the forward
+does (the sequence-parallel encoder's backward: dQ in q's shape, dK and dV
+in k's). CPU tensors take the plain versions of all three.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ def encoder_attention_backward_plain(
     P = exp(s - lse), di = rowsum(O dO), dS = P (dO v^T - di); in the
     operand type's precision P and dS are rounded before their products
     (dV = P^T dO, dK = dS^T q / sqrt(dh), dQ = dS k / sqrt(dh)), the
-    sums are f32. Returns (dq, dk, dv), (B, S, H, dh) in q's type."""
+    sums are f32. Returns (dq, dk, dv) in q's type: dq (B, S_q, H, dh),
+    dk and dv (B, S_k, H, dh); keys >= valid_len get zero dk and dv."""
     dtype, scale = q.dtype, q.shape[-1] ** -0.5
     rnd = lambda x: x.to(dtype).float()                      # noqa: E731
     qt, kt, vt, ot, dt = (x.transpose(1, 2).float() for x in (q, k, v, out, dout))
@@ -184,17 +186,16 @@ def encoder_attention_backward(
     launch the dK/dV kernel and the dQ kernel or raise (q, k, v and dout
     must meet TMA's alignment, ``ValueError`` otherwise). ``di`` =
     rowsum(out dout) is one torch reduction here, as it is plain JAX in the
-    library. The kernels are square: S_q != S_k raises ``ValueError`` on
-    every device."""
+    library. q, out and dout are (B, S_q, H, dh) and k, v (B, S_k, H, dh),
+    as in the forward."""
     name = "encoder_attention_backward"
-    _check_square(name, q, k)
     if q.device.type == "cpu":
         return encoder_attention_backward_plain(q, k, v, out, lse, dout, valid_len)
     valid = _checked(name, q, k, v, valid_len)
     b, s, h, _ = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, s):
-        raise ValueError(f"{name}: out and dout must be (B, S, H, dh), "
-                         "lse (B, H, S)")
+        raise ValueError(f"{name}: out and dout must be (B, S_q, H, dh), "
+                         "lse (B, H, S_q)")
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError(f"{name}: out and dout must take q's type, lse f32")
     if any(x.device != q.device for x in (out, lse, dout)):
@@ -210,18 +211,18 @@ def encoder_attention_backward(
 
 def _backward_args(q, k, v, dout, valid: int):
     """The arguments both backward entry points share after the outputs."""
-    b, s, h, dh = q.shape
-    return (_DTYPE_CODES[q.dtype], b, s, h, dh, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *dout.stride()[:3], valid, q.device.index or 0,
-            _build.stream_handle(q.device))
+    b, s_q, h, dh = q.shape
+    return (_DTYPE_CODES[q.dtype], b, s_q, k.shape[1], h, dh, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], valid,
+            q.device.index or 0, _build.stream_handle(q.device))
 
 
 def launch_backward_dkv(q, k, v, dout, lse, di, valid: int):
     """One launch of the dK/dV kernel on operands
     :func:`encoder_attention_backward` has checked (lse and di contiguous
-    f32 (B, H, S)): returns (dk, dv)."""
+    f32 (B, H, S_q)): returns (dk, dv), each in k's shape."""
     global ATTN_BWD_DKV_LAUNCHES
-    dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    dk, dv = (torch.empty(k.shape, device=q.device, dtype=q.dtype)
               for _ in range(2))
     code = _build.lib().twt_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -245,21 +246,13 @@ def launch_backward_dq(q, k, v, dout, lse, di, valid: int):
     return dq
 
 
-def _check_square(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
-    if q.shape[1] != k.shape[1]:
-        raise ValueError(f"{name}: the gradient kernels take S_q = S_k, not "
-                         f"{q.shape[1]} queries over {k.shape[1]} keys (the "
-                         "sequence-parallel encoder has no backward)")
-
-
 class EncoderAttention(torch.autograd.Function):
     """``encoder_attention`` with its gradient: the forward saves q, k, v,
-    the output and lse; the backward runs :func:`encoder_attention_backward`.
-    Square only: S_q != S_k raises ``ValueError``."""
+    the output and lse; the backward runs :func:`encoder_attention_backward`
+    (S_q != S_k too)."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len):
-        _check_square("EncoderAttention", q, k)
         out, lse = encoder_attention_residuals(q, k, v, valid_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.valid_len = valid_len

@@ -16,7 +16,12 @@ the meshed one, and the run asserts they agree:
 - beam search (2 beams), a sampled call, language detection;
 - the offset-window path (four windows of one file on the device);
 - the batching coalescer, one language per request, its text equal;
-- every tp rank's result rows equal to its group's, bit for bit;
+- speculative calls on meshed engines (``speculate``): ngram drafting,
+  the layer-skip draft of the sharded target and proposal tokens (rank
+  0's, sent with the decode), tokens equal to the greedy call's and
+  ``spec_rounds`` to the one-device engine's;
+- every tp rank's result rows and loop counts equal to its group's, bit
+  for bit, and every round's accepted counts too;
 
 then, in a second spawn a mesh (:func:`train_dryrun`), the sharded train
 step and the remat step (the loss finite and falling) and the
@@ -34,9 +39,10 @@ JAX's one-device training and encoder. The children of ``chip_smoke.py``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -99,7 +105,134 @@ def make_inputs(arch=TINY_ARCH, batch: int = BATCH, n_requests: int = 3,
 def _fields(res) -> Dict[str, Any]:
     return {"tokens": res.tokens, "num_generated": res.num_generated,
             "sum_logprob": res.sum_logprob, "align": res.align,
-            "decode_steps": res.decode_steps}
+            "decode_steps": res.decode_steps, "spec_rounds": res.spec_rounds,
+            "prompt_len": res.prompt_len}
+
+
+# The speculative arms of the dry run, and those the CPU tests add (a
+# whole draft on every rank, weight-only int8 drafts: whole, and the
+# layer-skip draft's layers gathered whole). Drafts keep the first
+# SPEC_DRAFT_LAYERS decoder layers.
+SPEC_ARMS = ("ngram", "layer_skip", "proposals")
+SPEC_TEST_ARMS = SPEC_ARMS + ("whole_draft", "draft_int8", "layer_skip_int8")
+SPEC_DRAFT_LAYERS = 1
+
+
+def proposals_from(tokens: np.ndarray, prompt_len: int,
+                   vocab: int = TINY_ARCH.vocab_size) -> np.ndarray:
+    """Proposal tokens (B, max_new) from a greedy call's ``tokens``: its
+    generated tokens with every third one changed, so that rounds both
+    accept and reject."""
+    out = np.asarray(tokens)[:, prompt_len:].astype(np.int64)
+    out[:, 2::3] = (out[:, 2::3] + 1) % vocab
+    return out
+
+
+def draft_state(weights: Dict[str, np.ndarray], n_layers: int
+                ) -> Dict[str, np.ndarray]:
+    """The decoder leaves of a layer-skip draft of ``n_layers`` layers (the
+    port's names) from a whole model's state dict."""
+    def keep(name: str) -> bool:
+        parts = name.split(".")
+        return parts[0] == "decoder" and (
+            parts[1] != "layers" or int(parts[2]) < n_layers)
+    return {k: v for k, v in weights.items() if keep(k)}
+
+
+def draft_arch(arch, n_layers: int):
+    """JAX's ``make_layer_skip_draft`` arch: the first ``n_layers``
+    decoder layers and their alignment heads."""
+    return dataclasses.replace(
+        arch, decoder_layers=n_layers,
+        alignment_heads=tuple((l, h) for l, h in arch.alignment_heads
+                              if l < n_layers))
+
+
+@contextlib.contextmanager
+def accepted_per_round(log: list):
+    """Append every speculative round's accepted counts (the loop's
+    ``n_acc`` after the round, on the host) to ``log`` while inside: an
+    eager loop's rounds only (a graph replay runs no Python)."""
+    from thewhisper_tpu_torch.engine.speculative import SpecLoop
+
+    step = SpecLoop._step
+
+    def logged(self):
+        step(self)
+        log.append(self.n_acc.cpu().numpy().copy())
+
+    SpecLoop._step = logged
+    try:
+        yield
+    finally:
+        SpecLoop._step = step
+
+
+def spy_rows(engine, seen: list) -> None:
+    """Record into ``seen`` the result rows and loop counts (steps, rounds;
+    -1 for none) each call of the meshed ``engine`` held on this rank
+    before the gather to rank 0."""
+    gather = engine._mirror.gather_rows
+
+    def spy(rows, counts, bucket):
+        seen.append([r.copy() for r in rows]
+                    + [np.asarray([-1 if c is None else c for c in counts])])
+        return gather(rows, counts, bucket)
+
+    engine._mirror.gather_rows = spy
+
+
+def spec_kw(arm: str, model, whole_draft: Optional[Callable] = None,
+            layers: int = SPEC_DRAFT_LAYERS) -> Dict[str, Any]:
+    """The engine keywords of speculative ``arm`` over ``model`` (sharded
+    or not): ngram drafting, the layer-skip draft of ``layers`` of
+    ``model``'s own layers, a whole draft from ``whole_draft()`` (int8 or
+    not), or no draft (proposals)."""
+    from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
+
+    kw: Dict[str, Any] = {"draft_int8": arm.endswith("int8")}
+    if arm == "ngram":
+        kw["spec_ngram"] = True
+    elif arm.startswith("layer_skip"):
+        kw["draft_model"] = make_layer_skip_draft(model, layers)
+    elif arm in ("whole_draft", "draft_int8"):
+        kw["draft_model"] = whole_draft()
+    return kw
+
+
+def spec_call(engine, arm: str, mel: np.ndarray,
+              proposals: Optional[np.ndarray]) -> Dict[str, Any]:
+    """The speculative generate of ``arm`` on ``engine`` (``GENERATE``:
+    suppress masks, timestamps, alignment), as numpy."""
+    props = proposals if arm == "proposals" else None
+    return _fields(engine.transcribe_features(mel, GENERATE,
+                                              draft_tokens=props))
+
+
+def speculate(mesh, sharded, make_engine: Callable, mel: np.ndarray,
+              whole_draft: Callable, arms: Sequence[str] = SPEC_ARMS,
+              proposals: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    """Every rank: for each speculative arm the meshed engine
+    (:func:`spec_kw`) over the sharded model; rank 0 runs the arm's
+    call (``proposals``: host data only rank 0 has) and closes the
+    engine, the others follow it. Returns rank 0's results (``results``),
+    and on every rank each arm's rows before the gather (``local_rows``)
+    and accepted counts of every round (``accepted``)."""
+    from thewhisper_tpu_torch.parallel.follow import follow
+
+    out: Dict[str, Any] = {"results": {}, "local_rows": {}, "accepted": {}}
+    for arm in arms:
+        eng = make_engine(sharded, mesh, **spec_kw(arm, sharded, whole_draft))
+        spy_rows(eng, out["local_rows"].setdefault(arm, []))
+        with accepted_per_round(out["accepted"].setdefault(arm, [])):
+            if mesh.rank == 0:
+                try:
+                    out["results"][arm] = spec_call(eng, arm, mel, proposals)
+                finally:
+                    eng.close()
+            else:
+                follow(eng)
+    return out
 
 
 def serve(engine, inputs: Dict[str, Any], arch=TINY_ARCH) -> Dict[str, Any]:
@@ -135,7 +268,9 @@ def serve(engine, inputs: Dict[str, Any], arch=TINY_ARCH) -> Dict[str, Any]:
 
 def mesh_checks(dp: int, tp: int,
                 weights: Optional[Dict[str, np.ndarray]] = None,
-                seed: int = 3, device="cpu", reference: bool = True
+                seed: int = 3, device="cpu", reference: bool = True,
+                spec_arms: Sequence[str] = SPEC_ARMS,
+                draft_weights: Optional[Dict[str, np.ndarray]] = None
                 ) -> Dict[str, Any]:
     """One rank of the dry run's mesh (``parallel.launch.spawn`` runs it on
     dp * tp ranks). ``weights``: the full model's state dict as numpy (the
@@ -143,11 +278,16 @@ def mesh_checks(dp: int, tp: int,
     port's ``init_params`` from ``seed`` (``BIAS_STD``). Every rank shards
     the model and encodes its dp rows of the inputs' features directly
     (``encoder``, the tp collectives on every rank); then rank 0 serves
-    (:func:`serve`) on the meshed engine while the others ``follow`` it.
-    With ``reference``, rank 0 first serves the same calls on an unsharded
-    engine (``one_device``). Every rank returns the rows of each result it
-    held before the gather (``local_rows``), and rank 0 the refusals of
-    what a mesh does not run (``refusals``)."""
+    (:func:`serve`) on the meshed engine while the others ``follow`` it,
+    and every rank runs the speculative arms ``spec_arms``
+    (:func:`speculate`; proposals from the meshed greedy call's tokens,
+    whole drafts from ``draft_weights``, by default the layer-skip draft's
+    leaves of ``weights``). With ``reference``, rank 0 first serves the
+    same calls on unsharded engines (``one_device``, ``one_device_spec``).
+    Every rank returns the rows and loop counts of each result it held
+    before the gather (``local_rows``, ``spec_rows``) and the accepted
+    counts of every speculative round (``accepted``), and rank 0 the
+    refusals of what a mesh does not run (``refusals``)."""
     from thewhisper_tpu_torch.engine.engine import WhisperEngine
     from thewhisper_tpu_torch.models.whisper import (
         encoder_forward,
@@ -172,15 +312,30 @@ def mesh_checks(dp: int, tp: int,
         return init_params(arch, torch.Generator(device).manual_seed(seed),
                            device=device, bias_std=BIAS_STD)
 
-    def engine(m, mesh=None):
+    def whole_draft():
+        state = draft_weights or draft_state(
+            {k: v.cpu().numpy() for k, v in model().state_dict().items()},
+            SPEC_DRAFT_LAYERS)
+        return model_from_state(state, draft_arch(arch, SPEC_DRAFT_LAYERS),
+                                device=device)
+
+    def engine(m, mesh=None, **kw):
         return WhisperEngine(m, special=TINY_SPECIAL, suppress_tokens=SUPPRESS,
                              begin_suppress_tokens=BEGIN_SUPPRESS,
-                             batch_buckets=(BATCH,), mesh=mesh)
+                             batch_buckets=(BATCH,), mesh=mesh, **kw)
 
     out: Dict[str, Any] = {"rank": mesh.rank, "dp_rank": mesh.dp_rank,
                            "tp_rank": mesh.tp_rank}
     if reference and mesh.rank == 0:
-        out["one_device"] = serve(engine(model()), inputs, arch)
+        out["one_device"] = ref = serve(engine(model()), inputs, arch)
+        props = proposals_from(ref["generate"]["tokens"],
+                               ref["generate"]["prompt_len"])
+        out["one_device_spec"] = {}
+        for arm in spec_arms:
+            m = model()
+            out["one_device_spec"][arm] = spec_call(
+                engine(m, **spec_kw(arm, m, whole_draft)), arm, inputs["mel"],
+                props)
     sharded = shard_params(model(), mesh)
     out["local_heads"] = sharded.encoder.layers[0].attn.n_heads
     rows = batch_rows(mesh, BATCH)
@@ -188,37 +343,48 @@ def mesh_checks(dp: int, tp: int,
         out["encoder"] = encoder_forward(sharded, torch.from_numpy(
             inputs["mel"][rows]).to(device)).cpu().numpy()
     eng = engine(sharded, mesh)
-    seen = out["local_rows"] = []
-    gather = eng._mirror.gather_rows
-
-    def spy(rows_, steps, bucket):
-        seen.append([r.copy() for r in rows_])
-        return gather(rows_, steps, bucket)
-
-    eng._mirror.gather_rows = spy
+    spy_rows(eng, out.setdefault("local_rows", []))
+    props = None
     if mesh.rank == 0:
         try:
             out["mesh"] = serve(eng, inputs, arch)
-            out["refusals"] = _refusals(eng, sharded, mesh, inputs)
+            out["refusals"] = _refusals(engine, sharded, mesh, model,
+                                        whole_draft)
         finally:
             eng.close()
+        gen = out["mesh"]["generate"]
+        props = proposals_from(gen["tokens"], gen["prompt_len"])
     else:
         follow(eng)
+    spec = speculate(mesh, sharded, engine, inputs["mel"], whole_draft,
+                     spec_arms, props)
+    out["spec"] = spec["results"]
+    out["spec_rows"], out["accepted"] = spec["local_rows"], spec["accepted"]
     return out
 
 
-def _refusals(eng, sharded, mesh, inputs) -> Dict[str, str]:
-    """What a meshed engine refuses, each refusal's message (each raises
-    before any collective, so rank 0 alone may try them)."""
-    from thewhisper_tpu_torch.engine.engine import WhisperEngine
+def _refusals(engine, sharded, mesh, model, whole_draft) -> Dict[str, str]:
+    """What a meshed engine still refuses, each refusal's message (each
+    raises before any collective, so rank 0 alone may try them): int8
+    cross K/V, a quantized model, ngram drafting with a draft, a draft
+    sharded for another tp, ``draft_int8`` on a draft sharded on its own."""
+    from thewhisper_tpu_torch.engine.speculative import make_layer_skip_draft
+    from thewhisper_tpu_torch.models.quant import quantize_params
+    from thewhisper_tpu_torch.parallel.mesh import Mesh, shard_params
 
+    other = Mesh(1, 2 if mesh.tp != 2 else 4)
     tries = {
-        "spec_ngram": lambda: WhisperEngine(sharded, spec_ngram=True,
-                                            mesh=mesh),
-        "cross_kv_int8": lambda: WhisperEngine(sharded, cross_kv_int8=True,
-                                               mesh=mesh),
-        "proposals": lambda: eng.transcribe_features(
-            inputs["mel"], GENERATE, draft_tokens=np.zeros((BATCH, 2))),
+        "cross_kv_int8": lambda: engine(sharded, mesh, cross_kv_int8=True),
+        "quantized": lambda: engine(quantize_params(
+            model(), components=("decoder",)), mesh),
+        "ngram_and_draft": lambda: engine(
+            sharded, mesh, spec_ngram=True,
+            draft_model=make_layer_skip_draft(sharded, SPEC_DRAFT_LAYERS)),
+        "draft_tp": lambda: engine(sharded, mesh, draft_model=shard_params(
+            whole_draft(), other)),
+        "draft_int8_sharded": lambda: engine(
+            sharded, mesh, draft_int8=True,
+            draft_model=shard_params(whole_draft(), mesh)),
     }
     out = {}
     for name, fn in tries.items():
@@ -229,14 +395,22 @@ def _refusals(eng, sharded, mesh, inputs) -> Dict[str, str]:
     return out
 
 
+REFUSALS = ("cross_kv_int8", "draft_int8_sharded", "draft_tp",
+            "ngram_and_draft", "quantized")
+
+
 def check_against_one_device(results) -> None:
     """Assert the meshed results of one spawn (every rank's
-    :func:`mesh_checks`) against rank 0's one-device ones and the tp
-    ranks' tokens against each other's."""
+    :func:`mesh_checks`) against rank 0's one-device ones (speculative
+    calls: tokens, lengths and rounds exact, and the tokens equal to the
+    greedy call's) and the tp ranks' rows against each other's."""
     lead = results[0]
     ref, got = lead["one_device"], lead["mesh"]
-    for name in ("generate", "beam", "sampled", "windows"):
-        a, b = ref[name], got[name]
+    pairs = [(name, ref[name], got[name])
+             for name in ("generate", "beam", "sampled", "windows")]
+    pairs += [(f"spec {arm}", lead["one_device_spec"][arm], r)
+              for arm, r in lead["spec"].items()]
+    for name, a, b in pairs:
         np.testing.assert_array_equal(a["tokens"], b["tokens"], err_msg=name)
         np.testing.assert_array_equal(a["num_generated"], b["num_generated"],
                                       err_msg=name)
@@ -246,25 +420,37 @@ def check_against_one_device(results) -> None:
             np.testing.assert_allclose(a["align"], b["align"], rtol=1e-3,
                                        atol=1e-3, err_msg=name)
         assert a["decode_steps"] == b["decode_steps"], name
+        assert a["spec_rounds"] == b["spec_rounds"], name
+    for arm, r in lead["spec"].items():
+        np.testing.assert_array_equal(r["tokens"], got["generate"]["tokens"],
+                                      err_msg=arm)
+        assert r["spec_rounds"] > 0, arm
     assert ref["languages"] == got["languages"]
     assert ref["coalescer"] == got["coalescer"], (ref["coalescer"],
                                                   got["coalescer"])
-    assert sorted(lead["refusals"]) == ["cross_kv_int8", "proposals",
-                                        "spec_ngram"], lead["refusals"]
+    assert tuple(sorted(lead["refusals"])) == REFUSALS, lead["refusals"]
     check_tp_ranks(results)
 
 
 def check_tp_ranks(results) -> None:
     """Every rank's result rows before the gather (tokens, lengths,
-    logprobs, alignment) equal, bit for bit, those of tp rank 0 of its dp
-    group."""
+    logprobs, alignment) and loop counts (steps, speculative rounds) equal,
+    bit for bit, those of tp rank 0 of its dp group; so do the accepted
+    counts of every speculative round."""
     first = {r["dp_rank"]: r for r in results if r["tp_rank"] == 0}
-    for r in results:
-        mine, theirs = r["local_rows"], first[r["dp_rank"]]["local_rows"]
+
+    def same(mine, theirs):
         assert len(mine) == len(theirs) > 0
         for a, b in zip(mine, theirs):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
+
+    for r in results:
+        lead = first[r["dp_rank"]]
+        same(r["local_rows"], lead["local_rows"])
+        for arm, rows in r.get("spec_rows", {}).items():
+            same(rows, lead["spec_rows"][arm])
+            same([r["accepted"][arm]], [lead["accepted"][arm]])
 
 
 def sweep(n_devices: int):
@@ -346,8 +532,8 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def _say(mesh, what: str) -> None:
-    print(f"[MESH] rank {mesh.rank} (dp {mesh.dp_rank}, tp {mesh.tp_rank}) "
+def _say(mesh, what: str, phase: str = "MESH") -> None:
+    print(f"[{phase}] rank {mesh.rank} (dp {mesh.dp_rank}, tp {mesh.tp_rank}) "
           f"{what}", flush=True)
 
 
@@ -360,23 +546,29 @@ def card_model(arch, dtype, seed: int, device):
                        dtype=dtype, device=device, bias_std=BIAS_STD)
 
 
-def _meshed_call(mesh, model, call):
-    """Shard ``model`` over ``mesh``, build the meshed engine; rank 0 runs
-    ``call(engine)`` (twice: the first makes the program, the second is
-    timed) and closes the engine, the others follow it. Every rank
-    returns (call's result or None, wall of the second call or None,
-    K1/K2/all-reduce counts over both calls, its local head count)."""
+def _meshed_call(mesh, model, call, engine_kw: Optional[Callable] = None,
+                 repeat: bool = True, phase: str = "MESH"):
+    """Shard ``model`` over ``mesh`` (unless it is sharded already), build
+    the meshed engine (``engine_kw(model)``: more keywords); rank 0 runs
+    ``call(engine)`` (with ``repeat`` twice: the first makes the program,
+    the second is timed) and closes the engine, the others follow it.
+    Every rank returns (call's result or None, wall of the timed call or
+    None, K1/K2/all-reduce counts over the calls, its local head
+    count)."""
     from thewhisper_tpu_torch.engine.engine import WhisperEngine
     from thewhisper_tpu_torch.parallel.follow import follow
     from thewhisper_tpu_torch.parallel.mesh import shard_params
 
-    shard_params(model, mesh)
-    eng = WhisperEngine(model, mesh=mesh)
+    if model.tp is None:
+        shard_params(model, mesh)
+    eng = WhisperEngine(model, mesh=mesh,
+                        **(engine_kw(model) if engine_kw else {}))
     _zero_counts()
     res = wall = None
     if mesh.rank == 0:
         try:
-            call(eng)
+            if repeat:
+                call(eng)
             res, wall = _timed(lambda: call(eng))
             res = (res, eng.cuda_graphs, [p["graph"] for p in eng.programs()])
         finally:
@@ -388,7 +580,7 @@ def _meshed_call(mesh, model, call):
     _say(mesh, f"K1 {counts['K1']} K2 {counts['K2']} launches, "
                f"{counts['all_reduces']} all-reduces "
                f"({counts['captured_all_reduces']} captured), "
-               f"{heads} local heads of {model.arch.encoder_heads}")
+               f"{heads} local heads of {model.arch.encoder_heads}", phase)
     if mesh.device.type == "cuda" and (counts["K1"] <= 0 or counts["K2"] <= 0):
         raise RuntimeError(f"rank {mesh.rank}: K1/K2 not launched: {counts}")
     return res, wall, counts, heads
@@ -433,19 +625,28 @@ def card_nccl_graphs(seed: int = 0, max_new: int = 64, arch=CARD_ARCH,
 
 def check_gloo_collectives(device) -> None:
     """gloo's support on ``device`` for each collective a meshed engine
-    runs there: all-reduce of f32 and bf16, broadcast of f32; raises
-    ``RuntimeError`` naming the first that fails or sums wrong."""
+    or the sequence-parallel encoder's backward runs there: all-reduce of
+    f32 and bf16, broadcast of f32, reduce-scatter of f32 and bf16 (the
+    ``parallel.mesh`` call); raises ``RuntimeError`` naming the first that
+    fails or sums wrong."""
     import torch.distributed as dist
+
+    from thewhisper_tpu_torch.parallel.mesh import _reduce_scatter
 
     world = dist.get_world_size()
     for name, dtype in (("all_reduce", torch.float32),
                         ("all_reduce", torch.bfloat16),
-                        ("broadcast", torch.float32)):
-        x = torch.full((4, 8), float(dist.get_rank() + 1), dtype=dtype,
+                        ("broadcast", torch.float32),
+                        ("reduce_scatter", torch.float32),
+                        ("reduce_scatter", torch.bfloat16)):
+        x = torch.full((4 * world, 8), float(dist.get_rank() + 1), dtype=dtype,
                        device=device)
         try:
             if name == "all_reduce":
                 dist.all_reduce(x)
+                want = world * (world + 1) / 2
+            elif name == "reduce_scatter":
+                x = _reduce_scatter(x, None, world)
                 want = world * (world + 1) / 2
             else:
                 dist.broadcast(x, src=0)
@@ -619,6 +820,174 @@ def card_gloo_pair(seed: int = 0, max_new: int = 32, arch=CARD_ARCH,
 
 
 # ---------------------------------------------------------------------------
+# On the card: the children of chip_smoke.py's [MESH_SPEC] phase
+# ---------------------------------------------------------------------------
+
+# The card's speculative arms; a layer-skip draft of two decoder layers.
+CARD_SPEC_ARMS = SPEC_ARMS
+CARD_DRAFT_LAYERS = 2
+
+
+def _card_spec_kw(arm: str) -> Callable:
+    """``_meshed_call``'s engine keywords of speculative ``arm`` (a
+    layer-skip draft of ``CARD_DRAFT_LAYERS``, made from the sharded
+    model)."""
+    return lambda model: spec_kw(arm, model, layers=CARD_DRAFT_LAYERS)
+
+
+def _unsharded_spec(model, audio, opts, repeat: bool) -> Dict[str, Any]:
+    """The unsharded engine's speculative calls on ``audio`` (each arm of
+    ``CARD_SPEC_ARMS``; proposals from its greedy call's tokens): each
+    result and the wall of its last call (with ``repeat`` the second, the
+    first having made, and on the card captured, its program)."""
+    from thewhisper_tpu_torch.engine.engine import WhisperEngine
+
+    greedy = WhisperEngine(model).transcribe_audio(audio, opts)
+    props = proposals_from(greedy.tokens, greedy.prompt_len,
+                           model.arch.vocab_size)
+    out: Dict[str, Any] = {"proposals": props, "results": {}, "walls": {}}
+    for arm in CARD_SPEC_ARMS:
+        eng = WhisperEngine(model, **_card_spec_kw(arm)(model))
+        call = (lambda e=eng, a=arm: e.transcribe_audio(
+            audio, opts, draft_tokens=props if a == "proposals" else None))
+        if repeat:
+            call()
+        out["results"][arm], out["walls"][arm] = _timed(call)
+        del eng
+    return out
+
+
+def _spec_same(want, got) -> Dict[str, bool]:
+    return {k: bool(np.array_equal(getattr(want, k), getattr(got, k)))
+            for k in ("tokens", "num_generated", "sum_logprob", "align")} | {
+        "spec_rounds": want.spec_rounds == got.spec_rounds}
+
+
+def card_spec_nccl(seed: int = 0, max_new: int = 64, arch=CARD_ARCH,
+                   seconds: float = 30.0) -> Dict[str, Any]:
+    """[MESH_SPEC] (a) One rank over NCCL (dp 1 x tp 1): bf16
+    large-v3-turbo at full width from ``seed``, a 30 s input with
+    alignment capture, ``max_new`` tokens: ngram drafting, the two-layer
+    layer-skip draft and proposal tokens (the greedy call's, every third
+    changed) through the unsharded engine, then the meshed one, both
+    replaying CUDA graphs of their rounds (the meshed rounds' NCCL
+    all-reduces inside). Raises unless every arm's tokens,
+    ``num_generated`` and ``spec_rounds`` are bit-identical and, on the
+    card, every meshed program replayed a graph with all-reduces in it.
+    Returns each arm's comparison, rounds, walls and counts."""
+    from thewhisper_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=1, tp=1, arch=arch)
+    dev = mesh.device
+    audio = card_audio(1, seconds, seed + 1)
+    opts = GenerationOptions(max_new_tokens=max_new, language="en",
+                             return_timestamps=True)
+    model = card_model(arch, torch.bfloat16, seed, dev)
+    _reset_peak(dev)
+    ref = _unsharded_spec(model, audio, opts, repeat=True)
+    out: Dict[str, Any] = {"arms": {}, "unsharded_peak_gib": _peak_gib(dev)}
+    for arm in CARD_SPEC_ARMS:
+        props = ref["proposals"] if arm == "proposals" else None
+        _reset_peak(dev)
+        (got, graphs, keys), wall, counts, heads = _meshed_call(
+            mesh, model, lambda e: e.transcribe_audio(audio, opts,
+                                                      draft_tokens=props),
+            _card_spec_kw(arm), phase="MESH_SPEC")
+        want = ref["results"][arm]
+        if dev.type == "cuda" and not (graphs and all(keys)):
+            raise RuntimeError(f"(a) {arm}: the meshed NCCL engine did not "
+                               "replay a graph")
+        if dev.type == "cuda" and counts["captured_all_reduces"] <= 0:
+            raise RuntimeError(f"(a) {arm}: no all-reduce was captured")
+        same = _spec_same(want, got)
+        if not (same["tokens"] and same["num_generated"] and same["spec_rounds"]):
+            raise RuntimeError(f"(a) {arm}: the NCCL mesh of one differs from "
+                               f"the unsharded engine: {same}")
+        out["arms"][arm] = {"same": same, "rounds": got.spec_rounds,
+                            "generated": got.num_generated.tolist(),
+                            "wall": wall, "unsharded_wall": ref["walls"][arm],
+                            "peak_gib": _peak_gib(dev), "counts": counts,
+                            "heads": heads}
+    return out
+
+
+def card_spec_gloo_pair(seed: int = 0, max_new: int = 32, arch=CARD_ARCH,
+                        seconds: float = 30.0) -> Dict[str, Any]:
+    """[MESH_SPEC] (b): one of two gloo ranks that share the card, f32
+    with TF32 off, two 30 s rows, ``max_new`` tokens: every arm of
+    ``CARD_SPEC_ARMS`` at dp 1 x tp 2 and at dp 2 x tp 1, its tokens,
+    ``num_generated`` and ``spec_rounds`` equal to the unsharded engine's
+    (rank 0's, on the same weights). Gloo meshes run their rounds eagerly;
+    each round's accepted counts are logged on every rank for the parent
+    to hold the tp ranks to each other. Returns rank 0's walls and every
+    rank's counts, local heads and logs. On the CPU it rehearses at a
+    smaller ``arch`` and ``seconds``."""
+    import torch.distributed as dist
+
+    from thewhisper_tpu_torch.parallel.mesh import local_device, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = local_device()
+    lead = dist.get_rank() == 0
+    check_gloo_collectives(dev)
+    audio = card_audio(2, seconds, seed + 1)
+    opts = GenerationOptions(max_new_tokens=max_new, language="en",
+                             return_timestamps=True)
+    out: Dict[str, Any] = {"rank": dist.get_rank(), "counts": {}, "heads": {},
+                           "walls": {}, "accepted": {}, "arms": {},
+                           "peaks": {}}
+    ref: Dict[str, Any] = {}
+    if lead:
+        model = card_model(arch, torch.float32, seed, dev)
+        ref = _unsharded_spec(model, audio, opts, repeat=False)
+        out["walls"].update({f"unsharded {a} f32": w
+                             for a, w in ref["walls"].items()})
+        del model
+    props = ref.get("proposals")
+    for dp, tp in ((1, 2), (2, 1)):
+        mesh = make_mesh(dp=dp, tp=tp, arch=arch, device=dev)
+        model = card_model(arch, torch.float32, seed, dev)
+        for arm in CARD_SPEC_ARMS:
+            name = f"dp{dp}xtp{tp} {arm}"
+            log = out["accepted"][name] = []
+            _reset_peak(dev)
+            with accepted_per_round(log):
+                res, wall, out["counts"][name], out["heads"][name] = _meshed_call(
+                    mesh, model, lambda e, a=arm: e.transcribe_audio(
+                        audio, opts, draft_tokens=props if a == "proposals"
+                        else None),
+                    _card_spec_kw(arm), repeat=False, phase="MESH_SPEC")
+            out["peaks"][name] = _peak_gib(dev)
+            if lead:
+                got, graphs, _ = res
+                if graphs:
+                    raise RuntimeError("a gloo engine took CUDA graphs")
+                same = _spec_same(ref["results"][arm], got)
+                if not (same["tokens"] and same["num_generated"]
+                        and same["spec_rounds"]):
+                    raise RuntimeError(f"(b) {name}: differs from the "
+                                       f"unsharded engine: {same}")
+                out["walls"][name] = wall
+                out["arms"][name] = {"rounds": got.spec_rounds,
+                                     "generated": got.num_generated.tolist()}
+        del model
+    return out
+
+
+def check_spec_tp_ranks(pair) -> None:
+    """[MESH_SPEC] (b): the two ranks' accepted counts of every round
+    equal, bit for bit, in each tp-2 arm."""
+    for name in pair[0]["accepted"]:
+        if "tp2" not in name:
+            continue
+        a, b = (r["accepted"][name] for r in pair)
+        if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"(b) {name}: the tp ranks accepted different "
+                               "tokens")
+
+
+# ---------------------------------------------------------------------------
 # Training on the mesh and the sequence-parallel encoder
 # ---------------------------------------------------------------------------
 
@@ -733,6 +1102,7 @@ def train_checks(dp: int, tp: int, weights: Dict[str, np.ndarray],
         model_from_state,
     )
     from thewhisper_tpu_torch.ops import attention
+    from thewhisper_tpu_torch.parallel import mesh as pm
     from thewhisper_tpu_torch.parallel.mesh import (
         gather_params,
         gather_seq,
@@ -812,7 +1182,12 @@ def train_checks(dp: int, tp: int, weights: Dict[str, np.ndarray],
                           "expected_rows": seq_rows(mesh, t).stop
                           - seq_rows(mesh, t).start,
                           "out": gather_seq(mesh, block, t).cpu().numpy()}
+        scatters = pm.REDUCE_SCATTERS
         out["seq"]["refusals"] = _seq_refusals(whole, sharded(False), mel, mesh)
+        out["seq"]["autograd"] = {
+            "reduce_scatters": pm.REDUCE_SCATTERS - scatters,
+            "finite": all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                          for p in whole.encoder.parameters())}
     if "save" in checks:
         m = sharded(False)
         full = gather_params(m)
@@ -838,19 +1213,76 @@ def train_checks(dp: int, tp: int, weights: Dict[str, np.ndarray],
 
 def _seq_refusals(whole, sharded, mel, mesh) -> Dict[str, str]:
     """The sequence-parallel encoder's refusals (each raises before any
-    collective): tp-sharded weights, autograd."""
+    collective): tp-sharded weights. Autograd, refused until SP's backward
+    was ported, is tried too and must not raise (every rank runs it: its
+    collectives are the mesh's)."""
     from thewhisper_tpu_torch.models.whisper import encoder_forward
 
     out = {}
     tries = {"sharded": lambda: encoder_forward(sharded, mel, seq=mesh),
              "autograd": lambda: encoder_forward(
-                 whole.requires_grad_(True), mel, seq=mesh)}
+                 whole.requires_grad_(True), mel, seq=mesh).sum().backward()}
     for name, fn in tries.items():
         try:
             fn()
         except ValueError as e:
             out[name] = str(e)
     whole.requires_grad_(False)
+    return out
+
+
+SEQ_GRAD_ARMS = ("local", "gathered", "remat")
+
+
+def seq_grad_checks(dp: int, tp: int, weights: Dict[str, np.ndarray],
+                    mel: np.ndarray, cotangent: np.ndarray,
+                    arms=SEQ_GRAD_ARMS, device="cpu") -> Dict[str, Any]:
+    """One rank of the sequence-parallel encoder's backward on whole
+    ``weights`` (``TINY_ARCH``): the gradient of ``(out * g).sum()`` for
+    the global ``mel`` (B, n_mels, 2 T) and cotangent ``g`` (B, T, d),
+    this rank holding its dp rows. Arms: ``local`` (the loss on this rank's
+    block of rows, summed over the ranks by the gradients' sum),
+    ``gathered`` (the loss on ``gather_seq``'s output, the same on every
+    tp rank) and ``remat`` (``gathered`` with remat). After the backward
+    every encoder leaf's gradient and the mel's are summed over tp
+    (``sum_over_tp``) and the leaves' over dp (``reduce_gradients``).
+    Returns, per arm, the leaves' gradients (whole, the port's names), this
+    rank's dp rows of the mel's gradient, the leaves' gradient digests and
+    the collectives the backward ran."""
+    from thewhisper_tpu_torch.models.whisper import (
+        encoder_forward,
+        model_from_state,
+    )
+    from thewhisper_tpu_torch.parallel import mesh as pm
+
+    arch = TINY_ARCH
+    mesh = pm.make_mesh(dp=dp, tp=tp, arch=arch, device=device)
+    dev = mesh.device
+    rows = pm.batch_rows(mesh, mel.shape[0])
+    x = torch.from_numpy(mel[rows]).to(dev)
+    g = torch.from_numpy(cotangent[rows]).to(dev)
+    t = x.shape[-1] // 2
+    out: Dict[str, Any] = {"rank": mesh.rank, "dp_rank": mesh.dp_rank,
+                           "tp_rank": mesh.tp_rank}
+    for arm in arms:
+        model = model_from_state(weights, arch, device=dev).requires_grad_(True)
+        m = x.clone().requires_grad_(True)
+        block = encoder_forward(model, m, seq=mesh, remat=arm == "remat")
+        if arm == "local":
+            loss = (block * g[:, pm.seq_rows(mesh, t)]).sum()
+        else:
+            loss = (pm.gather_seq(mesh, block, t) * g).sum()
+        gathers, scatters = pm.ALL_GATHERS, pm.REDUCE_SCATTERS
+        loss.backward()
+        counts = {"all_gathers": pm.ALL_GATHERS - gathers,
+                  "reduce_scatters": pm.REDUCE_SCATTERS - scatters}
+        leaves = [(f"encoder.{n}", p) for n, p in model.encoder.named_parameters()]
+        pm.sum_over_tp([p for _, p in leaves] + [m], mesh)
+        pm.reduce_gradients([p for _, p in leaves], mesh)
+        out[arm] = {"grads": {n: p.grad.cpu().numpy() for n, p in leaves},
+                    "mel": m.grad.cpu().numpy(),
+                    "digests": {n: _digest(p.grad) for n, p in leaves},
+                    "counts": counts, "rows": block.shape[1]}
     return out
 
 
@@ -928,6 +1360,60 @@ CARD_GRAD_REL = 1e-4
 # distance from f32 ([MESH]'s rule for bf16 logits).
 CARD_SP_REL = 1e-4
 BF16_RATIO = 1.5
+# (d), the sequence-parallel encoder's backward: the 30 s encoder cut to
+# this many layers, a seeded cotangent, each gathered f32 gradient leaf
+# within CARD_GRAD_REL of the unsharded encoder's.
+CARD_SP_GRAD_LAYERS = 4
+
+
+def sp_grad_path(path: str) -> str:
+    """Where the parent writes (d)'s unsharded f32 gradients, beside (b)'s
+    at ``path``."""
+    return f"{path}.sp"
+
+
+def _sp_grad_inputs(arch, seconds: float, seed: int, device):
+    """(d)'s inputs: ``CARD_SP_ROWS`` rows of ``seconds`` through K1 and a
+    seeded normal cotangent of the encoder's output shape."""
+    from thewhisper_tpu_torch.audio.features import LogMelFeaturizer
+
+    mel = LogMelFeaturizer(n_mels=arch.n_mels, chunk_length_s=seconds,
+                           device=device)(card_audio(CARD_SP_ROWS, seconds,
+                                                     seed + 9))
+    g = torch.Generator(device=device).manual_seed(seed + 10)
+    cot = torch.randn(CARD_SP_ROWS, mel.shape[-1] // 2, arch.d_model,
+                      generator=g, device=device)
+    return mel, cot
+
+
+def _sp_grads(model, mel, cot, mesh=None, compute_dtype=None) -> Dict[str, torch.Tensor]:
+    """{encoder leaf: gradient} of ``(out * cot).sum()`` through the
+    encoder on ``mel`` (with ``mesh``, the sequence-parallel encoder: the
+    loss on ``gather_seq``'s output, every leaf's gradient summed over tp
+    and dp), cuDNN held to deterministic algorithms (the conv stem's
+    gradient summed over tp must be the same bits on every rank)."""
+    from thewhisper_tpu_torch.models.whisper import encoder_forward
+    from thewhisper_tpu_torch.parallel import mesh as pm
+
+    model.zero_grad(set_to_none=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = encoder_forward(model, mel, compute_dtype=compute_dtype, seq=mesh)
+        if mesh is not None:
+            out = pm.gather_seq(mesh, out, cot.shape[1])
+        (out.float() * cot).sum().backward()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    leaves = [(f"encoder.{n}", p) for n, p in model.encoder.named_parameters()]
+    if mesh is not None:
+        pm.sum_over_tp([p for _, p in leaves], mesh)
+        pm.reduce_gradients([p for _, p in leaves], mesh)
+    return {n: p.grad.detach() for n, p in leaves}
+
+
+def _flat(grads: Dict[str, torch.Tensor], names) -> torch.Tensor:
+    return torch.cat([grads[n].reshape(-1).double().cpu() for n in names])
 
 
 def card_train_batch(arch, rows: slice, n: int, seed: int, device,
@@ -1047,7 +1533,11 @@ def mesh_train_reference(path: str, arch=TRAIN_CARD_ARCH, seed: int = 0,
         step at a bf16 compute type: its relative L2 distance from f32;
     (c) ``sp_arch``'s whole f32 and bf16 encoders on ``CARD_SP_ROWS``
         rows of ``sp_seconds`` through K1 (the outputs, and bf16's
-        distance from f32).
+        distance from f32);
+    (d) ``sp_arch`` cut to ``CARD_SP_GRAD_LAYERS`` encoder layers, f32
+        weights: the gradient of ``(out * g).sum()`` for a seeded
+        cotangent, in f32 (written to ``sp_grad_path(path)``) and at a
+        bf16 compute type (its relative L2 distance from f32).
 
     Returns them (and each arm's wall and peak memory)."""
     from thewhisper_tpu_torch.audio.features import LogMelFeaturizer
@@ -1091,6 +1581,24 @@ def mesh_train_reference(path: str, arch=TRAIN_CARD_ARCH, seed: int = 0,
         del model, enc
     c["bf16_vs_f32"] = _rel_l2(c["bf16"]["out"], c["f32"]["out"])
     out["c"] = c
+    d_arch = dataclasses.replace(sp_arch, encoder_layers=min(
+        sp_arch.encoder_layers, CARD_SP_GRAD_LAYERS))
+    mel, cot = _sp_grad_inputs(d_arch, sp_seconds, seed, dev)
+    d: Dict[str, Any] = {}
+    model = card_model(d_arch, torch.float32, seed, dev).requires_grad_(True)
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        _reset_peak(dev)
+        grads, wall = _timed(lambda: _sp_grads(model, mel, cot,
+                                               compute_dtype=dtype))
+        d[name] = {"wall": wall, "peak_gib": _peak_gib(dev)}
+        if dtype is None:
+            torch.save({n: g.cpu() for n, g in grads.items()}, sp_grad_path(path))
+            d32 = grads
+        else:
+            d["bf16_vs_f32"] = _rel_l2(_flat(grads, grads), _flat(d32, grads))
+    d["leaves"] = len(d32)
+    out["d"] = d
+    del model, mel, cot, grads, d32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -1181,7 +1689,8 @@ def card_train_gloo_pair(ref_path: str, ref, arch=TRAIN_CARD_ARCH,
                          sp_arch=CARD_ARCH, seed: int = 0,
                          sp_seconds: float = CARD_SP_SECONDS,
                          seconds: float = CARD_TRAIN_SECONDS) -> Dict[str, Any]:
-    """(b) and (c): one of two gloo ranks that share the card, TF32 off.
+    """(b), (c) and (d): one of two gloo ranks that share the card, TF32
+    off.
 
     (b) One f32 step each at dp 1 x tp 2 and dp 2 x tp 1 on the global
     batch of 4, then a remat step at tp 2, then a bf16-compute step at
@@ -1198,9 +1707,12 @@ def card_train_gloo_pair(ref_path: str, ref, arch=TRAIN_CARD_ARCH,
     ``CARD_SP_REL``, bf16 within ``BF16_RATIO`` x the unsharded bf16
     distance from f32.
 
+    (d) The sequence-parallel encoder's backward at tp 2
+    (:func:`_card_sp_grad`) against ``ref["d"]``.
+
     Raises on any miss; returns every rank's measurements (the parent
-    checks the replicated leaves across ranks). On the CPU it rehearses
-    at smaller archs."""
+    checks the replicated leaves and (d)'s gradients across ranks). On
+    the CPU it rehearses at smaller archs."""
     import torch.distributed as dist
 
     from thewhisper_tpu_torch.audio.features import LogMelFeaturizer
@@ -1281,6 +1793,65 @@ def card_train_gloo_pair(ref_path: str, ref, arch=TRAIN_CARD_ARCH,
             sp[name]["vs_unsharded_bf16"] = _rel_l2(whole, ref["c"]["bf16"]["out"])
         del model, block, whole
     out["sp"] = sp
+    out["sp_grad"] = _card_sp_grad(mesh, sp_arch, sp_seconds, seed, ref_path,
+                                   ref)
+    return out
+
+
+def _card_sp_grad(mesh, sp_arch, seconds: float, seed: int, ref_path: str,
+                  ref) -> Dict[str, Any]:
+    """(d) The sequence-parallel encoder's backward at tp 2 on whole
+    ``sp_arch`` weights cut to ``CARD_SP_GRAD_LAYERS`` layers: f32 and a
+    bf16 compute type over f32 weights (``_sp_grads``), rank 0 holding
+    every gathered f32 leaf within ``CARD_GRAD_REL`` of the unsharded f32
+    gradients and bf16 within ``BF16_RATIO`` x the unsharded bf16
+    distance from them; K2-fwd-res, K2-dkv and K2-dq (a rank's queries
+    over the gathered keys) launched once a layer, no output gradient
+    copied; the leaves' digests for the parent to compare across ranks."""
+    from thewhisper_tpu_torch.parallel import mesh as pm
+
+    dev = mesh.device
+    arch = dataclasses.replace(sp_arch, encoder_layers=min(
+        sp_arch.encoder_layers, CARD_SP_GRAD_LAYERS))
+    mel, cot = _sp_grad_inputs(arch, seconds, seed, dev)
+    want = (torch.load(sp_grad_path(ref_path), map_location="cpu",
+                       weights_only=True) if mesh.rank == 0 else None)
+    model = card_model(arch, torch.float32, seed, dev).requires_grad_(True)
+    out: Dict[str, Any] = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        _zero_train_counts()
+        scatters = pm.REDUCE_SCATTERS
+        _reset_peak(dev)
+        grads, wall = _timed(lambda: _sp_grads(model, mel, cot, mesh, dtype))
+        c = _train_counts()
+        c["reduce_scatters"] = pm.REDUCE_SCATTERS - scatters
+        r = {"wall": wall, "peak_gib": _peak_gib(dev), "counts": c,
+             "digests": {n: _digest(g) for n, g in grads.items()}}
+        _say_train(mesh, f"SP backward {name}: K2-fwd-res {c['K2-fwd-res']}, "
+                         f"K2-dkv {c['K2-dkv']}, K2-dq {c['K2-dq']} launches, "
+                         f"{c['reduce_scatters']} reduce-scatters, "
+                         f"{c['dout_copies']} output gradients copied")
+        layers = arch.encoder_layers
+        if dev.type == "cuda" and not (c["K2-fwd-res"] == c["K2-dkv"]
+                                       == c["K2-dq"] == layers):
+            raise RuntimeError(f"SP backward {name}: launches {c}")
+        if c["reduce_scatters"] != layers or c["dout_copies"]:
+            raise RuntimeError(f"SP backward {name}: {c}")
+        if mesh.rank == 0:
+            if dtype is None:
+                worst = max((_rel_l2(g.cpu(), want[n]), n) for n, g in grads.items())
+                r["worst_leaf"] = worst
+                if not worst[0] <= CARD_GRAD_REL:
+                    raise RuntimeError(f"SP backward f32: gradient leaf {worst}")
+            r["vs_f32"] = _rel_l2(_flat(grads, grads), _flat(want, grads))
+            if dtype is not None:
+                r["bound"] = BF16_RATIO * ref["d"]["bf16_vs_f32"]
+                if not r["vs_f32"] <= r["bound"]:
+                    raise RuntimeError(f"SP backward bf16: {r['vs_f32']} from "
+                                       f"f32, bound {r['bound']}")
+        out[name] = r
+        del grads
+    del model, mel, cot, want
     return out
 
 
@@ -1288,7 +1859,9 @@ def check_mesh_train(a, pair, arch=TRAIN_CARD_ARCH) -> None:
     """The parent's checks of [MESH_TRAIN]'s children: (a) bit for bit;
     (b) every rank's launches and local heads, the replicated leaves (and
     their gradients) the same bits on both tp ranks of each tp-2 arm, and
-    every parameter the same bits on both dp ranks of the dp-2 arm."""
+    every parameter the same bits on both dp ranks of the dp-2 arm; (d)
+    the sequence-parallel encoder's summed gradients the same bits on
+    both tp ranks."""
     if a["differ"]:
         raise RuntimeError(f"(a) the one-rank NCCL mesh differs from the "
                            f"unsharded step: {a['differ'][:8]}")
@@ -1303,3 +1876,9 @@ def check_mesh_train(a, pair, arch=TRAIN_CARD_ARCH) -> None:
             if x[k] != y[k]:
                 bad = [n for n in x[k] if x[k][n] != y[k][n]]
                 raise RuntimeError(f"{name}: {k} differ across ranks: {bad[:6]}")
+    for name in pair[0]["sp_grad"]:
+        x, y = (r["sp_grad"][name]["digests"] for r in pair)
+        if x != y:
+            bad = [n for n in x if x[n] != y[n]]
+            raise RuntimeError(f"(d) SP backward {name}: summed gradients "
+                               f"differ across the tp ranks: {bad[:6]}")

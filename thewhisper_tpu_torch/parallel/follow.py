@@ -7,8 +7,9 @@ server) on its ``WhisperEngine(mesh=...)``. The ranks above 0 run
 :func:`follow`, which mirrors every device program rank 0 launches: before
 each encode (K1 and the encoder, with the tp all-reduces) and each decode
 (the loop, with its all-reduces, and the gather of the rows), rank 0
-broadcasts the program's key and inputs (:class:`Mirror`), and every rank
-then runs it.
+broadcasts the program's key and inputs (:class:`Mirror`: the mel or audio
+with the encode, a speculative call's proposal tokens with the decode),
+and every rank then runs it.
 
 Programs are mirrored, not public calls: the pipeline queues window n+1's
 encoder before it fetches window n (``engine.PendingResult``), and a
@@ -76,37 +77,42 @@ class Mirror:
                        str(x.dtype).split(".")[1]), x)
         return x[batch_rows(self.mesh, x.shape[0])]
 
-    def decode(self, handle, key: Tuple, warm: bool) -> None:
-        """Rank 0: send a handle's decode (its program key, and whether
-        warmup made that key); the others check that they computed the
-        same key."""
+    def decode(self, handle, key: Tuple, warm: bool,
+               proposals: Optional[np.ndarray] = None) -> None:
+        """Rank 0: send a handle's decode (its program key, whether warmup
+        made that key, and the call's (bucket, max_new) proposal tokens or
+        None: host data only rank 0 has); the others check that they
+        computed the same key (its mode among it) from them."""
         if self.leader:
-            self.send(("decode", handle.id, key, warm))
+            self.send(("decode", handle.id, key, warm, proposals))
         elif key != handle.mirror_key:
             raise RuntimeError(f"rank {self.mesh.rank} out of step: key {key}, "
                                f"rank 0's {handle.mirror_key}")
 
-    def gather_rows(self, rows: List[np.ndarray], steps: int, bucket: int
-                    ) -> Optional[Tuple[List[np.ndarray], int]]:
-        """The whole bucket's result rows and step count, on rank 0 (None
+    def gather_rows(self, rows: List[np.ndarray], counts: Tuple, bucket: int
+                    ) -> Optional[Tuple[List[np.ndarray], Tuple]]:
+        """The whole bucket's result rows and loop counts (decode steps,
+        speculative rounds; None where the loop has none), on rank 0 (None
         elsewhere). Where dp splits the bucket, tp rank 0 of each dp group
         sends its rows (each group's the same shape, the bucket's share)
-        and rank 0 stacks them in dp order; the steps are the most any
+        and rank 0 stacks them in dp order; each count is the most any
         group ran, as one program over the whole bucket runs. Where dp
         does not split it, every rank holds every row and nothing moves."""
         import torch.distributed as dist
 
         mesh = self.mesh
         if batch_rows(mesh, bucket) == slice(0, bucket):
-            return (rows, steps) if self.leader else None
-        payload = (rows, steps) if mesh.tp_rank == 0 else None
+            return (rows, counts) if self.leader else None
+        payload = (rows, counts) if mesh.tp_rank == 0 else None
         parts: Optional[List[Any]] = [None] * mesh.size if self.leader else None
         dist.gather_object(payload, parts, dst=0, group=mesh.host_group)
         if not self.leader:
             return None
         parts = [parts[d * mesh.tp] for d in range(mesh.dp)]
+        most = tuple(None if c is None else max(p[1][i] for p in parts)
+                     for i, c in enumerate(counts))
         return ([np.concatenate([p[0][i] for p in parts])
-                 for i in range(len(rows))], max(p[1] for p in parts))
+                 for i in range(len(rows))], most)
 
 
 def follow(engine) -> None:
@@ -134,9 +140,10 @@ def follow(engine) -> None:
             handles[hid] = handle
             handle.encode()
         elif op == "decode":
-            _, hid, key, warm = msg
+            _, hid, key, warm, proposals = msg
             handle = handles.pop(hid)
             handle.mirror_key = key
+            handle.draft_tokens = proposals
             if warm:
                 engine._warm_keys.add(key)
             handle.result()

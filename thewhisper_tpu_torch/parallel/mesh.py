@@ -51,13 +51,39 @@ buckets after the backward (``training.train.make_train_step``), and
 
 The sequence-parallel encoder (JAX's ``seq_sharding``: batch over ``dp``,
 time over ``tp``; :func:`seq_rows`, :func:`gather_seq`) runs on whole
-encoder weights: each tp rank keeps a block of time rows, all-gathers K
-and V over ``tp`` and runs K2 with its queries over every key. Splitting
-heads and time over the same axis at once would need an all-to-all that
-JAX's GSPMD hides; SP's purpose is activation memory on long audio, which
-whole weights leave intact (a turbo encoder is 1.3 GB in bf16). So a
-tp-sharded model passed to it raises ``ValueError``, and so does SP under
-autograd (its backward is not ported).
+encoder weights: each tp rank keeps a block of time rows
+(:func:`split_seq`), all-gathers K and V over ``tp`` (:func:`gather_kv`)
+and runs K2 with its queries over every key. Splitting heads and time
+over the same axis at once would need an all-to-all that JAX's GSPMD
+hides; SP's purpose is activation memory on long audio, which whole
+weights leave intact (a turbo encoder is 1.3 GB in bf16). So a tp-sharded
+model passed to it raises ``ValueError``.
+
+Under autograd (JAX's ``jax.grad`` through its ``with_sharding_constraint``s)
+each of SP's steps has its conjugate, an ``autograd.Function`` with the
+collective written out:
+
+- :func:`gather_kv`'s all-gather of the K and V blocks: a reduce-scatter
+  over ``tp``. Every rank's queries put gradient on every key, so rank
+  r's block of dK and dV is the sum of all ranks' contributions to rows
+  [r c, (r + 1) c) (the pad rows past T get none: K2-dkv writes zeros for
+  keys >= valid_len).
+- :func:`split_seq`'s slice and pad: a scatter of the block's gradient
+  into a zero (B, T, d), so everything upstream of it (the conv stem and
+  positions, which every rank runs on the whole mel, and the mel itself)
+  gets this rank's rows' share.
+- :func:`gather_seq`'s all-gather of the output blocks: a slice of this
+  rank's block. A loss on the assembled (B, T, d) is the same on every tp
+  rank, so each rank's cotangent is already the whole one; a
+  reduce-scatter here (the conjugate of an all-gather whose input blocks
+  are summed into one loss) would multiply the gradient by tp.
+- Whole weights: each rank's gradient of every encoder leaf covers its
+  own rows, so :func:`sum_over_tp` sums them (and the mel's) over ``tp``,
+  as :func:`reduce_gradients` sums over ``dp``; after it the replicated
+  gradients are the same bits on every tp rank.
+
+Remat re-runs :func:`gather_kv` inside the backward; every rank re-runs
+it in the same order, as it re-runs *g*.
 
 Rank r sits at (r // tp, r % tp) of the mesh: JAX's ``reshape(dp, tp)``
 of the device list. ``torch.distributed`` is imported inside the
@@ -77,10 +103,11 @@ import torch.nn.functional as F
 # All-reduces a sharded model issued since import, and how many of them
 # were recorded into a CUDA graph (a replay runs those again without
 # counting them); all-gathers (the sequence-parallel encoder's K/V,
-# gather_seq, gather_params).
+# gather_seq, gather_params); reduce-scatters (gather_kv's backward).
 ALL_REDUCES = 0
 CAPTURED_ALL_REDUCES = 0
 ALL_GATHERS = 0
+REDUCE_SCATTERS = 0
 
 # Bytes of gradients summed over dp by one all-reduce
 # (DistributedDataParallel's default bucket).
@@ -301,6 +328,21 @@ def _all_gather(x: torch.Tensor, group, size: int):
     return out
 
 
+def _reduce_scatter(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """``x`` (size n, ...) summed over ``group`` (``size`` ranks), this
+    rank's n rows of dim 0 (rank r's are rows [r n, (r + 1) n))."""
+    import torch.distributed as dist
+
+    global REDUCE_SCATTERS
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
+    # reduce_scatter_single is the newer name of the same call.
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
+        out, x, group=group)
+    REDUCE_SCATTERS += 1
+    return out
+
+
 class TensorParallel(NamedTuple):
     """A sharded model's tp group (``model.tp``): its size, this rank's
     place in it and the process group (None in a layout)."""
@@ -514,14 +556,9 @@ def sum_over_dp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _all_reduce(flat, mesh.group("dp")).reshape(x.shape)
 
 
-def reduce_gradients(params, mesh: Mesh) -> int:
-    """Sum the gradients of ``params`` (those that require grad, in order;
-    a missing gradient counts as zeros) over the dp group, in place: the
-    gradients are packed into flat buckets of one type and device of at
-    most ``GRAD_BUCKET_BYTES`` (one gradient larger than that is a bucket
-    of its own), each all-reduced and copied back. Every rank of a dp group
-    holds the same leaves in the same order, so the buckets match.
-    Returns the number of all-reduces."""
+def _sum_gradients(params, group) -> int:
+    """Sum the gradients of ``params`` over ``group`` in flat buckets, in
+    place (:func:`reduce_gradients`); returns the number of all-reduces."""
     grads = []
     for p in params:
         if not p.requires_grad:
@@ -541,12 +578,31 @@ def reduce_gradients(params, mesh: Mesh) -> int:
         else:
             last.append(g)
             size += nbytes
-    group = mesh.group("dp")
     for bucket in buckets:
         flat = _all_reduce(torch.cat([g.reshape(-1) for g in bucket]), group)
         for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
             g.copy_(part.view_as(g))
     return len(buckets)
+
+
+def reduce_gradients(params, mesh: Mesh) -> int:
+    """Sum the gradients of ``params`` (those that require grad, in order;
+    a missing gradient counts as zeros) over the dp group, in place: the
+    gradients are packed into flat buckets of one type and device of at
+    most ``GRAD_BUCKET_BYTES`` (one gradient larger than that is a bucket
+    of its own), each all-reduced and copied back. Every rank of a dp group
+    holds the same leaves in the same order, so the buckets match.
+    Returns the number of all-reduces."""
+    return _sum_gradients(params, mesh.group("dp"))
+
+
+def sum_over_tp(params, mesh: Mesh) -> int:
+    """Sum the gradients of ``params`` over the tp group, in place, as
+    :func:`reduce_gradients` sums over dp: the sequence-parallel encoder's
+    whole-weight leaves (and any input that requires grad, such as the
+    mel), whose gradient on each tp rank covers its own time rows. Every
+    rank of the tp group gets the same bits. Returns the all-reduces."""
+    return _sum_gradients(params, mesh.group("tp"))
 
 
 # ---------------------------------------------------------------------------
@@ -568,22 +624,87 @@ def seq_rows(mesh: Mesh, t: int) -> slice:
     return slice(min(mesh.tp_rank * c, t), min((mesh.tp_rank + 1) * c, t))
 
 
+class _SplitSeq(torch.autograd.Function):
+    """The time split: this rank's rows of the whole (B, T, d), padded to
+    the block; backward, the block's rows scattered into a zero (B, T, d)
+    (the pad rows' gradient dropped)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        t = x.shape[1]
+        rows = ctx.rows = seq_rows(mesh, t)
+        ctx.shape = x.shape
+        return F.pad(x[:, rows], (0, 0, 0, seq_block(mesh, t)
+                                  - (rows.stop - rows.start)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows = ctx.rows
+        out = grad.new_zeros(ctx.shape)
+        out[:, rows] = grad[:, :rows.stop - rows.start]
+        return out, None
+
+
+def split_seq(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """This tp rank's time rows (:func:`seq_rows`) of the (B, T, d) ``x``
+    every rank holds whole, zero-padded to the block of ``ceil(T / tp)``
+    rows every rank holds (pad rows sit past T in the gathered keys, where
+    K2's valid_len masks them). Its gradient is the block's, scattered
+    into zeros."""
+    return _SplitSeq.apply(x, mesh)
+
+
+class _GatherKV(torch.autograd.Function):
+    """The K/V all-gather over tp; backward, a reduce-scatter over tp."""
+
+    @staticmethod
+    def forward(ctx, kv, mesh):
+        ctx.mesh = mesh
+        return torch.cat(_all_gather(kv, mesh.group("tp"), mesh.tp), dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        two, b, n, h, dh = grad.shape
+        # (2, B, tp c, H, dh) -> (tp 2, B, c, H, dh): rank r's rows first.
+        blocks = grad.reshape(two, b, mesh.tp, n // mesh.tp, h, dh).movedim(2, 0)
+        part = _reduce_scatter(blocks.reshape(mesh.tp * two, b, n // mesh.tp, h, dh),
+                               mesh.group("tp"), mesh.tp)
+        return part, None
+
+
 def gather_kv(mesh: Mesh, k: torch.Tensor, v: torch.Tensor):
     """A sequence-parallel layer's keys and values: this rank's (B, c, H,
     dh) blocks all-gathered over tp (one collective for both) into
     (B, c tp, H, dh) views of one contiguous (2, B, c tp, H, dh) tensor,
     rank r's block at rows [r c, (r + 1) c): the layout K2's TMA maps take
-    (16-byte-aligned bases and strides)."""
-    parts = _all_gather(torch.stack([k, v]), mesh.group("tp"), mesh.tp)
-    kv = torch.cat(parts, dim=2)
+    (16-byte-aligned bases and strides). Under autograd the gradient of
+    the gathered keys and values is reduce-scattered back over tp."""
+    kv = _GatherKV.apply(torch.stack([k, v]), mesh)
     return kv[0], kv[1]
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The output blocks' all-gather over tp; backward, this rank's slice
+    of the whole cotangent (the loss that reads the assembled output is
+    the same on every tp rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, t):
+        ctx.rows = seq_rows(mesh, t)
+        block = F.pad(x, (0, 0, 0, seq_block(mesh, t) - x.shape[1]))
+        return torch.cat(_all_gather(block, mesh.group("tp"), mesh.tp),
+                         dim=1)[:, :t]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:, ctx.rows], None, None
 
 
 def gather_seq(mesh: Mesh, x: torch.Tensor, t: int) -> torch.Tensor:
     """The sequence-parallel encoder's output assembled: this rank's
     (B, rows, d) time block (:func:`seq_rows`) all-gathered over tp into
-    (B, t, d), the same on every rank of the tp group."""
-    c = seq_block(mesh, t)
-    block = F.pad(x, (0, 0, 0, c - x.shape[1]))
-    parts = _all_gather(block, mesh.group("tp"), mesh.tp)
-    return torch.cat(parts, dim=1)[:, :t]
+    (B, t, d), the same on every rank of the tp group. Its gradient is
+    this rank's rows of the output's (a slice, not a reduce-scatter: see
+    the module docstring)."""
+    return _GatherSeq.apply(x, mesh, t)

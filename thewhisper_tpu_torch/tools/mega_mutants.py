@@ -215,8 +215,8 @@ ATTN_BWD_MUTANTS = (
      "mbar_wait(&full[st], ((t / kF32Stages) + !kKeys) & 1);"),
     ("f32-dkv-last-query", "the f32 route's dK and dV leave out the last query of "
      "each tile (its lse read as +inf)",
-     "cl[c] = qi < S ? lse_bh[qi] * kLog2e : INFINITY;",
-     "cl[c] = qi < S && c != kF32Tile - 1 ? lse_bh[qi] * kLog2e : INFINITY;"),
+     "cl[c] = qi < Sq ? lse_bh[qi] * kLog2e : INFINITY;",
+     "cl[c] = qi < Sq && c != kF32Tile - 1 ? lse_bh[qi] * kLog2e : INFINITY;"),
     ("lse-f32", "the f32 route's lse leaves out the row sum",
      "(log2f(l[i]) + m[i] * scale_log2) * kLn2;", "(m[i] * scale_log2) * kLn2;",
      "csrc/encoder_attention.cu"),
@@ -240,8 +240,8 @@ ATTN_BWD_MUTANTS = (
      "MN-major (dO for dV, q for dK, k for dQ; and K2's V)",
      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;", "{%32, %33, %34, %35}, %36, p, 1, 1, 0;",
      "csrc/tc_common.cuh"),
-    ("tc-past-s", "queries past S keep their P: their lse is read past the row",
-     "cl[c] = q < S ? lse_bh[q] * kLog2e : INFINITY;", "cl[c] = lse_bh[q] * kLog2e;"),
+    ("tc-past-s", "queries past S_q keep their P: their lse is read past the row",
+     "cl[c] = q < Sq ? lse_bh[q] * kLog2e : INFINITY;", "cl[c] = lse_bh[q] * kLog2e;"),
     ("tc-dq-keys", "the dQ kernel's last key tile keeps keys >= valid_len",
      "s[j] = frag_col(j, cq) < key_end ? ex2(fmaf(s[j], scale_log2, -row_lse[i])) : 0.0f;",
      "s[j] = ex2(fmaf(s[j], scale_log2, -row_lse[i]));"),
