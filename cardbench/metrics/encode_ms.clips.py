@@ -1,0 +1,8 @@
+"""Device ms of the featurizer and encoder a window (``harness.readers.encode_ms``), in
+the cells that report ``rtfx``."""
+
+from harness.readers import encode_ms
+
+
+def read(ctx):
+    return encode_ms(ctx)
